@@ -1,0 +1,565 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py
+
+Phases, one line each (the kernels phase prints one line per case):
+
+  1. probe   -- nvidia-smi name and power limit, torch, CUDA and nvcc
+               versions.
+  2. build   -- seconds to build the kernels' shared library from
+               ``src/repro_torch/kernels/csrc`` (plus ptxas register use).
+  3. kernels -- each hand-written kernel against its plain PyTorch version
+               on the card, fp32 and bf16, at the main path's shapes:
+               max error against tolerance, kernel / plain / library ms.
+  4. model   -- qwen2-0.5b at FULL width and depth: ``decode_step``
+               through the kernels and through the plain versions on the
+               same seeded weights and cache; logits compared, launches
+               counted per step.
+  5. serve   -- ``ServingEngine`` on qwen2-0.5b FULL in bf16 serves 8
+               chat-trace requests through the port's main entry point;
+               every request must finish with its token count, and every
+               decode step must have launched both kernels.
+
+Then, each on a line of its own: the ``{"kernels": [...]}`` record, the
+card's name and power limit as nvidia-smi prints them, and as the last
+line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
+non-zero before the last line; without a CUDA device, or without the
+repository's ``src/repro_torch`` beside it, the script exits 1 at once.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import re
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+from unittest import mock
+
+ROOT = Path(__file__).resolve().parent
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOPS = 67e12               # H100 SXM fp32 outside the tensor cores
+# kernel vs plain version on the same inputs.  fp32: summation order
+# only (tests/test_kernels.py).  bf16: both sides compute in fp32 and round
+# once, so an element may differ by one rounding flip, at most one bf16
+# ulp <= 2^-7 |value|; atol covers the fp32 differences under a rounding
+# step near 0.  A flip is rare (an H100 read at most 4.9e-4 of bf16
+# elements not bit-equal), so DIFFER_MAX also holds the share of
+# elements that differ: a kernel that rounds bf16 another way stays
+# within one ulp but differs in about half of them (PERF.md, PR 11).
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2.0 ** -7, atol=1e-5)}
+DIFFER_MAX = {"float32": 1.0, "bfloat16": 1e-2}
+# logits after 24 layers, kernels vs plain versions on the same card:
+# the largest abs difference, and the least share of rows whose argmax
+# agrees.  Read on an H100 over seeds 0-5 (PERF.md, PR 11): bf16 0.141 to
+# 0.172 with 22-24 of 24 argmaxes agreeing, fp32 1.8e-5 to 2.5e-5 with
+# all agreeing; a decode-attention kernel that drops the last tile of
+# long rows read 5.7 (17/24) and one that swaps bf16 pairs 6.9 (1/24).
+LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.25}
+ARGMAX_FLOOR = {"float32": 0.95, "bfloat16": 0.8}
+# substrings of cuBLAS / CUTLASS matrix-product kernel names
+GEMM_WORDS = ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk")
+
+
+def fail(msg: str) -> None:
+    raise RuntimeError(msg)
+
+
+def say(phase: str, text: str) -> None:
+    print(f"{phase}: {text}", flush=True)
+
+
+def sync(torch) -> None:
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+# -- 1. probe -----------------------------------------------------------------
+
+def probe(torch) -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    from repro_torch.kernels import build
+    nvcc = build.find_nvcc()
+    nvcc_v = "not found"
+    if nvcc:
+        out = subprocess.run([nvcc, "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+        nvcc_v = out.strip().splitlines()[-1]
+    say("probe", f"{smi} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | nvcc {nvcc_v} | python "
+        f"{sys.version.split()[0]} | devices {torch.cuda.device_count()}")
+    return smi
+
+
+# -- 2. build -----------------------------------------------------------------
+
+def build_phase() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.library()
+    secs = time.perf_counter() - t0
+    log = build.BUILD_DIR / "build.log"
+    usage = []
+    if log.exists():
+        name = None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                short = re.sub(r"^_Z\d+", "", name)[:40]
+                usage.append(f"{short}:{m.group(1)}r")
+                name = None
+    say("build", f"{secs:.1f} s for {build.BUILD_DIR / build.LIB_NAME} "
+        f"(ptxas registers: {' '.join(usage) or 'n/a'})")
+
+
+# -- 3. kernels ---------------------------------------------------------------
+
+def time_ms(torch, fn, inner: int = 20, reps: int = 25) -> float:
+    """Device time of one call: median over ``reps`` runs of ``inner``
+    back-to-back calls between two CUDA events, after warm-up.  A sleep
+    kernel queued first keeps the card busy while the host enqueues the
+    calls, so host launch overhead does not show in the events."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(inner):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2.0e9 * host_s * 2.0) + 100_000
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def compare(torch, got, want, dtype: str, what: str):
+    """Max abs error of ``got`` against ``want`` within TOL[dtype], and
+    the share of elements that are not bit-equal."""
+    differ = float((got != want).float().mean())
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{what}: non-finite output")
+    err = (got - want).abs()
+    tol = TOL[dtype]
+    if bool((err > tol["atol"] + tol["rtol"] * want.abs()).any()):
+        fail(f"{what}: max abs err {float(err.max()):.3e} beyond "
+             f"rtol={tol['rtol']} atol={tol['atol']}")
+    if differ > DIFFER_MAX[dtype]:
+        fail(f"{what}: {differ:.2e} of elements not bit-equal, more than "
+             f"{DIFFER_MAX[dtype]}")
+    return float(err.max()), differ
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rmsnorm_case(torch, F, shape, dtype_name, gen) -> dict:
+    from repro_torch.kernels import rmsnorm
+    dt = getattr(torch, dtype_name)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    w = (1 + 0.1 * torch.randn(shape[-1], generator=gen,
+                               device="cuda")).to(dt)
+    got = rmsnorm.rms_norm(x, w)
+    torch.cuda.synchronize()
+    err, differ = compare(torch, got, rmsnorm.rms_norm_plain(x, w),
+                          dtype_name, f"rmsnorm {shape} {dtype_name}")
+    ms = time_ms(torch, lambda: rmsnorm.rms_norm(x, w))
+    plain_ms = time_ms(torch, lambda: rmsnorm.rms_norm_plain(x, w))
+    lib = getattr(F, "rms_norm", None)
+    library_ms = None if lib is None else time_ms(
+        torch, lambda: lib(x, (shape[-1],), w, 1e-6))
+    nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
+    bound_ms, bound_by = bound(nbytes, 4.0 * x.numel())
+    say("kernels", f"rmsnorm {tuple(shape)} {dtype_name}: max_abs_err "
+        f"{err:.3e} ({tol_text(dtype_name)}), not bit-equal {differ:.2e} "
+        f"| kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
+        f"{'n/a' if library_ms is None else f'{library_ms:.4f}'} ms "
+        f"bound {bound_ms:.5f} ms ({bound_by}, {nbytes} B)")
+    return dict(max_abs_err=err, differ=differ, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def tol_text(dtype_name: str) -> str:
+    return f"rtol {TOL[dtype_name]['rtol']:.3g} atol {TOL[dtype_name]['atol']}"
+
+
+def attention_inputs(torch, B, Hq, Hkv, D, smax, lengths, dt, gen):
+    q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, smax, Hkv, D, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, smax, Hkv, D, generator=gen, device="cuda").to(dt)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, k, v, lens
+
+
+def attention_case(torch, F, shape, lengths, dtype_name, gen,
+                   timed: bool = True) -> dict:
+    from repro_torch.kernels import decode_attention as da
+    B, Hq, Hkv, D, smax = shape
+    dt = getattr(torch, dtype_name)
+    q, k, v, lens = attention_inputs(torch, B, Hq, Hkv, D, smax, lengths,
+                                     dt, gen)
+    got = da.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    what = f"decode_attention {shape} lengths {lengths} {dtype_name}"
+    err, differ = compare(torch, got,
+                          da.decode_attention_plain(q, k, v, lens),
+                          dtype_name, what)
+    if not timed:
+        return dict(max_abs_err=err, differ=differ)
+    ms = time_ms(torch, lambda: da.decode_attention(q, k, v, lens))
+    plain_ms = time_ms(torch, lambda: da.decode_attention_plain(q, k, v,
+                                                                lens))
+    # yardstick: SDPA on K/V repeated to Hq heads, boolean length mask
+    rep = Hq // Hkv
+    qs = q[:, :, None, :]
+    ks = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    vs = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    mask = (torch.arange(smax, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    lib = F.scaled_dot_product_attention
+    library_ms = time_ms(torch, lambda: lib(qs, ks, vs, attn_mask=mask))
+    es = q.element_size()
+    n_kv = sum(min(max(n, 0), smax) for n in lengths)
+    nbytes = n_kv * Hkv * 2 * D * es + 2 * q.numel() * es + 4 * B
+    flops = n_kv * Hq * 4.0 * D
+    bound_ms, bound_by = bound(nbytes, flops)
+    say("kernels", f"decode_attention q {(B, Hq, D)} k/v "
+        f"{(B, smax, Hkv, D)} lengths {lengths} {dtype_name}: max_abs_err "
+        f"{err:.3e} ({tol_text(dtype_name)}), not bit-equal {differ:.2e} "
+        f"| kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms library(SDPA) "
+        f"{library_ms:.4f} ms bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{nbytes} B) | grid {Hkv}x{B} blocks on "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    return dict(max_abs_err=err, differ=differ, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def kernels_phase(torch, F) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for dtype_name in ("float32", "bfloat16"):
+        for shape in ((4, 1, 896), (512, 896), (4, 1, 2048), (512, 2048),
+                      (4, 1, 5120)):    # d of qwen2-0.5b, internlm2, 32b
+            r = rmsnorm_case(torch, F, shape, dtype_name, gen)
+            results[("rmsnorm", shape, dtype_name)] = r
+    lengths = [1, 77, 300, 512]          # 1, not a multiple of 32, Smax
+    for dtype_name in ("float32", "bfloat16"):
+        for shape in ((4, 14, 2, 64, 512),      # qwen2-0.5b, group 7
+                      (4, 16, 8, 128, 512)):    # internlm2-1.8b, group 2
+            r = attention_case(torch, F, shape, lengths, dtype_name, gen)
+            results[("decode_attention", shape, dtype_name)] = r
+    # every group the kernel takes, both head dims, ragged Smax
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for dtype_name in ("float32", "bfloat16"):
+        for D in (64, 128):
+            for group in range(1, 9):
+                r = attention_case(torch, F, (3, 2 * group, 2, D, 70),
+                                   [1, 33, 70], dtype_name, gen,
+                                   timed=False)
+                worst[dtype_name] = max(worst[dtype_name], r["max_abs_err"])
+                n += 1
+    say("kernels", f"decode_attention sweep: {n} cases (group 1-8, D 64 "
+        f"and 128, Smax 70, lengths 1/33/70, fp32 and bf16) all within "
+        f"tolerance, worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
+        f"{worst['bfloat16']:.3e}")
+    return results
+
+
+# -- 4. model -----------------------------------------------------------------
+
+def plain_kernels():
+    """Route the model through the plain versions (comparison only)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import rmsnorm
+    return (mock.patch.object(rmsnorm, "rms_norm", rmsnorm.rms_norm_plain),
+            mock.patch.object(da, "decode_attention",
+                              da.decode_attention_plain))
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import rmsnorm
+    rmsnorm.launches = 0
+    da.launches = 0
+
+
+def counts():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import rmsnorm
+    return rmsnorm.launches, da.launches
+
+
+def model_check(torch, dtype_name: str, seed: int = 0,
+                profile: bool = False) -> dict:
+    """qwen2-0.5b FULL: ``decode_step`` through the kernels and through
+    the plain versions on the same weights, cache and tokens from
+    ``seed``.  Checks launches and logits' shape and finiteness; returns
+    the logits' max abs difference, max |logit|, argmax agreement and
+    wall ms per step (the comparison limits are the caller's)."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(C.get_config("qwen2-0.5b"), dtype=dtype_name)
+    R = cfg.block_repeat
+    per_step = (2 * R + 1, R)
+    B, max_len, steps = 4, 512, 6
+    start_lens = [0, 37, 200, 500]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = T.init_params(gen, cfg, device=DEVICE)
+    cache = T.init_cache(cfg, B, max_len, device=DEVICE)
+    for lc in cache["blocks"].values():
+        for t in lc.values():
+            t.normal_(generator=gen)
+    cache["len"] = torch.tensor(start_lens, dtype=torch.int32, device=DEVICE)
+    plain_cache = {"blocks": {s: {n: t.clone() for n, t in lc.items()}
+                              for s, lc in cache["blocks"].items()},
+                   "len": cache["len"].clone()}
+    toks = torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    worst, scale, agree = 0.0, 0.0, 0
+    t_kern = t_plain = 0.0
+    for s in range(steps):
+        reset_counts()
+        sync(torch)
+        t0 = time.perf_counter()
+        logits, cache = T.decode_step(params, cfg, toks[s], cache)
+        sync(torch)
+        if s:                            # step 0 pays one-time set-up
+            t_kern += time.perf_counter() - t0
+        if counts() != per_step:
+            fail(f"model {dtype_name}: launches {counts()} in one "
+                 f"decode_step, expected {per_step}")
+        p1, p2 = plain_kernels()
+        with p1, p2:
+            t0 = time.perf_counter()
+            plain, plain_cache = T.decode_step(params, cfg, toks[s],
+                                               plain_cache)
+            sync(torch)
+            if s:
+                t_plain += time.perf_counter() - t0
+        if counts() != per_step:
+            fail("model: the plain run launched a kernel")
+        if tuple(logits.shape) != (B, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            fail(f"model {dtype_name}: bad logits {logits.shape}")
+        worst = max(worst, float((logits.float() - plain.float()).abs().max()))
+        scale = max(scale, float(plain.float().abs().max()))
+        agree += int((logits.argmax(-1) == plain.argmax(-1)).sum())
+    if profile:
+        profile_steps(torch, T, params, cfg, cache, toks[:5])
+    del params, cache, plain_cache
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, batch=B, start_lens=start_lens, steps=steps,
+                per_step=per_step, worst=worst, scale=scale, agree=agree,
+                rows=B * steps, ms_kernels=t_kern / (steps - 1) * 1e3,
+                ms_plain=t_plain / (steps - 1) * 1e3)
+
+
+def model_phase(torch) -> None:
+    for dtype_name in ("float32", "bfloat16"):
+        r = model_check(torch, dtype_name,
+                        profile=dtype_name == "bfloat16")
+        tol, floor = LOGIT_TOL[dtype_name], ARGMAX_FLOOR[dtype_name]
+        readings = (f"logits max_abs_err kernels vs plain {r['worst']:.3e} "
+                    f"(tol {tol}, max|logit| {r['scale']:.3e}), argmax "
+                    f"agree {r['agree']}/{r['rows']} (floor {floor:.0%})")
+        if r["worst"] > tol or r["agree"] < floor * r["rows"]:
+            fail(f"model {dtype_name}: {readings}")
+        cfg = r["cfg"]
+        say("model", f"qwen2-0.5b FULL ({cfg.block_repeat} layers, d "
+            f"{cfg.d_model}, vocab {cfg.vocab_size}) {dtype_name} batch "
+            f"{r['batch']} lens {r['start_lens']}+{r['steps']} steps: "
+            f"{readings}, launches/step rmsnorm {r['per_step'][0]} "
+            f"decode_attention {r['per_step'][1]}, wall per step after the "
+            f"first {r['ms_kernels']:.2f} ms kernels / {r['ms_plain']:.2f} "
+            f"ms plain")
+
+
+def profile_steps(torch, T, params, cfg, cache, toks) -> None:
+    """Where a decode step's time goes: wall time per step without and
+    with torch.profiler, and the profiled device time by kernel family
+    (busy share = device kernel time / wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    steps = toks.shape[0]
+    sync(torch)
+    t0 = time.perf_counter()
+    for s in range(steps):
+        _, cache = T.decode_step(params, cfg, toks[s], cache)
+    sync(torch)
+    wall = (time.perf_counter() - t0) / steps
+    cache["len"] = cache["len"] - steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for s in range(steps):
+            _, cache = T.decode_step(params, cfg, toks[s], cache)
+        sync(torch)
+        wall_prof = (time.perf_counter() - t0) / steps
+    families = {"gemm": 0.0, "decode_attention": 0.0, "rmsnorm": 0.0,
+                "other": 0.0}
+    per_kernel = []
+    n_kernels = 0
+    for e in prof.key_averages():
+        if "cuda" not in str(e.device_type).lower():
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        n_kernels += e.count
+        name = e.key.lower()
+        fam = ("decode_attention" if "decode_attention" in name else
+               "rmsnorm" if "rmsnorm" in name else
+               "gemm" if any(w in name for w in GEMM_WORDS) else "other")
+        families[fam] += us / 1e3 / steps
+        per_kernel.append((us / 1e3 / steps, e.count // steps, e.key))
+    busy = sum(families.values())
+    if busy <= 0:
+        say("profile", f"decode_step wall {wall * 1e3:.2f} ms; device time "
+            f"not measured (the profiler saw no device kernels)")
+        return
+    say("profile", f"qwen2-0.5b FULL bf16 decode_step, batch 4: wall "
+        f"{wall * 1e3:.2f} ms/step ({wall_prof * 1e3:.2f} ms under the "
+        f"profiler), device kernels {busy:.3f} ms/step "
+        f"({n_kernels / steps:.0f} launches/step, busy share "
+        f"{busy / (wall_prof * 1e3):.1%} of profiled wall, "
+        f"{busy / (wall * 1e3):.1%} of unprofiled): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in families.items()))
+    top = sorted(per_kernel, reverse=True)[:6]
+    say("profile", "top kernels by device ms/step: " + "; ".join(
+        f"{name[:60]} x{n} {ms:.3f} ms" for ms, n, name in top))
+
+
+# -- 5. serve -----------------------------------------------------------------
+
+def serve_phase(torch, smi: str):
+    from repro_torch.launch.serve import serve
+    from repro_torch import configs as C
+    vocab = C.get_config("qwen2-0.5b").vocab_size
+    reset_counts()
+    report, reqs = serve(arch="qwen2-0.5b", size="full", requests=8,
+                         max_batch=4, max_len=512, prompt_cap=128,
+                         gen_cap=64, seed=0, device=DEVICE,
+                         log=lambda s: None)
+    launched = counts()
+    if len(report.results) != len(reqs):
+        fail(f"serve: {len(report.results)} of {len(reqs)} finished")
+    by_rid = {r["rid"]: r for r in reqs}
+    for res in report.results:
+        want = max(by_rid[res.rid]["gen_len"], 2)
+        if len(res.tokens) != want:
+            fail(f"serve: rid {res.rid} gave {len(res.tokens)} tokens, "
+                 f"expected {want}")
+        if not all(0 <= t < vocab for t in res.tokens):
+            fail(f"serve: rid {res.rid} has a token outside the vocab")
+    steps = report.iterations + sum(len(r["prompt"]) for r in reqs)
+    R = C.get_config("qwen2-0.5b").block_repeat
+    if report.preemptions == 0 and launched != ((2 * R + 1) * steps,
+                                                R * steps):
+        fail(f"serve: launches {launched} for {steps} decode steps, "
+             f"expected {((2 * R + 1) * steps, R * steps)}")
+    if min(launched) <= 0:
+        fail(f"serve: a kernel was never launched: {launched}")
+    say("serve", f"qwen2-0.5b FULL bf16 on {smi}: {len(report.results)} "
+        f"requests (prompts {[len(r['prompt']) for r in reqs]}, gen "
+        f"{[r['gen_len'] for r in reqs]}) in {report.total_time:.3f} s, "
+        f"{report.iterations} iterations + "
+        f"{steps - report.iterations} prefill steps, "
+        f"{report.preemptions} preemptions | TTFT mean "
+        f"{report.ttft_mean * 1e3:.1f} ms TPOT mean "
+        f"{report.tpot_mean * 1e3:.2f} ms throughput "
+        f"{report.throughput:.1f} tok/s | launches rmsnorm {launched[0]} "
+        f"decode_attention {launched[1]}")
+    return launched
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found; run "
+              f"from a checkout of the repository", file=sys.stderr)
+        return 1
+    if shutil.which("nvidia-smi") is None:
+        print("chip_smoke: nvidia-smi not found", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.nn.functional as F
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    smi = probe(torch)
+    build_phase()
+    results = kernels_phase(torch, F)
+    model_phase(torch)
+    launched = serve_phase(torch, smi)
+
+    main_path = {"rmsnorm": ((4, 1, 896), launched[0]),
+                 "decode_attention": ((4, 14, 2, 64, 512), launched[1])}
+    meta = {
+        "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/rmsnorm.py:26"),
+        "decode_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention/decode_attention.py:76"),
+    }
+    kernels = []
+    for name, (shape, n) in main_path.items():
+        r = results[(name, shape, "bfloat16")]
+        source, replaces = meta[name]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    for k in kernels:
+        if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
+                                                 "bound_ms", "max_abs_err")):
+            fail(f"kernels: non-finite number in {k}")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

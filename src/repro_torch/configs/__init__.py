@@ -1,0 +1,44 @@
+"""Architecture registry of the port: one module per architecture, each
+exporting ``FULL`` (the published dims) and ``REDUCED`` (a same-family
+miniature for CPU tests), copied from ``repro/configs``.
+
+This slice carries the dense GQA decoders only; the other architectures of
+the JAX registry arrive with the slices that port their layers.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.models.config import ModelConfig
+
+ARCHS: List[str] = [
+    "internlm2_1_8b",
+    "qwen2_0_5b",
+    "qwen1_5_32b",
+]
+
+# canonical ids as given in the assignment -> module names
+ALIASES = {
+    "internlm2-1.8b": "internlm2_1_8b",
+    "qwen2-0.5b": "qwen2_0_5b",
+    "qwen1.5-32b": "qwen1_5_32b",
+}
+
+
+def _module(name: str):
+    mod = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod not in ARCHS:
+        raise KeyError(f"unknown or not yet ported arch {name!r}; "
+                       f"known: {sorted(ALIASES)}")
+    return importlib.import_module(f"repro_torch.configs.{mod}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _module(name).FULL
+
+
+def get_reduced(name: str) -> ModelConfig:
+    return _module(name).REDUCED
+

@@ -1,0 +1,10 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version.
+
+  * ``rmsnorm``          -- replaces ``repro/kernels/rmsnorm``
+  * ``decode_attention`` -- replaces ``repro/kernels/decode_attention``
+
+``build`` compiles ``csrc/*.cu`` with nvcc into one shared library at
+first launch on a CUDA tensor.  The flash-attention and SSD-scan kernels
+of the JAX package are not ported yet.
+"""

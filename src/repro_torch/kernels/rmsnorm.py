@@ -1,0 +1,80 @@
+"""RMSNorm: the port of ``repro/kernels/rmsnorm`` (``rms_norm_pallas``).
+
+``rms_norm`` launches the CUDA kernel of ``csrc/rmsnorm.cu`` on a CUDA
+tensor and runs the plain PyTorch version ``rms_norm_plain`` on a CPU
+tensor.  There is no fallback: a CUDA tensor the kernel does not take
+raises.  ``launches`` counts kernel launches in this process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+launches = 0
+
+MAX_D = 8192
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+             ctypes.c_int, ctypes.c_void_p)
+
+
+def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm over the last axis; compute in fp32, cast back
+    (``repro/layers/norms.py:rms_norm``)."""
+    dtype = x.dtype
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * (var + eps) ** -0.5
+    return (y * weight.float()).to(dtype)
+
+
+def check_kernel_args(x: torch.Tensor, weight: torch.Tensor) -> None:
+    """Raise ``ValueError`` on inputs the CUDA kernel does not take."""
+    for name, t in (("x", x), ("weight", weight)):
+        if t.dtype not in _DTYPE_CODES:
+            raise ValueError(f"rms_norm kernel: {name} dtype {t.dtype} not "
+                             f"in {sorted(map(str, _DTYPE_CODES))}")
+        if not t.is_contiguous():
+            raise ValueError(f"rms_norm kernel: {name} must be contiguous")
+    if weight.device != x.device:
+        raise ValueError(f"rms_norm kernel: weight on {weight.device}, "
+                         f"x on {x.device}")
+    if x.dim() < 1:
+        raise ValueError("rms_norm kernel: x must have a last axis")
+    d = x.shape[-1]
+    if tuple(weight.shape) != (d,):
+        raise ValueError(f"rms_norm kernel: weight shape "
+                         f"{tuple(weight.shape)} != ({d},)")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"rms_norm kernel: d={d} outside [1, {MAX_D}]")
+    if x.numel() // d >= 2 ** 31:
+        raise ValueError("rms_norm kernel: too many rows")
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm of ``x (..., d)`` by ``weight (d,)``, in x's dtype."""
+    global launches
+    if x.device.type == "cpu":
+        return rms_norm_plain(x, weight, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"rms_norm: unsupported device {x.device}")
+    check_kernel_args(x, weight)
+    out = torch.empty_like(x)
+    rows = x.numel() // x.shape[-1]
+    if rows == 0:
+        return out
+    fn = build.kernel("apex_rmsnorm", _ARGTYPES)
+    err = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows,
+             x.shape[-1], eps, _DTYPE_CODES[x.dtype],
+             _DTYPE_CODES[weight.dtype],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "apex_rmsnorm")
+    launches += 1
+    return out

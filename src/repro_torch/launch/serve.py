@@ -1,0 +1,82 @@
+"""Serving entry point of the port: run the real engine on one card.
+
+Builds a config (default qwen2-0.5b at its FULL published size), draws
+random weights from a seeded ``torch.Generator``, serves chat-trace
+requests through ``ServingEngine`` and prints TTFT, TPOT and throughput.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
+        --requests 8
+
+The APEX plan-search half of ``repro/launch/serve.py`` needs the
+simulator, which the port does not import yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import List, Tuple
+
+import torch
+
+from repro_torch import configs as C
+from repro_torch.data.requests import make_serving_requests
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import EngineReport, ServingEngine
+
+
+def serve(arch: str = "qwen2-0.5b", size: str = "full",
+          trace: str = "chat", requests: int = 8, max_batch: int = 4,
+          max_len: int = 512, prompt_cap: int = 128, gen_cap: int = 64,
+          seed: int = 0, device=None, log=print
+          ) -> Tuple[EngineReport, List[dict]]:
+    """Serve ``requests`` synthetic requests, all arriving at t=0; returns
+    the engine's report and the requests as served (prompts cut to
+    ``prompt_cap`` tokens, ``gen_len`` to ``gen_cap``)."""
+    if size not in ("full", "reduced"):
+        raise ValueError(f"size must be 'full' or 'reduced', got {size!r}")
+    dev = resolve_device(device)
+    cfg = C.get_config(arch) if size == "full" else C.get_reduced(arch)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = T.init_params(gen, cfg, device=dev)
+    # the engine runs at time_scale=0.0, which moves every arrival to t=0,
+    # so the rate is a placeholder: prompts and gen_len do not depend on it
+    reqs = make_serving_requests(trace, 1.0, requests, cfg.vocab_size,
+                                 seed=seed, max_len=prompt_cap)
+    for r in reqs:
+        r["gen_len"] = min(r["gen_len"], gen_cap)
+    engine = ServingEngine(cfg, params, max_batch=max_batch,
+                           max_len=max_len, device=dev)
+    report = engine.run(reqs, time_scale=0.0)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    log(f"engine [{cfg.name} {cfg.dtype} on {name}]: "
+        f"{len(report.results)} requests in {report.total_time:.3f}s, "
+        f"{report.iterations} iterations, "
+        f"TTFT {report.ttft_mean * 1e3:.1f}ms "
+        f"TPOT {report.tpot_mean * 1e3:.2f}ms "
+        f"throughput {report.throughput:.1f} tok/s")
+    return report, reqs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    choices=sorted(C.ALIASES))
+    ap.add_argument("--size", default="full", choices=("full", "reduced"))
+    ap.add_argument("--trace", default="chat")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=512)
+    ap.add_argument("--prompt-cap", type=int, default=128)
+    ap.add_argument("--gen-cap", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (raises without a card)")
+    args = ap.parse_args(argv)
+    serve(args.arch, args.size, args.trace, args.requests, args.max_batch,
+          args.max_len, args.prompt_cap, args.gen_cap, args.seed,
+          args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,222 @@
+"""Dense decoder of the port (``repro/models/transformer.py``, dense path).
+
+Parameters are an ``nn.Module`` tree that mirrors the reference's pytree:
+``embed``, ``final_norm``, optional ``head``, and ``blocks``, a
+``ModuleList`` of ``block_repeat`` blocks, each a ``ModuleDict`` of
+``DecoderLayer``s keyed ``l0``, ``l1``, ... by block-pattern slot.  The
+reference stacks block parameters on a leading R axis for ``lax.scan``;
+here the scan is a loop over the R block modules.
+
+The cache keeps the reference's layout: per pattern slot ``k``/``v`` of
+shape (R, B, Smax, Hkv, D), plus ``len`` (B,) int32.  ``decode_step``
+writes the new K/V rows into it in place.
+
+Only dense GQA decoders are ported in this slice: SSM, MLA, MoE (or no)
+FFN, cross-attention, shared attention, first-k-dense prefixes and
+embedding inputs raise ``NotImplementedError``; the full-sequence ``forward``
+arrives with the flash-attention kernel.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.device import torch_dtype
+from repro_torch.layers import (gqa_decode_step, init_attention, init_mlp,
+                                mlp_forward, rms_norm)
+from repro_torch.layers.mlp import normal_param
+from .config import LayerSpec, ModelConfig
+
+
+def ring_size(window: int, multiple: int = 16) -> int:
+    """Sliding-window ring-cache size: window+1 rounded up for sharding."""
+    return -(-(window + 1) // multiple) * multiple
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what this slice does not port."""
+    missing = []
+    if any(s.kind != "attn" for s in cfg.block_pattern):
+        missing.append("SSM layers")
+    if cfg.attn_kind != "gqa":
+        missing.append(f"attn_kind={cfg.attn_kind!r}")
+    if cfg.ffn_kind != "dense":
+        missing.append(f"ffn_kind={cfg.ffn_kind!r}")
+    if cfg.cross_attn or cfg.encoder is not None:
+        missing.append("cross-attention / encoder")
+    if cfg.shared_attn:
+        missing.append("shared attention")
+    if cfg.first_k_dense:
+        missing.append("first_k_dense prefix blocks")
+    if cfg.embeds_input:
+        missing.append("embedding inputs")
+    if cfg.rope not in ("rope", "none"):
+        missing.append(f"rope={cfg.rope!r}")
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: not ported yet: "
+                                  + ", ".join(missing))
+
+
+def _ones(d: int, dtype: torch.dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.ones(d, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+class DecoderLayer(nn.Module):
+    """One attention + FFN layer: ``norm1``, ``attn``, ``norm2``, ``ffn``."""
+
+    def __init__(self, norm1: nn.Parameter, attn: nn.ParameterDict,
+                 norm2: nn.Parameter, ffn: nn.ParameterDict):
+        super().__init__()
+        self.norm1 = norm1
+        self.attn = attn
+        self.norm2 = norm2
+        self.ffn = ffn
+
+
+class Transformer(nn.Module):
+    """Parameter tree of a dense decoder (see the module docstring)."""
+
+    def __init__(self, embed: nn.Parameter, final_norm: nn.Parameter,
+                 blocks: nn.ModuleList,
+                 head: Optional[nn.Parameter] = None):
+        super().__init__()
+        self.embed = embed
+        self.final_norm = final_norm
+        self.blocks = blocks
+        self.head = head
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig,
+                device=None) -> Transformer:
+    """Random parameters with the reference's shapes and scales (not its
+    values: ``jax.random`` draws cannot be reproduced with torch).  Draws
+    happen on ``gen``'s device; the tensors land on ``device`` in
+    ``cfg.dtype``.  To compute on the reference's weights, convert them
+    with ``repro_torch.convert.params_from_jax``."""
+    cfg.validate()
+    check_supported(cfg)
+    dt = torch_dtype(cfg.dtype)
+    d = cfg.d_model
+    embed = normal_param(gen, (cfg.vocab_size, d), 1.0 / math.sqrt(d), dt,
+                         device)
+    head = None
+    if not cfg.tie_embeddings:
+        head = normal_param(gen, (d, cfg.vocab_size), 1.0 / math.sqrt(d),
+                            dt, device)
+
+    def layer() -> DecoderLayer:
+        attn = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                              cfg.resolved_head_dim, cfg.qkv_bias, dtype=dt,
+                              device=device)
+        ffn = init_mlp(gen, d, cfg.d_ff, cfg.ffn_gated, dtype=dt,
+                       device=device)
+        return DecoderLayer(_ones(d, dt, device), attn,
+                            _ones(d, dt, device), ffn)
+
+    blocks = nn.ModuleList(
+        nn.ModuleDict({f"l{i}": layer()
+                       for i in range(len(cfg.block_pattern))})
+        for _ in range(cfg.block_repeat))
+    return Transformer(embed, _ones(d, dt, device), blocks, head)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None, cache_dtype=None) -> dict:
+    """All-zero cache: per pattern slot ``k``/``v`` (R, B, Smax, Hkv, D),
+    ``Smax = max_len`` for full attention and ``min(max_len,
+    ring_size(window))`` for sliding-window layers; ``len`` (B,) int32."""
+    check_supported(cfg)
+    dt = torch_dtype(cache_dtype if cache_dtype is not None else cfg.dtype)
+    R = cfg.block_repeat
+    hd = cfg.resolved_head_dim
+
+    def layer_cache(spec: LayerSpec) -> dict:
+        kv_len = max_len if spec.window is None \
+            else min(max_len, ring_size(spec.window))
+        shape = (R, batch, kv_len, cfg.n_kv_heads, hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    return {
+        "blocks": {f"l{i}": layer_cache(spec)
+                   for i, spec in enumerate(cfg.block_pattern)},
+        "len": torch.zeros(batch, dtype=torch.int32, device=device),
+    }
+
+
+def _layer_decode(cfg: ModelConfig, spec: LayerSpec, p: DecoderLayer,
+                  x: torch.Tensor, cache_k: torch.Tensor,
+                  cache_v: torch.Tensor,
+                  cache_len: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, p.norm1)
+    y, _, _ = gqa_decode_step(
+        p.attn, h, cache_k, cache_v, cache_len,
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, window=spec.window,
+        rope=cfg.rope, rope_theta=cfg.rope_theta)
+    x = x + y
+    return x + mlp_forward(p.ffn, rms_norm(x, p.norm2))
+
+
+def _no_embeds(embeds: Optional[torch.Tensor]) -> None:
+    if embeds is not None:
+        raise NotImplementedError("embedding inputs are not ported yet")
+
+
+@torch.no_grad()
+def decode_step(params: Transformer, cfg: ModelConfig,
+                tokens: torch.Tensor, cache: dict,
+                embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, dict]:
+    """One serving step: (B, 1) token ids + cache -> logits (B, vocab) and
+    the cache with ``len`` advanced by one.
+
+    The K/V tensors of ``cache`` are updated in place and shared by the
+    returned cache; only ``len`` is a new tensor.
+    """
+    check_supported(cfg)
+    _no_embeds(embeds)
+    x = params.embed[tokens]
+    cache_len = cache["len"]
+    for r, blk in enumerate(params.blocks):
+        for i, spec in enumerate(cfg.block_pattern):
+            lc = cache["blocks"][f"l{i}"]
+            x = _layer_decode(cfg, spec, blk[f"l{i}"], x, lc["k"][r],
+                              lc["v"][r], cache_len)
+    x = rms_norm(x, params.final_norm)
+    head = params.embed.T if cfg.tie_embeddings else params.head
+    new_cache = dict(cache, len=cache_len + 1)
+    return (x @ head)[:, 0, :], new_cache
+
+
+@torch.no_grad()
+def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+            max_len: int, embeds: Optional[torch.Tensor] = None,
+            lengths: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, dict]:
+    """Build the cache by replaying the prompt through ``decode_step``,
+    one token at a time, as the reference does.
+
+    tokens: (B, S) right-padded; lengths: (B,) true lengths (default S).
+    Returns (last-token logits (B, vocab), populated cache).
+    """
+    _no_embeds(embeds)
+    B, S = tokens.shape[:2]
+    device = tokens.device
+    cache = init_cache(cfg, B, max_len, device=device)
+    if lengths is None:
+        lengths = torch.full((B,), S, dtype=torch.int32, device=device)
+    all_logits = []
+    for t in range(S):
+        logits, cache = decode_step(params, cfg, tokens[:, t:t + 1], cache)
+        all_logits.append(logits)
+    # len advanced S times; clamp to the true lengths
+    cache["len"] = lengths.to(device=device, dtype=torch.int32)
+    stacked = torch.stack(all_logits)                      # (S, B, vocab)
+    last = stacked[lengths.long() - 1, torch.arange(B, device=device)]
+    return last, cache
