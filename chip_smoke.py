@@ -3,25 +3,46 @@
 
     python3 chip_smoke.py
 
-Phases, one line each (the kernels phase prints one line per case):
+Phases, one line each (the kernels phases print one line per case):
 
   1. probe   -- nvidia-smi name and power limit, torch, CUDA and nvcc
                versions.
   2. build   -- seconds to build the kernels' shared library from
                ``src/repro_torch/kernels/csrc`` (plus ptxas register use).
-  3. kernels -- each hand-written kernel against its plain PyTorch version
-               on the card, fp32 and bf16, at the main path's shapes:
-               max error against tolerance, kernel / plain / library ms.
+  3. kernels -- the RMSNorm and decode-attention kernels against their
+               plain PyTorch versions on the card, fp32 and bf16, at the
+               main paths' shapes: max error against tolerance, kernel /
+               plain / library ms.
   4. model   -- qwen2-0.5b at FULL width and depth: ``decode_step``
                through the kernels and through the plain versions on the
                same seeded weights and cache; logits compared, launches
                counted per step.
   5. serve   -- ``ServingEngine`` on qwen2-0.5b FULL in bf16 serves 8
-               chat-trace requests through the port's main entry point;
-               every request must finish with its token count, and every
-               decode step must have launched both kernels.
+               chat-trace requests through the port's serving entry
+               point; every request must finish with its token count, and
+               every decode step must have launched both decode kernels.
+  6. flash   -- the flash-attention kernel's ``out`` and ``lse`` against
+               ``flash_attention_plain`` on the card, fp32 and bf16: the
+               training shape of qwen2-0.5b, internlm2-1.8b's heads, a
+               ragged length, a sliding window, a prefix offset, and an
+               untimed sweep of head dims and groups; per timed case the
+               max errors against tolerance, kernel / plain / SDPA /
+               bound ms.
+  7. train   -- ``launch.train.train`` trains qwen2-0.5b FULL in bf16 for
+               5 steps (global batch 8 x 1024 tokens, 2 microbatches,
+               remat) through the port's training entry point: loss and
+               grad norm per step, ms per step, tokens/s and peak memory;
+               every loss and norm finite, and exactly the flash and
+               RMSNorm launches the step implies.  Then train parity: one
+               step from the same weights and batch through the kernels
+               and through the plain versions, fp32 and bf16, comparing
+               loss, grad norm and the updated fp32 masters; and a
+               profiled bf16 step.
 
-Then, each on a line of its own: the ``{"kernels": [...]}`` record, the
+Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
+entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
+``rmsnorm/train``, ``flash_attention/train``, each with that path's
+launches and the kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device, or without the
@@ -30,6 +51,7 @@ repository's ``src/repro_torch`` beside it, the script exits 1 at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -64,6 +86,22 @@ DIFFER_MAX = {"float32": 1.0, "bfloat16": 1e-2}
 # long rows read 5.7 (17/24) and one that swaps bf16 pairs 6.9 (1/24).
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.25}
 ARGMAX_FLOOR = {"float32": 0.95, "bfloat16": 0.8}
+# one train step of qwen2-0.5b FULL (batch 8 x 1024, 2 microbatches,
+# remat) through the kernels vs the plain versions, from the same weights
+# and batch: |loss difference|, relative grad-norm difference, and the
+# L2 norm of the updated fp32 masters' difference over that of the
+# update.  Read on an H100 over seeds 0-2 (PERF.md): fp32 loss 0, grad
+# norm 6.9e-8 to 7.8e-8, masters 2.5e-5 to 3.0e-5; bf16 loss 2.2e-5 to
+# 2.3e-4, grad norm 1.0e-4 to 2.4e-4, masters 0.037 to 0.044 (a first
+# Adam update is +-lr per element, and bf16 gradients near 0 flip its
+# sign).  Controls, fp32 / bf16: a flash kernel that drops the last KV
+# tile read loss 8.2e-3 / 8.8e-3, grad norm 0.31, masters 0.54 / 0.54;
+# one whose lse is 0.01 high (the backward only) loss 0 / 2.3e-4, grad
+# norm 2.1e-2, masters 0.065 / 0.073.  In bf16 the masters limit
+# catches the first control only; the grad norm catches both.
+TRAIN_TOL = {"float32": dict(loss=1e-5, gnorm=1e-5, master=3e-4),
+             "bfloat16": dict(loss=2e-3, gnorm=2e-3, master=0.1)}
+BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
 # substrings of cuBLAS / CUTLASS matrix-product kernel names
 GEMM_WORDS = ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk")
 
@@ -267,7 +305,8 @@ def kernels_phase(torch, F) -> dict:
     results = {}
     for dtype_name in ("float32", "bfloat16"):
         for shape in ((4, 1, 896), (512, 896), (4, 1, 2048), (512, 2048),
-                      (4, 1, 5120)):    # d of qwen2-0.5b, internlm2, 32b
+                      (4, 1, 5120),     # d of qwen2-0.5b, internlm2, 32b
+                      (4, 1024, 896)):  # qwen2-0.5b training microbatch
             r = rmsnorm_case(torch, F, shape, dtype_name, gen)
             results[("rmsnorm", shape, dtype_name)] = r
     lengths = [1, 77, 300, 512]          # 1, not a multiple of 32, Smax
@@ -296,26 +335,35 @@ def kernels_phase(torch, F) -> dict:
 
 # -- 4. model -----------------------------------------------------------------
 
+@contextlib.contextmanager
 def plain_kernels():
     """Route the model through the plain versions (comparison only)."""
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm
-    return (mock.patch.object(rmsnorm, "rms_norm", rmsnorm.rms_norm_plain),
+    with mock.patch.object(rmsnorm, "rms_norm", rmsnorm.rms_norm_plain), \
             mock.patch.object(da, "decode_attention",
-                              da.decode_attention_plain))
+                              da.decode_attention_plain), \
+            mock.patch.object(fa, "flash_attention",
+                              fa.flash_attention_plain):
+        yield
+
+
+def kernel_modules():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm
+    return rmsnorm, da, fa
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import rmsnorm
-    rmsnorm.launches = 0
-    da.launches = 0
+    for mod in kernel_modules():
+        mod.launches = 0
 
 
 def counts():
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import rmsnorm
-    return rmsnorm.launches, da.launches
+    """Launches of (rmsnorm, decode_attention, flash_attention)."""
+    return tuple(mod.launches for mod in kernel_modules())
 
 
 def model_check(torch, dtype_name: str, seed: int = 0,
@@ -331,7 +379,7 @@ def model_check(torch, dtype_name: str, seed: int = 0,
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(C.get_config("qwen2-0.5b"), dtype=dtype_name)
     R = cfg.block_repeat
-    per_step = (2 * R + 1, R)
+    per_step = (2 * R + 1, R, 0)
     B, max_len, steps = 4, 512, 6
     start_lens = [0, 37, 200, 500]
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -359,8 +407,7 @@ def model_check(torch, dtype_name: str, seed: int = 0,
         if counts() != per_step:
             fail(f"model {dtype_name}: launches {counts()} in one "
                  f"decode_step, expected {per_step}")
-        p1, p2 = plain_kernels()
-        with p1, p2:
+        with plain_kernels():
             t0 = time.perf_counter()
             plain, plain_cache = T.decode_step(params, cfg, toks[s],
                                                plain_cache)
@@ -486,10 +533,10 @@ def serve_phase(torch, smi: str):
     steps = report.iterations + sum(len(r["prompt"]) for r in reqs)
     R = C.get_config("qwen2-0.5b").block_repeat
     if report.preemptions == 0 and launched != ((2 * R + 1) * steps,
-                                                R * steps):
+                                                R * steps, 0):
         fail(f"serve: launches {launched} for {steps} decode steps, "
-             f"expected {((2 * R + 1) * steps, R * steps)}")
-    if min(launched) <= 0:
+             f"expected {((2 * R + 1) * steps, R * steps, 0)}")
+    if min(launched[:2]) <= 0:
         fail(f"serve: a kernel was never launched: {launched}")
     say("serve", f"qwen2-0.5b FULL bf16 on {smi}: {len(report.results)} "
         f"requests (prompts {[len(r['prompt']) for r in reqs]}, gen "
@@ -502,6 +549,277 @@ def serve_phase(torch, smi: str):
         f"{report.throughput:.1f} tok/s | launches rmsnorm {launched[0]} "
         f"decode_attention {launched[1]}")
     return launched
+
+
+# -- 6. flash -----------------------------------------------------------------
+
+# (B, Sq, Skv, Hq, Hkv, D, window, q_offset)
+FLASH_MAIN = (4, 1024, 1024, 14, 2, 64, None, 0)   # qwen2-0.5b training
+FLASH_CASES = (
+    FLASH_MAIN,
+    (2, 1024, 1024, 16, 8, 128, None, 0),          # internlm2-1.8b heads
+    (1, 257, 257, 2, 1, 16, None, 0),              # ragged length
+    (2, 300, 300, 8, 2, 32, 37, 0),                # sliding window 37
+    (2, 100, 357, 14, 2, 64, None, 257),           # prefix: Sq < Skv
+)
+
+
+def flash_inputs(torch, case, dt, gen):
+    B, Sq, Skv, Hq, Hkv, D, _, _ = case
+    q = torch.randn(B, Sq, Hq, D, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda").to(dt)
+    return q, k, v
+
+
+def flash_case(torch, F, case, dtype_name, gen, timed: bool = True) -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    B, Sq, Skv, Hq, Hkv, D, window, q_offset = case
+    dt = getattr(torch, dtype_name)
+    q, k, v = flash_inputs(torch, case, dt, gen)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out, lse = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, **kw)
+    what = f"flash_attention {case} {dtype_name}"
+    err, differ = compare(torch, out, want_out, dtype_name, what)
+    lse_err, _ = compare(torch, lse, want_lse, "float32", what + " lse")
+    if not timed:
+        return dict(max_abs_err=max(err, lse_err))
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), inner=5,
+                 reps=11)
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v,
+                                                               **kw),
+                       inner=2, reps=5)
+    # yardstick: SDPA in its (B, H, S, D) layout, GQA without repeat
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = fa.attention_mask(Sq, Skv, causal=True, window=window,
+                             q_offset=q_offset, device="cuda")
+    if window is None and q_offset == 0 and Sq == Skv:
+        sdpa = dict(is_causal=True)
+    else:
+        sdpa = dict(attn_mask=mask)
+    library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, enable_gqa=True, **sdpa), inner=5, reps=11)
+    pairs = int(mask.sum())
+    es = q.element_size()
+    nbytes = 2 * (q.numel() + k.numel()) * es + 4 * lse.numel()
+    flops = 4.0 * D * pairs * B * Hq
+    peak = BF16_FLOPS if dtype_name == "bfloat16" else FP32_FLOPS
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
+                          else (t_bytes, "bytes"))
+    say("flash", f"q {(B, Sq, Hq, D)} k/v {(B, Skv, Hkv, D)} window "
+        f"{window} q_offset {q_offset} {dtype_name}: max_abs_err out "
+        f"{err:.3e} ({tol_text(dtype_name)}), not bit-equal {differ:.2e}, "
+        f"lse {lse_err:.3e} ({tol_text('float32')}) | kernel {ms:.4f} ms "
+        f"plain {plain_ms:.4f} ms library(SDPA) {library_ms:.4f} ms bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {flops:.4g} FLOP at "
+        f"{peak / 1e12:.0f} TFLOP/s, {nbytes} B) | "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, grid {-(-Sq // 64)}x{B * Hq}")
+    return dict(max_abs_err=max(err, lse_err), differ=differ, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def flash_phase(torch, F) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for dtype_name in ("float32", "bfloat16"):
+        for case in FLASH_CASES:
+            results[(case, dtype_name)] = flash_case(torch, F, case,
+                                                     dtype_name, gen)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for dtype_name in ("float32", "bfloat16"):
+        for D in (16, 32, 64, 128):
+            for group in (1, 3, 8):
+                for window, q_offset in ((None, 0), (19, 5)):
+                    case = (2, 77, 77 + q_offset, 2 * group, 2, D, window,
+                            q_offset)
+                    r = flash_case(torch, F, case, dtype_name, gen,
+                                   timed=False)
+                    worst[dtype_name] = max(worst[dtype_name],
+                                            r["max_abs_err"])
+                    n += 1
+    say("flash", f"sweep: {n} cases (D 16/32/64/128, group 1/3/8, Sq 77, "
+        f"causal and window 19 with q_offset 5, fp32 and bf16) all within "
+        f"tolerance, worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
+        f"{worst['bfloat16']:.3e}")
+    return results
+
+
+# -- 7. train -----------------------------------------------------------------
+
+TRAIN = dict(arch="qwen2-0.5b", steps=5, batch=8, seq=1024, microbatches=2)
+
+
+def train_launches_per_step(R: int, microbatches: int):
+    """(rmsnorm, decode_attention, flash_attention) launches of one train
+    step with remat: per microbatch the forward runs 2R + 1 RMSNorms and R
+    flash attentions, and the backward re-runs each block's forward (2R
+    RMSNorms, R flash attentions); the backward passes are plain PyTorch
+    and launch nothing."""
+    return ((4 * R + 1) * microbatches, 0, 2 * R * microbatches)
+
+
+def train_phase(torch, smi: str):
+    from repro_torch import configs as C
+    from repro_torch.launch.train import train
+    cfg = C.get_config(TRAIN["arch"])
+    per_step = train_launches_per_step(cfg.block_repeat,
+                                       TRAIN["microbatches"])
+    history = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    train(**TRAIN, reduced=False, seed=0, device=DEVICE,
+          log=lambda s: None, history=history)
+    launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = tuple(n * TRAIN["steps"] for n in per_step)
+    if launched != want:
+        fail(f"train: launches {launched} in {TRAIN['steps']} steps, "
+             f"expected {want} ({per_step} per step)")
+    for h in history:
+        if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
+            fail(f"train: non-finite metrics {h}")
+    if len(history) != TRAIN["steps"]:
+        fail(f"train: {len(history)} steps ran")
+    step_s = statistics.mean(h["seconds"] for h in history[1:])
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    say("train", f"qwen2-0.5b FULL ({cfg.block_repeat} layers, d "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}) bf16 on {smi}: "
+        f"{TRAIN['steps']} steps of {TRAIN['batch']}x{TRAIN['seq']} tokens, "
+        f"{TRAIN['microbatches']} microbatches, remat | loss "
+        + " ".join(f"{h['loss']:.4f}" for h in history) + " | grad norm "
+        + " ".join(f"{h['grad_norm']:.4f}" for h in history)
+        + " | step ms " + " ".join(f"{h['seconds'] * 1e3:.1f}"
+                                    for h in history)
+        + f" | {step_s * 1e3:.1f} ms/step after the first, "
+        f"{tokens / step_s:.0f} tokens/s, peak memory {peak_gb:.2f} GiB | "
+        f"launches/step rmsnorm {per_step[0]} flash_attention "
+        f"{per_step[2]}")
+    return launched
+
+
+def train_parity(torch, dtype_name: str, seed: int = 0,
+                 profile: bool = False) -> dict:
+    """One train step of qwen2-0.5b FULL from the same weights and batch
+    through the kernels and through the plain versions; returns |loss
+    difference|, relative grad-norm difference, and the L2 norm of the
+    difference of the updated fp32 masters relative to the L2 norm of the
+    plain run's update (both over every leaf)."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import adamw_init
+    cfg = dataclasses.replace(C.get_config(TRAIN["arch"]), dtype=dtype_name)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = T.init_params(gen, cfg, device=DEVICE)
+    start = {n: p.detach().clone() for n, p in params.named_parameters()}
+    batch = {k: t.to(DEVICE) for k, t in TokenPipeline(
+        cfg.vocab_size, TRAIN["seq"], TRAIN["batch"],
+        seed=seed).global_batch_at(0).items()}
+    step = make_train_step(cfg, microbatches=TRAIN["microbatches"],
+                           remat=True)
+    runs = []
+    for plain in (False, True):
+        with torch.no_grad():
+            for n, p in params.named_parameters():
+                p.copy_(start[n])
+        opt = adamw_init(params)
+        reset_counts()
+        with plain_kernels() if plain else contextlib.nullcontext():
+            _, opt, metrics = step(params, opt, batch)
+        sync(torch)
+        if plain and counts() != (0, 0, 0):
+            fail("train parity: the plain run launched a kernel")
+        runs.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                     opt.master))
+    (loss_k, gnorm_k, master_k), (loss_p, gnorm_p, master_p) = runs
+    diff_sq = upd_sq = 0.0
+    for n in master_k:
+        diff_sq += float((master_k[n] - master_p[n]).square().sum())
+        upd_sq += float((master_p[n] - start[n].float()).square().sum())
+    if profile:
+        profile_train_step(torch, step, params, adamw_init(params), batch)
+    del params, start, runs, master_k, master_p
+    torch.cuda.empty_cache()
+    master = math.sqrt(diff_sq / upd_sq)
+    for v in (loss_k, loss_p, gnorm_k, gnorm_p, master):
+        if not math.isfinite(v):
+            fail(f"train parity {dtype_name}: non-finite reading")
+    return dict(loss=abs(loss_k - loss_p), loss_k=loss_k, loss_p=loss_p,
+                gnorm=abs(gnorm_k - gnorm_p) / gnorm_p, gnorm_k=gnorm_k,
+                gnorm_p=gnorm_p, master=master, update=math.sqrt(upd_sq))
+
+
+def train_parity_phase(torch) -> None:
+    for dtype_name in ("float32", "bfloat16"):
+        r = train_parity(torch, dtype_name,
+                         profile=dtype_name == "bfloat16")
+        tol = TRAIN_TOL[dtype_name]
+        readings = (f"loss {r['loss_k']:.6f} kernels vs {r['loss_p']:.6f} "
+                    f"plain (|diff| {r['loss']:.3e}, tol {tol['loss']}), "
+                    f"grad norm {r['gnorm_k']:.6f} vs {r['gnorm_p']:.6f} "
+                    f"(rel diff {r['gnorm']:.3e}, tol {tol['gnorm']}), "
+                    f"updated fp32 masters |diff| / |update| "
+                    f"{r['master']:.3e} (tol {tol['master']}; |update| "
+                    f"{r['update']:.3e})")
+        if any(r[key] > tol[key] for key in tol):
+            fail(f"train parity {dtype_name}: {readings}")
+        say("train", f"parity {dtype_name}, one step from the same weights "
+            f"and batch: {readings}")
+
+
+def profile_train_step(torch, step, params, opt, batch) -> None:
+    """Device time of one bf16 train step by kernel family, and the busy
+    share (device kernel time / wall time of the profiled step)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sync(torch)
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        sync(torch)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    families = {"flash_attention": 0.0, "rmsnorm": 0.0, "gemm": 0.0,
+                "other": 0.0}
+    n_kernels = 0
+    per_kernel = []
+    for e in prof.key_averages():
+        if "cuda" not in str(e.device_type).lower():
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        if us <= 0:
+            continue
+        n_kernels += e.count
+        name = e.key.lower()
+        fam = ("flash_attention" if "flash_attention" in name else
+               "rmsnorm" if "rmsnorm" in name else
+               "gemm" if any(w in name for w in GEMM_WORDS) else "other")
+        families[fam] += us / 1e3
+        per_kernel.append((us / 1e3, e.count, e.key))
+    busy = sum(families.values())
+    if busy <= 0:
+        say("profile", f"train step wall {wall_ms:.1f} ms; device time not "
+            f"measured (the profiler saw no device kernels)")
+        return
+    say("profile", f"qwen2-0.5b FULL bf16 train step (8x1024 tokens, 2 "
+        f"microbatches, remat): wall {wall_ms:.1f} ms under the profiler, "
+        f"device kernels {busy:.1f} ms ({n_kernels} launches, busy share "
+        f"{busy / wall_ms:.1%}): "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in families.items()))
+    top = sorted(per_kernel, reverse=True)[:8]
+    say("profile", "top kernels by device ms/step: " + "; ".join(
+        f"{name[:60]} x{n} {ms:.2f} ms" for ms, n, name in top))
 
 
 def main() -> int:
@@ -529,25 +847,38 @@ def main() -> int:
     build_phase()
     results = kernels_phase(torch, F)
     model_phase(torch)
-    launched = serve_phase(torch, smi)
+    served = serve_phase(torch, smi)
+    results.update(flash_phase(torch, F))
+    trained = train_phase(torch, smi)
+    train_parity_phase(torch)
 
-    main_path = {"rmsnorm": ((4, 1, 896), launched[0]),
-                 "decode_attention": ((4, 14, 2, 64, 512), launched[1])}
+    # one entry per kernel and path: the path's launches, read right after
+    # its run, beside the kernel's numbers at that path's bf16 shape
     meta = {
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/rmsnorm.py:26"),
         "decode_attention": (
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention/decode_attention.py:76"),
+        "flash_attention": (
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention/flash_attention.py:95"),
     }
+    paths = (
+        ("rmsnorm", "serve", ("rmsnorm", (4, 1, 896)), served[0]),
+        ("decode_attention", "serve",
+         ("decode_attention", (4, 14, 2, 64, 512)), served[1]),
+        ("rmsnorm", "train", ("rmsnorm", (4, 1024, 896)), trained[0]),
+        ("flash_attention", "train", (FLASH_MAIN,), trained[2]),
+    )
     kernels = []
-    for name, (shape, n) in main_path.items():
-        r = results[(name, shape, "bfloat16")]
+    for name, path, key, n in paths:
+        r = results[(*key, "bfloat16")]
         source, replaces = meta[name]
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=n, max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            name=f"{name}/{path}", route="cuda", source=source,
+            replaces=replaces, launches=n, max_abs_err=r["max_abs_err"],
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     for k in kernels:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",

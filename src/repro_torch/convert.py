@@ -1,15 +1,20 @@
-"""Carry the JAX reference's parameters and caches into the port.
+"""Carry parameters and caches between the JAX reference and the port.
 
-Both functions take the reference's pytree as host numpy arrays
-(``jax.device_get(tree)``): nested dicts with the repeating block's
-parameters stacked on a leading R axis.  bf16 arrays
-(``ml_dtypes.bfloat16``) cross as raw bits, with no rounding through
-fp32.  Weights keep the JAX layout, so conversion is a copy.
+The reference's pytrees are nested dicts with the repeating block's
+parameters stacked on a leading R axis; the port's ``Transformer`` keeps
+one module per block, so its parameter ``blocks.<r>.l0.attn.wq`` is
+``tree["blocks"]["l0"]["attn"]["wq"][r]``.  Into the port,
+``params_from_jax`` and ``cache_from_jax`` take host numpy arrays
+(``jax.device_get(tree)``); the way back, ``params_to_numpy``, gives the
+same layout as host numpy.  bf16 crosses as raw bits, with no rounding
+through fp32: ``ml_dtypes.bfloat16`` arrays into the port, ``uint16``
+arrays back (the port needs no ``ml_dtypes``).  Weights keep the JAX
+layout, so conversion is a copy.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Callable, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +35,7 @@ def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
 
 
 def _param(a, device) -> nn.Parameter:
-    return nn.Parameter(to_torch(a, device), requires_grad=False)
+    return nn.Parameter(to_torch(a, device))
 
 
 def _param_dict(tree: Mapping, device, r=None) -> nn.ParameterDict:
@@ -71,3 +76,87 @@ def cache_from_jax(tree: Mapping, device=None) -> dict:
                    for slot, lc in tree["blocks"].items()},
         "len": to_torch(tree["len"], device).to(torch.int32),
     }
+
+
+def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """A port parameter name -> (its path in the JAX pytree, its block
+    index or None): ``blocks.3.l0.attn.wq`` -> ``(("blocks", "l0",
+    "attn", "wq"), 3)``, ``embed`` -> ``(("embed",), None)``."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        return ("blocks", *parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def _lookup(tree: Mapping, path: Tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _insert(tree: dict, path: Tuple[str, ...], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def to_jax_layout(named: Mapping[str, torch.Tensor]) -> dict:
+    """Tensors keyed by port parameter name (``named_parameters()``) ->
+    the JAX pytree layout: nested dicts, each block tensor stacked over
+    the blocks on a leading R axis.  Leaves are detached torch tensors."""
+    tree: dict = {}
+    stacks: dict = {}
+    for name, t in named.items():
+        path, r = jax_path(name)
+        if r is None:
+            _insert(tree, path, t.detach())
+        else:
+            stacks.setdefault(path, {})[r] = t.detach()
+    for path, by_r in stacks.items():
+        _insert(tree, path, torch.stack([by_r[r] for r in range(len(by_r))]))
+    return tree
+
+
+def from_jax_layout(tree: Mapping, names: Iterable[str]) -> dict:
+    """The inverse of ``to_jax_layout``: for each port parameter name,
+    its tensor in ``tree`` (a block's slice of the stacked leaf)."""
+    out = {}
+    for name in names:
+        path, r = jax_path(name)
+        leaf = _lookup(tree, path)
+        out[name] = leaf if r is None else leaf[r]
+    return out
+
+
+def map_tree(fn: Callable, tree):
+    """``fn`` applied to every leaf of a tree of nested dicts."""
+    if isinstance(tree, Mapping):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bf16 as its raw ``uint16`` bits."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def params_to_numpy(params: Transformer, cfg: ModelConfig) -> dict:
+    """The port's parameters in the reference's pytree layout, as host
+    numpy arrays (bf16 leaves as raw ``uint16`` bits): the tree that
+    ``params_from_jax`` takes, so the two round-trip bit for bit."""
+    check_supported(cfg)
+    if len(params.blocks) != cfg.block_repeat:
+        raise ValueError(f"{len(params.blocks)} blocks, config has "
+                         f"{cfg.block_repeat}")
+    return map_tree(to_numpy, to_jax_layout(dict(params.named_parameters())))
+
+
+@torch.no_grad()
+def load_jax_layout(params: Transformer, tree: Mapping) -> None:
+    """Copy a JAX-layout tree of tensors into ``params`` in place."""
+    named = dict(params.named_parameters())
+    for name, t in from_jax_layout(tree, named).items():
+        named[name].copy_(t)

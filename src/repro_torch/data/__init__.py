@@ -1,5 +1,7 @@
-"""Request synthesis for the port's serving engine."""
+"""Data of the port: request synthesis for the serving engine and the
+synthetic-token pipeline for the trainer."""
 
+from .pipeline import TokenPipeline
 from .requests import make_serving_requests
 
-__all__ = ["make_serving_requests"]
+__all__ = ["TokenPipeline", "make_serving_requests"]

@@ -1,0 +1,154 @@
+"""Flash attention: the port of ``repro/kernels/flash_attention``
+(``flash_attention_pallas``).
+
+Full-sequence causal attention with an optional sliding window,
+``q (B, Sq, Hq, D)`` against ``k/v (B, Skv, Hkv, D)``; the ``Hq // Hkv``
+query heads of a kv head share its K/V (GQA) and ``q_offset`` is the
+absolute position of ``q[:, 0]`` relative to ``k[:, 0]``.  Both versions
+return ``(out, lse)``: ``out (B, Sq, Hq, D)`` in q's dtype and the
+softmax's log-sum-exp ``lse (B, Hq, Sq)`` in fp32, which the backward
+pass of ``layers.attention.blockwise_attention`` recomputes the
+probabilities from.
+
+``flash_attention`` launches the CUDA kernel of
+``csrc/flash_attention.cu`` on CUDA tensors and runs the plain PyTorch
+version ``flash_attention_plain`` on CPU tensors.  There is no fallback:
+CUDA inputs the kernel does not take raise.  ``launches`` counts kernel
+launches in this process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from . import build
+
+launches = 0
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_GROUP = 8
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 10 + (
+    ctypes.c_float, ctypes.c_void_p)
+
+
+def attention_mask(sq: int, skv: int, *, causal: bool,
+                   window: Optional[int], q_offset: int,
+                   device=None) -> torch.Tensor:
+    """(Sq, Skv) bool: which keys each query row may attend to."""
+    q_pos = q_offset + torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None, q_offset: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 masked softmax over the whole score matrix
+    (``repro/kernels/flash_attention/ref.py``), plus its log-sum-exp.
+
+    Masked scores are ``NEG_INF`` and get probability 0, and the row sum
+    is clamped at 1e-30 as in the kernel, so a row with no valid key
+    yields 0 and a finite lse; ref.py yields the mean of V there.  Every
+    other row agrees with ref.py."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    rep = Hq // Hkv
+    kr = k.float().repeat_interleave(rep, dim=2)
+    vr = v.float().repeat_interleave(rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / math.sqrt(D)
+    mask = attention_mask(Sq, Skv, causal=causal, window=window,
+                          q_offset=q_offset, device=q.device)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill(~mask, 0.0)
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / l, vr)
+    lse = (m + torch.log(l))[..., 0]
+    return out.to(q.dtype), lse
+
+
+def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: Optional[int], q_offset: int) -> None:
+    """Raise ``ValueError`` on inputs the CUDA kernel does not take."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention kernel: q must be (B, Sq, Hq, D) "
+                         "and k, v (B, Skv, Hkv, D)")
+    B, Sq, Hq, D = q.shape
+    if tuple(k.shape) != tuple(v.shape) or k.shape[0] != B \
+            or k.shape[3] != D:
+        raise ValueError(f"flash_attention kernel: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree "
+                         f"(the kernel takes Dv == D)")
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if Sq < 1 or Skv < 1 or Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"flash_attention kernel: Hq={Hq} must be a "
+                         f"multiple of Hkv={Hkv}, Sq={Sq} and Skv={Skv} "
+                         f">= 1")
+    if not 1 <= Hq // Hkv <= MAX_GROUP:
+        raise ValueError(f"flash_attention kernel: group {Hq // Hkv} "
+                         f"outside [1, {MAX_GROUP}]")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel: head dim {D} not in "
+                         f"{HEAD_DIMS}")
+    if B * Hq > 65535:
+        raise ValueError(f"flash_attention kernel: B * Hq = {B * Hq} > "
+                         f"65535")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention kernel: q_offset {q_offset} < 0")
+    if max(Sq, Skv) + q_offset >= 2 ** 30:
+        raise ValueError("flash_attention kernel: sequence too long")
+    if window is not None and not 1 <= window < 2 ** 31:
+        raise ValueError(f"flash_attention kernel: window {window} outside "
+                         f"[1, 2**31)")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention kernel: q/k/v dtypes "
+                         f"{q.dtype}/{k.dtype}/{v.dtype} must be one of "
+                         f"{sorted(map(str, _DTYPE_CODES))}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention kernel: {name} must be "
+                             f"contiguous")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention kernel: {name} on "
+                             f"{t.device}, q on {q.device}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    q_offset: int = 0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention of q (B, Sq, Hq, D) over k/v (B, Skv, Hkv, D).  Returns
+    ``(out (B, Sq, Hq, D) in q's dtype, lse (B, Hq, Sq) fp32)``."""
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    check_kernel_args(q, k, v, window, q_offset)
+    B, Sq, Hq, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+    fn = build.kernel("apex_flash_attention", _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), B, Sq, Skv, Hq, Hkv, D, q_offset, int(causal),
+             0 if window is None else window, _DTYPE_CODES[q.dtype],
+             1.0 / math.sqrt(D),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "apex_flash_attention")
+    launches += 1
+    return out, lse

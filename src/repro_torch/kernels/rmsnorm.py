@@ -3,12 +3,20 @@
 ``rms_norm`` launches the CUDA kernel of ``csrc/rmsnorm.cu`` on a CUDA
 tensor and runs the plain PyTorch version ``rms_norm_plain`` on a CPU
 tensor.  There is no fallback: a CUDA tensor the kernel does not take
-raises.  ``launches`` counts kernel launches in this process.
+raises.  ``launches`` counts kernel launches in this process (forward
+launches only: the gradient is plain PyTorch).
+
+On CUDA the kernel sits in a ``torch.autograd.Function`` whose backward
+is ``rms_norm_grads``, the fp32 derivative of ``rms_norm_plain``.  The
+reference's gradient is XLA autodiff of ``repro/layers/norms.py``, not a
+Pallas kernel, so plain PyTorch is its counterpart.  On the CPU autograd
+differentiates ``rms_norm_plain`` itself.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -57,15 +65,52 @@ def check_kernel_args(x: torch.Tensor, weight: torch.Tensor) -> None:
         raise ValueError("rms_norm kernel: too many rows")
 
 
+def rms_norm_grads(x: torch.Tensor, weight: torch.Tensor, dy: torch.Tensor,
+                   eps: float = 1e-6
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dweight) of ``rms_norm_plain(x, weight, eps)`` for the output
+    gradient ``dy``, computed in fp32 and cast to x's and weight's
+    dtypes."""
+    xf = x.float()
+    g = dy.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * r
+    dw = (g * xhat).reshape(-1, x.shape[-1]).sum(dim=0)
+    gw = g * weight.float()
+    dx = r * (gw - xhat * (gw * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), dw.to(weight.dtype)
+
+
+class _RMSNormKernel(torch.autograd.Function):
+    """The CUDA kernel forward, the fp32 derivative backward."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        ctx.save_for_backward(x, weight)
+        ctx.eps = eps
+        return _launch(x, weight, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        dx, dw = rms_norm_grads(x, weight, dy, ctx.eps)
+        return dx, dw, None
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm of ``x (..., d)`` by ``weight (d,)``, in x's dtype."""
-    global launches
     if x.device.type == "cpu":
         return rms_norm_plain(x, weight, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm: unsupported device {x.device}")
     check_kernel_args(x, weight)
+    return _RMSNormKernel.apply(x, weight, eps)
+
+
+def _launch(x: torch.Tensor, weight: torch.Tensor,
+            eps: float) -> torch.Tensor:
+    global launches
     out = torch.empty_like(x)
     rows = x.numel() // x.shape[-1]
     if rows == 0:

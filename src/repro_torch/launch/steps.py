@@ -1,0 +1,136 @@
+"""Train and serve steps of the port (``repro/launch/steps.py``).
+
+train_step: microbatched gradient accumulation in fp32 and the chunked
+cross-entropy, whose LM-head product and loss run over sequence chunks so
+the (B, S, vocab) logits are never all held at once.
+
+serve_step: one greedy decode iteration against the KV cache.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
+from repro_torch.training.optimizer import (AdamWState, adamw_update,
+                                            cosine_lr)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def _chunk_lse(h: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    return torch.logsumexp((h @ head).float(), dim=-1).sum()
+
+
+def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over sequence chunks.  hidden: (B, S, d)
+    post-norm; head: (d, V); labels: (B, S).  fp32 log-softmax.
+
+      * the gold logit of every position comes from ONE gather of the
+        label rows of ``head.T`` and a dot product, never a (B, c, V)
+        one-hot;
+      * only the logsumexp touches (B, c, V), one chunk at a time, and
+        each chunk's logits are recomputed in the backward pass
+        (``torch.utils.checkpoint``), so they are never all held;
+      * the sequence is zero-padded to a multiple of the chunk, and each
+        padded position's logsumexp, exactly log V, is subtracted again.
+    """
+    B, S, d = hidden.shape
+    lab_vec = head.T[labels]                              # (B, S, d)
+    gold = torch.einsum("bsd,bsd->bs", hidden.float(), lab_vec.float())
+    c = min(chunk, S)
+    n_pad = -(-S // c) * c - S
+    if n_pad:
+        hidden = torch.nn.functional.pad(hidden, (0, 0, 0, n_pad))
+    lse_total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S + n_pad, c):
+        lse_total = lse_total + checkpoint(_chunk_lse, hidden[:, i:i + c],
+                                           head, use_reentrant=False)
+    if n_pad:
+        pad_lse = torch.logsumexp(
+            torch.zeros(head.shape[1], dtype=torch.float32,
+                        device=hidden.device), dim=0)
+        lse_total = lse_total - B * n_pad * pad_lse
+    return (lse_total - gold.sum()) / (B * S)
+
+
+# ---------------------------------------------------------------------------
+# train step
+# ---------------------------------------------------------------------------
+
+def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
+                    remat: bool = True, peak_lr: float = 3e-4,
+                    loss_chunk: int = 512):
+    """Returns ``train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics)``; batch: ``{"tokens", "labels"}``, (B, S) int32
+    on the parameters' device.  The parameters and the optimizer state
+    are updated in place and returned.
+
+    With one microbatch the gradients stay in the parameters' dtype and
+    the clip norm is taken after their cast to fp32; with more, each
+    microbatch's gradients are added into fp32 accumulators and the
+    loss and gradients averaged, as in the reference."""
+    if cfg.encoder is not None or cfg.embeds_input:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder and "
+                                  f"embedding-input training are not "
+                                  f"ported yet")
+
+    def loss_fn(params: T.Transformer, batch: dict) -> torch.Tensor:
+        head = params.embed.T if cfg.tie_embeddings else params.head
+        hidden = T.forward(params, cfg, tokens=batch["tokens"],
+                           remat=remat, return_hidden=True)
+        return chunked_ce_loss(hidden, head, batch["labels"],
+                               chunk=loss_chunk)
+
+    def train_step(params: T.Transformer, opt_state: AdamWState,
+                   batch: dict):
+        named = dict(params.named_parameters())
+        leaves = list(named.values())
+        if microbatches > 1:
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in leaves]
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+            for mb in range(microbatches):
+                part = {k: x.reshape(microbatches, -1,
+                                     *x.shape[1:])[mb]
+                        for k, x in batch.items()}
+                mb_loss = loss_fn(params, part)
+                mb_grads = torch.autograd.grad(mb_loss, leaves)
+                torch._foreach_add_(grads, [g.float() for g in mb_grads])
+                del mb_grads
+                loss = loss + mb_loss.detach()
+            loss = loss / microbatches
+            torch._foreach_div_(grads, microbatches)
+        else:
+            loss = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+            loss = loss.detach()
+        lr = cosine_lr(int(opt_state.step) + 1, peak_lr=peak_lr)
+        params, opt_state, metrics = adamw_update(
+            params, dict(zip(named, grads)), opt_state, lr)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# serve step
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig):
+    """Returns ``serve_step(params, tokens (B, 1), cache) -> (next_tokens
+    (B,) int32, cache)``: greedy decode of one iteration."""
+
+    def serve_step(params: T.Transformer, tokens: torch.Tensor,
+                   cache: dict):
+        logits, cache = T.decode_step(params, cfg, tokens, cache)
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+    return serve_step

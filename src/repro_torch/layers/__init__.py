@@ -3,15 +3,17 @@
 
 Parameters are ``nn.ParameterDict``s (or bare ``nn.Parameter``s for norm
 weights) keyed as in the JAX pytrees, with weights in the JAX layout
-``x @ W``, ``W (d_in, d_out)``.  ``rms_norm`` and the attention of
-``gqa_decode_step`` go through the hand-written kernels in
-``repro_torch.kernels`` on CUDA tensors.
+``x @ W``, ``W (d_in, d_out)``.  ``rms_norm``, the attention of
+``gqa_attention`` and that of ``gqa_decode_step`` go through the
+hand-written kernels in ``repro_torch.kernels`` on CUDA tensors.
 """
 
-from .attention import gqa_decode_step, init_attention
+from .attention import (blockwise_attention, gqa_attention,
+                        gqa_decode_step, init_attention)
 from .mlp import init_mlp, mlp_forward
 from .norms import rms_norm
 from .rope import apply_rope, rope_angles
 
-__all__ = ["apply_rope", "gqa_decode_step", "init_attention", "init_mlp",
+__all__ = ["apply_rope", "blockwise_attention", "gqa_attention",
+           "gqa_decode_step", "init_attention", "init_mlp",
            "mlp_forward", "rms_norm", "rope_angles"]

@@ -1,10 +1,15 @@
-"""GQA attention, decode half (``repro/layers/attention.py:305-367``).
+"""GQA attention (``repro/layers/attention.py``): the full-sequence path
+for training and the decode step for serving.
 
-``gqa_decode_step`` writes the new token's K/V into the cache, then
-attends through ``repro_torch.kernels.decode_attention``: the hand-written
-CUDA kernel on CUDA tensors, its plain version on CPU tensors.  The
-full-sequence ``gqa_attention``/``blockwise_attention`` (the flash
-kernel's slice) and MLA come in later slices.
+  * ``gqa_attention`` (training) projects, rotates and attends through
+    ``blockwise_attention``, whose forward is
+    ``repro_torch.kernels.flash_attention`` (the hand-written CUDA kernel
+    on CUDA tensors, its plain version on CPU tensors) and whose backward
+    is plain PyTorch, as the reference's custom VJP is XLA code.
+  * ``gqa_decode_step`` (serving) writes the new token's K/V into the
+    cache, then attends through ``repro_torch.kernels.decode_attention``.
+
+MLA and M-RoPE come in later slices.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import torch
 from torch import nn
 
 from repro_torch.kernels import decode_attention as _attn_kernel
+from repro_torch.kernels import flash_attention as _flash
 from .mlp import normal_param
 from .rope import apply_rope
 
@@ -42,8 +48,7 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
         for name, width in (("bq", n_heads), ("bk", n_kv_heads),
                             ("bv", n_kv_heads)):
             p[name] = nn.Parameter(
-                torch.zeros(width * head_dim, dtype=dtype, device=device),
-                requires_grad=False)
+                torch.zeros(width * head_dim, dtype=dtype, device=device))
     return p
 
 
@@ -60,6 +65,116 @@ def _project_qkv(params: nn.ParameterDict, x: torch.Tensor, n_heads: int,
     return (q.reshape(B, S, n_heads, head_dim),
             k.reshape(B, S, n_kv_heads, head_dim),
             v.reshape(B, S, n_kv_heads, head_dim))
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """Flash forward (kernel or plain version), flash backward recomputed
+    tile by tile from the saved lse (``attention.py:_bw_fwd/_bw_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_block, kv_block, q_offset):
+        out, lse = _flash.flash_attention(q, k, v, causal=causal,
+                                          window=window, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_block, kv_block, q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = blockwise_attention_grads(q, k, v, out, lse, dout,
+                                          *ctx.args)
+        return (*grads, None, None, None, None, None)
+
+
+def blockwise_attention_grads(q, k, v, out, lse, dout, causal: bool,
+                              window: Optional[int], q_block: int,
+                              kv_block: int, q_offset: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """(dq, dk, dv) of attention from its output and lse: a copy of the
+    reference's ``_bw_bwd``.  Per ``q_block x kv_block`` tile, ``p`` is
+    recomputed as ``exp(s - lse)``; with ``Dsum = rowsum(dout * out)`` in
+    fp32, ``ds = p (dout V^T - Dsum) scale``.  The GQA reps are folded
+    onto the kv heads by the einsums.  All in fp32, cast back to the
+    inputs' dtypes; memory is O(S) beyond one tile.
+
+    The ragged last tiles are sliced, not padded, and tiles wholly
+    outside the mask are skipped: they contribute exactly zero.  Masked
+    scores get ``p = 0`` explicitly, as in the forward."""
+    B, Sq, Hq, D = q.shape
+    _, Skv, Hkv, Dv = v.shape
+    rep = Hq // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qb = min(q_block, max(Sq, 1))
+    kb = min(kv_block, max(Skv, 1))
+    qf = q.float().reshape(B, Sq, Hkv, rep, D)
+    kf, vf = k.float(), v.float()
+    dof = dout.float().reshape(B, Sq, Hkv, rep, Dv)
+    # D_i = rowsum(dout * out): (B, Hkv, rep, Sq)
+    dsum = torch.einsum("bqgrd,bqgrd->bgrq", dof,
+                        out.float().reshape(B, Sq, Hkv, rep, Dv))
+    lse = lse.reshape(B, Hkv, rep, Sq)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    for k0 in range(0, Skv, kb):
+        k1 = min(k0 + kb, Skv)
+        k_blk, v_blk = kf[:, k0:k1], vf[:, k0:k1]
+        for q0 in range(0, Sq, qb):
+            q1 = min(q0 + qb, Sq)
+            if causal and k0 > q_offset + q1 - 1:
+                continue
+            if window is not None and k1 - 1 <= q_offset + q0 - window:
+                continue
+            mask = _flash.attention_mask(q1 - q0, k1 - k0, causal=causal,
+                                         window=window,
+                                         q_offset=q_offset + q0 - k0,
+                                         device=q.device)
+            q_blk, do_blk = qf[:, q0:q1], dof[:, q0:q1]
+            s = torch.einsum("bqgrd,bkgd->bgrqk", q_blk, k_blk) * scale
+            p = torch.exp(s - lse[..., q0:q1, None]).masked_fill(~mask, 0.0)
+            dv[:, k0:k1] += torch.einsum("bgrqk,bqgrd->bkgd", p, do_blk)
+            dp = torch.einsum("bqgrd,bkgd->bgrqk", do_blk, v_blk)
+            ds = p * (dp - dsum[..., q0:q1, None]) * scale
+            dq[:, q0:q1] += torch.einsum("bgrqk,bkgd->bqgrd", ds, k_blk)
+            dk[:, k0:k1] += torch.einsum("bgrqk,bqgrd->bkgd", ds, q_blk)
+    return (dq.reshape(B, Sq, Hq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None, q_block: int = 512,
+                        kv_block: int = 1024,
+                        q_offset: int = 0) -> torch.Tensor:
+    """Online-softmax attention without materializing the S x S scores.
+
+    q: (B, Sq, Hq, D); k, v: (B, Skv, Hkv, D) with Hq % Hkv == 0 (GQA).
+    ``q_offset``: absolute position of q[:, 0] relative to k[:, 0].
+    Returns (B, Sq, Hq, D) in q's dtype.  ``q_block``/``kv_block`` tile
+    the backward pass; the forward is the flash kernel's own tiling.
+    Differentiable: the backward recomputes p from the saved lse."""
+    return _BlockwiseAttention.apply(q, k, v, causal, window, q_block,
+                                     kv_block, q_offset)
+
+
+def gqa_attention(params: nn.ParameterDict, x: torch.Tensor,
+                  positions: torch.Tensor, *, n_heads: int, n_kv_heads: int,
+                  head_dim: int, window: Optional[int] = None,
+                  rope: str = "rope",
+                  rope_theta: float = 10000.0) -> torch.Tensor:
+    """Full-sequence GQA (training).  x: (B, S, d_model); positions:
+    (B, S) absolute."""
+    q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
+    if rope == "rope":
+        q, k = apply_rope(q, k, positions, rope_theta)
+    elif rope != "none":
+        raise NotImplementedError(f"rope={rope!r} is not ported yet")
+    out = blockwise_attention(q.contiguous(), k.contiguous(),
+                              v.contiguous(), causal=True, window=window)
+    B, S = x.shape[:2]
+    return out.reshape(B, S, n_heads * head_dim) @ params["wo"]
 
 
 def gqa_decode_step(params: nn.ParameterDict, x: torch.Tensor,

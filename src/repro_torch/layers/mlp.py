@@ -15,11 +15,10 @@ from torch import nn
 
 def normal_param(gen: torch.Generator, shape, scale: float,
                  dtype: torch.dtype, device) -> nn.Parameter:
-    """A frozen N(0, scale^2) parameter, drawn in fp32 on ``gen``'s
+    """A trainable N(0, scale^2) parameter, drawn in fp32 on ``gen``'s
     device, then moved to ``device`` and cast to ``dtype``."""
     w = torch.randn(shape, generator=gen, device=gen.device) * scale
-    return nn.Parameter(w.to(device=device, dtype=dtype),
-                        requires_grad=False)
+    return nn.Parameter(w.to(device=device, dtype=dtype))
 
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,

@@ -1,8 +1,8 @@
 """Model zoo of the port: the dense decoder path of ``repro.models``."""
 
 from .config import EncoderConfig, LayerSpec, ModelConfig
-from .transformer import (decode_step, init_cache, init_params, prefill,
-                          ring_size)
+from .transformer import (decode_step, forward, init_cache, init_params,
+                          prefill, ring_size)
 
 __all__ = ["EncoderConfig", "LayerSpec", "ModelConfig", "decode_step",
-           "init_cache", "init_params", "prefill", "ring_size"]
+           "forward", "init_cache", "init_params", "prefill", "ring_size"]

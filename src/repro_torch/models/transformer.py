@@ -7,14 +7,17 @@ Parameters are an ``nn.Module`` tree that mirrors the reference's pytree:
 reference stacks block parameters on a leading R axis for ``lax.scan``;
 here the scan is a loop over the R block modules.
 
+``forward`` (training) runs the whole sequence through the flash
+kernel; ``decode_step`` and the token-replay ``prefill`` (serving) run
+under ``torch.no_grad`` through the decode-attention kernel.
+
 The cache keeps the reference's layout: per pattern slot ``k``/``v`` of
 shape (R, B, Smax, Hkv, D), plus ``len`` (B,) int32.  ``decode_step``
 writes the new K/V rows into it in place.
 
-Only dense GQA decoders are ported in this slice: SSM, MLA, MoE (or no)
-FFN, cross-attention, shared attention, first-k-dense prefixes and
-embedding inputs raise ``NotImplementedError``; the full-sequence ``forward``
-arrives with the flash-attention kernel.
+Only dense GQA decoders are ported: SSM, MLA, MoE (or no) FFN,
+cross-attention, shared attention, first-k-dense prefixes and embedding
+inputs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,10 +27,12 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import torch_dtype
-from repro_torch.layers import (gqa_decode_step, init_attention, init_mlp,
-                                mlp_forward, rms_norm)
+from repro_torch.layers import (gqa_attention, gqa_decode_step,
+                                init_attention, init_mlp, mlp_forward,
+                                rms_norm)
 from repro_torch.layers.mlp import normal_param
 from .config import LayerSpec, ModelConfig
 
@@ -62,8 +67,7 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def _ones(d: int, dtype: torch.dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.ones(d, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.ones(d, dtype=dtype, device=device))
 
 
 class DecoderLayer(nn.Module):
@@ -147,6 +151,54 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                    for i, spec in enumerate(cfg.block_pattern)},
         "len": torch.zeros(batch, dtype=torch.int32, device=device),
     }
+
+
+def _layer_apply(cfg: ModelConfig, spec: LayerSpec, p: DecoderLayer,
+                 x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, p.norm1)
+    x = x + gqa_attention(p.attn, h, positions, n_heads=cfg.n_heads,
+                          n_kv_heads=cfg.n_kv_heads,
+                          head_dim=cfg.resolved_head_dim,
+                          window=spec.window, rope=cfg.rope,
+                          rope_theta=cfg.rope_theta)
+    return x + mlp_forward(p.ffn, rms_norm(x, p.norm2))
+
+
+def _block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    for i, spec in enumerate(cfg.block_pattern):
+        x = _layer_apply(cfg, spec, blk[f"l{i}"], x, positions)
+    return x
+
+
+def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+            remat: bool = False,
+            return_hidden: bool = False) -> torch.Tensor:
+    """Full-sequence forward: (B, S) token ids -> logits (B, S, vocab),
+    at positions ``arange(S)``.
+
+    ``remat`` checkpoints each block (``torch.utils.checkpoint``,
+    non-reentrant) where the reference wraps the scanned block in
+    ``jax.checkpoint``: the backward pass runs the block's forward again,
+    kernels included, and the numbers do not change.  ``return_hidden``
+    returns the final-norm hidden states (B, S, d_model) instead of
+    logits."""
+    check_supported(cfg)
+    x = params.embed[tokens]
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    for blk in params.blocks:
+        if remat:
+            x = checkpoint(_block_apply, cfg, blk, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _block_apply(cfg, blk, x, positions)
+    x = rms_norm(x, params.final_norm)
+    if return_hidden:
+        return x
+    head = params.embed.T if cfg.tie_embeddings else params.head
+    return x @ head
 
 
 def _layer_decode(cfg: ModelConfig, spec: LayerSpec, p: DecoderLayer,

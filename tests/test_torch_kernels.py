@@ -197,4 +197,5 @@ def test_source_hash_tracks_sources(tmp_path):
     assert build.source_hash(tmp_path, ("-O2",)) != build.source_hash(
         tmp_path)
     assert {p.name for p in build.sources()} == {
-        "decode_attention.cu", "errors.cu", "rmsnorm.cu"}
+        "decode_attention.cu", "errors.cu", "flash_attention.cu",
+        "rmsnorm.cu"}

@@ -102,7 +102,7 @@ def test_init_mlp_and_attention_shapes():
         "wq": (32, 32), "wk": (32, 16), "wv": (32, 16), "wo": (32, 32),
         "bq": (32,), "bk": (16,), "bv": (16,)}
     assert all(v.dtype == torch.bfloat16 for v in a.values())
-    assert float(a["bq"].float().abs().sum()) == 0.0
+    assert float(a["bq"].detach().float().abs().sum()) == 0.0
 
 
 def _attn_tree(rng, d, hq, hkv, hd, dtype, bias=True):

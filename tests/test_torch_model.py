@@ -12,6 +12,13 @@ Tolerances on logits after several decode steps (2 layers each):
     reference rounds the attention weights to bf16 before p @ V where the
     port keeps them in fp32, and bf16 matmuls round at other places in
     the two frameworks.
+
+``forward`` (the full sequence, 37 tokens, 2 layers): fp32 1e-4 on
+logits and hidden states (read: at most 5.2e-6 over the three configs,
+seeds 0-2); bf16 0.15 (read: logits at most 8.6e-2, hidden states
+5.9e-2).  The reference's ``blockwise_attention`` keeps its accumulator
+in bf16 and rounds p to bf16 before p @ V; the port's flash kernel and
+its plain version keep both in fp32.
 """
 
 import dataclasses
@@ -22,18 +29,21 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+import ml_dtypes  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro import configs as JC  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
 from repro_torch import configs as TC  # noqa: E402
-from repro_torch.convert import cache_from_jax, params_from_jax  # noqa
+from repro_torch.convert import (cache_from_jax, params_from_jax,  # noqa
+                                 params_to_numpy)
 from repro_torch.models import transformer as TT  # noqa: E402
 
 ARCHS = ["qwen2-0.5b", "internlm2-1.8b", "qwen1.5-32b"]
 DTYPES = ["float32", "bfloat16"]
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 1e-1}
 CACHE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+FORWARD_TOL = {"float32": 1e-4, "bfloat16": 0.15}
 
 
 def _configs(arch, dtype):
@@ -156,3 +166,60 @@ def test_unported_families_raise():
                        embeds=torch.zeros(1, 1, cfg.d_model))
     with pytest.raises(NotImplementedError):
         TT.prefill(params, cfg, toks, 8, embeds=torch.zeros(1, 1, 56))
+
+
+_jax_forward = jax.jit(JT.forward, static_argnums=(1,),
+                       static_argnames=("remat", "return_hidden"))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_matches_reference(arch, dtype, remat):
+    jcfg, tcfg, jparams, tparams = _models(arch, dtype)
+    toks = np.random.default_rng(9).integers(
+        0, jcfg.vocab_size, size=(2, 37)).astype(np.int32)
+    for hidden in (False, True):
+        jout = _jax_forward(jparams, jcfg, jnp.asarray(toks), remat=remat,
+                            return_hidden=hidden)
+        tout = TT.forward(tparams, tcfg, torch.from_numpy(toks),
+                          remat=remat, return_hidden=hidden)
+        width = jcfg.d_model if hidden else jcfg.vocab_size
+        assert tuple(tout.shape) == (2, 37, width)
+        assert str(tout.dtype).split(".")[-1] == dtype
+        np.testing.assert_allclose(_np(tout.detach()), _np(jout), rtol=0,
+                                   atol=FORWARD_TOL[dtype])
+
+
+def test_forward_last_logits_equal_prefill():
+    """The flash path and the decode-attention token replay give the
+    same last-position logits (fp32: summation order only)."""
+    _, tcfg, _, tparams = _models("qwen2-0.5b", "float32")
+    toks = torch.from_numpy(np.random.default_rng(10).integers(
+        0, tcfg.vocab_size, size=(2, 11)).astype(np.int32))
+    with torch.no_grad():
+        full = TT.forward(tparams, tcfg, toks)
+    last, _ = TT.prefill(tparams, tcfg, toks, 16)
+    np.testing.assert_allclose(full[:, -1].numpy(), last.numpy(), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_params_to_numpy_round_trips_bit_for_bit(arch, dtype):
+    jcfg, tcfg, jparams, tparams = _models(arch, dtype)
+    tree = jax.device_get(jparams)
+    back = params_to_numpy(tparams, tcfg)
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    assert len(jax.tree.leaves(back)) == len(flat)
+    for path, want in flat:
+        got = back
+        for p in path:
+            got = got[p.key]
+        want = np.asarray(want)
+        if dtype == "bfloat16":
+            assert got.dtype == np.uint16
+            got = got.view(ml_dtypes.bfloat16)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.uint8),
+                                      want.view(np.uint8))
