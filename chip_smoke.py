@@ -38,11 +38,29 @@ Phases, one line each (the kernels phases print one line per case):
                and through the plain versions, fp32 and bf16, comparing
                loss, grad norm and the updated fp32 masters; and a
                profiled bf16 step.
+  8. ssd     -- the SSD-scan kernel against ``ssd_scan_plain`` on the
+               card, fp32 and bf16, at mamba2-2.7b's training shape (x
+               4 x 1024 x 80 x 64, N 128, chunk 128; kernel / plain /
+               bound ms) and over an untimed sweep of head dim, state
+               dim, length and chunk; once in fp32 against the sequential
+               recurrence ``ssd_scan_sequential``.
+  9. mamba2  -- ``launch.train.train`` trains mamba2-2.7b FULL (64
+               layers, d_model 2560) in bf16 for 5 steps (global batch 8
+               x 1024 tokens, 2 microbatches, remat) after the qwen2-0.5b
+               phases' memory is freed: loss and grad norm per step, ms
+               per step, tokens/s and peak memory; every loss and norm
+               finite, and exactly 256 SSD scans and 514 RMSNorms per
+               step.  Then train parity at full width and depth 8 (two
+               fp32 copies of 2.7B parameters and their optimizer state
+               do not fit the card): one step through the kernels and
+               one through the plain versions, fp32 and bf16; and a
+               profiled bf16 step at that depth.
 
 Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
 entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
-``rmsnorm/train``, ``flash_attention/train``, each with that path's
-launches and the kernel's numbers at that path's bf16 shape), the
+``rmsnorm/train``, ``flash_attention/train``, ``rmsnorm/mamba2_train``,
+``ssd_scan/mamba2_train``, each with that path's launches and the
+kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device, or without the
@@ -102,6 +120,26 @@ ARGMAX_FLOOR = {"float32": 0.95, "bfloat16": 0.8}
 TRAIN_TOL = {"float32": dict(loss=1e-5, gnorm=1e-5, master=3e-4),
              "bfloat16": dict(loss=2e-3, gnorm=2e-3, master=0.1)}
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
+# The SSD-scan kernel is held to TOL against its plain version: both take
+# cum = cumsum(dt A) in the same order, so they differ by summation order
+# over the chunk and the state only (an H100 read fp32 4.8e-7 at |y| ~ 20,
+# bf16 1.4e-7 of elements not bit-equal; a kernel that does not decay the
+# carried state read 3.8).  Against the step-by-step recurrence, fp32 is
+# held to the sweep tolerance of tests/test_kernels.py: the chunked
+# algorithm takes exp of differences of cum, which reaches ~1400 inside a
+# chunk where one fp32 ulp is 1.2e-4 (read: 1.2e-4 at |y| ~ 20).
+SEQ_TOL = dict(rtol=2e-4, atol=2e-4)
+# one train step of mamba2-2.7b at full width and depth 8 (batch 8 x
+# 1024, 2 microbatches, remat) through the kernels vs the plain versions,
+# as TRAIN_TOL.  Read on an H100 over seeds 0-2 (PERF.md): fp32
+# loss 0, grad norm <= 1.0e-7, masters 1.1e-4 to 1.2e-4; bf16 loss 4.8e-6
+# to 8.8e-5, grad norm 2.8e-5 to 1.2e-4, masters 0.067 to 0.069.  A
+# kernel that does not decay the carried state read fp32 / bf16 loss
+# 1.7e-4 / 1.6e-4, grad norm 1.1e-5 / 7.3e-6, masters 0.096 / 0.111: fp32
+# fails every limit; in bf16 only the masters limit (1.45x the worst
+# sound reading) catches it, and the kernel check catches it by 3.8.
+MAMBA_TRAIN_TOL = {"float32": dict(loss=1e-5, gnorm=1e-6, master=1e-3),
+                   "bfloat16": dict(loss=1e-3, gnorm=1e-3, master=0.1)}
 # substrings of cuBLAS / CUTLASS matrix-product kernel names
 GEMM_WORDS = ("gemm", "gemv", "cutlass", "nvjet", "xmma", "splitk")
 
@@ -193,15 +231,15 @@ def time_ms(torch, fn, inner: int = 20, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def compare(torch, got, want, dtype: str, what: str):
-    """Max abs error of ``got`` against ``want`` within TOL[dtype], and
-    the share of elements that are not bit-equal."""
+def compare(torch, got, want, dtype: str, what: str, tol=None):
+    """Max abs error of ``got`` against ``want`` within ``tol`` (default
+    TOL[dtype]), and the share of elements that are not bit-equal."""
     differ = float((got != want).float().mean())
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
         fail(f"{what}: non-finite output")
     err = (got - want).abs()
-    tol = TOL[dtype]
+    tol = tol or TOL[dtype]
     if bool((err > tol["atol"] + tol["rtol"] * want.abs()).any()):
         fail(f"{what}: max abs err {float(err.max()):.3e} beyond "
              f"rtol={tol['rtol']} atol={tol['atol']}")
@@ -306,7 +344,9 @@ def kernels_phase(torch, F) -> dict:
     for dtype_name in ("float32", "bfloat16"):
         for shape in ((4, 1, 896), (512, 896), (4, 1, 2048), (512, 2048),
                       (4, 1, 5120),     # d of qwen2-0.5b, internlm2, 32b
-                      (4, 1024, 896)):  # qwen2-0.5b training microbatch
+                      (4, 1024, 896),   # qwen2-0.5b training microbatch
+                      (4, 1024, 2560),  # mamba2-2.7b: norm1, final norm
+                      (4, 1024, 5120)):  # mamba2-2.7b: the gated norm
             r = rmsnorm_case(torch, F, shape, dtype_name, gen)
             results[("rmsnorm", shape, dtype_name)] = r
     lengths = [1, 77, 300, 512]          # 1, not a multiple of 32, Smax
@@ -338,14 +378,13 @@ def kernels_phase(torch, F) -> dict:
 @contextlib.contextmanager
 def plain_kernels():
     """Route the model through the plain versions (comparison only)."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm
+    rmsnorm, da, fa, ssd = kernel_modules()
     with mock.patch.object(rmsnorm, "rms_norm", rmsnorm.rms_norm_plain), \
             mock.patch.object(da, "decode_attention",
                               da.decode_attention_plain), \
             mock.patch.object(fa, "flash_attention",
-                              fa.flash_attention_plain):
+                              fa.flash_attention_plain), \
+            mock.patch.object(ssd, "ssd_scan", ssd.ssd_scan_plain):
         yield
 
 
@@ -353,7 +392,8 @@ def kernel_modules():
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm
-    return rmsnorm, da, fa
+    from repro_torch.kernels import ssd_scan as ssd
+    return rmsnorm, da, fa, ssd
 
 
 def reset_counts() -> None:
@@ -362,7 +402,8 @@ def reset_counts() -> None:
 
 
 def counts():
-    """Launches of (rmsnorm, decode_attention, flash_attention)."""
+    """Launches of (rmsnorm, decode_attention, flash_attention,
+    ssd_scan)."""
     return tuple(mod.launches for mod in kernel_modules())
 
 
@@ -379,7 +420,7 @@ def model_check(torch, dtype_name: str, seed: int = 0,
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(C.get_config("qwen2-0.5b"), dtype=dtype_name)
     R = cfg.block_repeat
-    per_step = (2 * R + 1, R, 0)
+    per_step = (2 * R + 1, R, 0, 0)
     B, max_len, steps = 4, 512, 6
     start_lens = [0, 37, 200, 500]
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -533,9 +574,9 @@ def serve_phase(torch, smi: str):
     steps = report.iterations + sum(len(r["prompt"]) for r in reqs)
     R = C.get_config("qwen2-0.5b").block_repeat
     if report.preemptions == 0 and launched != ((2 * R + 1) * steps,
-                                                R * steps, 0):
+                                                R * steps, 0, 0):
         fail(f"serve: launches {launched} for {steps} decode steps, "
-             f"expected {((2 * R + 1) * steps, R * steps, 0)}")
+             f"expected {((2 * R + 1) * steps, R * steps, 0, 0)}")
     if min(launched[:2]) <= 0:
         fail(f"serve: a kernel was never launched: {launched}")
     say("serve", f"qwen2-0.5b FULL bf16 on {smi}: {len(report.results)} "
@@ -653,64 +694,77 @@ def flash_phase(torch, F) -> dict:
 # -- 7. train -----------------------------------------------------------------
 
 TRAIN = dict(arch="qwen2-0.5b", steps=5, batch=8, seq=1024, microbatches=2)
+KERNEL_NAMES = ("rmsnorm", "decode_attention", "flash_attention", "ssd_scan")
 
 
-def train_launches_per_step(R: int, microbatches: int):
-    """(rmsnorm, decode_attention, flash_attention) launches of one train
-    step with remat: per microbatch the forward runs 2R + 1 RMSNorms and R
-    flash attentions, and the backward re-runs each block's forward (2R
-    RMSNorms, R flash attentions); the backward passes are plain PyTorch
-    and launch nothing."""
-    return ((4 * R + 1) * microbatches, 0, 2 * R * microbatches)
+def train_launches_per_step(cfg, microbatches: int):
+    """(rmsnorm, decode_attention, flash_attention, ssd_scan) launches of
+    one train step with remat.  Per microbatch the forward runs 2R + 1
+    RMSNorms (two per layer: norm1 and norm2 of a decoder layer, norm1
+    and the gated norm of a Mamba2 mixer; and the final norm) and R
+    flash attentions or R SSD scans; the backward re-runs each block's
+    forward (2R RMSNorms, R flash attentions or scans); the backward
+    passes are plain PyTorch and launch nothing."""
+    R = cfg.block_repeat
+    (spec,) = cfg.block_pattern
+    mixers = 2 * R * microbatches
+    return ((4 * R + 1) * microbatches, 0,
+            mixers if spec.kind == "attn" else 0,
+            mixers if spec.kind == "ssm" else 0)
 
 
-def train_phase(torch, smi: str):
+def launch_text(per_step) -> str:
+    return " ".join(f"{name} {n}" for name, n in zip(KERNEL_NAMES, per_step)
+                    if n)
+
+
+def train_phase(torch, smi: str, spec: dict = TRAIN, phase: str = "train"):
     from repro_torch import configs as C
     from repro_torch.launch.train import train
-    cfg = C.get_config(TRAIN["arch"])
-    per_step = train_launches_per_step(cfg.block_repeat,
-                                       TRAIN["microbatches"])
+    cfg = C.get_config(spec["arch"])
+    per_step = train_launches_per_step(cfg, spec["microbatches"])
     history = []
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    train(**TRAIN, reduced=False, seed=0, device=DEVICE,
+    train(**spec, reduced=False, seed=0, device=DEVICE,
           log=lambda s: None, history=history)
     launched = counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = tuple(n * TRAIN["steps"] for n in per_step)
+    want = tuple(n * spec["steps"] for n in per_step)
     if launched != want:
-        fail(f"train: launches {launched} in {TRAIN['steps']} steps, "
+        fail(f"{phase}: launches {launched} in {spec['steps']} steps, "
              f"expected {want} ({per_step} per step)")
     for h in history:
         if not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])):
-            fail(f"train: non-finite metrics {h}")
-    if len(history) != TRAIN["steps"]:
-        fail(f"train: {len(history)} steps ran")
+            fail(f"{phase}: non-finite metrics {h}")
+    if len(history) != spec["steps"]:
+        fail(f"{phase}: {len(history)} steps ran")
     step_s = statistics.mean(h["seconds"] for h in history[1:])
-    tokens = TRAIN["batch"] * TRAIN["seq"]
-    say("train", f"qwen2-0.5b FULL ({cfg.block_repeat} layers, d "
+    tokens = spec["batch"] * spec["seq"]
+    say(phase, f"{spec['arch']} FULL ({cfg.block_repeat} layers, d "
         f"{cfg.d_model}, vocab {cfg.vocab_size}) bf16 on {smi}: "
-        f"{TRAIN['steps']} steps of {TRAIN['batch']}x{TRAIN['seq']} tokens, "
-        f"{TRAIN['microbatches']} microbatches, remat | loss "
+        f"{spec['steps']} steps of {spec['batch']}x{spec['seq']} tokens, "
+        f"{spec['microbatches']} microbatches, remat | loss "
         + " ".join(f"{h['loss']:.4f}" for h in history) + " | grad norm "
         + " ".join(f"{h['grad_norm']:.4f}" for h in history)
         + " | step ms " + " ".join(f"{h['seconds'] * 1e3:.1f}"
                                     for h in history)
         + f" | {step_s * 1e3:.1f} ms/step after the first, "
         f"{tokens / step_s:.0f} tokens/s, peak memory {peak_gb:.2f} GiB | "
-        f"launches/step rmsnorm {per_step[0]} flash_attention "
-        f"{per_step[2]}")
+        f"launches/step {launch_text(per_step)}")
     return launched
 
 
 def train_parity(torch, dtype_name: str, seed: int = 0,
-                 profile: bool = False) -> dict:
-    """One train step of qwen2-0.5b FULL from the same weights and batch
-    through the kernels and through the plain versions; returns |loss
-    difference|, relative grad-norm difference, and the L2 norm of the
-    difference of the updated fp32 masters relative to the L2 norm of the
-    plain run's update (both over every leaf)."""
+                 profile: bool = False, spec: dict = TRAIN,
+                 depth=None) -> dict:
+    """One train step of ``spec``'s arch at FULL width (and ``depth``
+    blocks, if given) from the same weights and batch through the
+    kernels and through the plain versions; returns |loss difference|,
+    relative grad-norm difference, and the L2 norm of the difference of
+    the updated fp32 masters relative to the L2 norm of the plain run's
+    update (both over every leaf)."""
     import dataclasses
 
     from repro_torch import configs as C
@@ -718,14 +772,16 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as T
     from repro_torch.training.optimizer import adamw_init
-    cfg = dataclasses.replace(C.get_config(TRAIN["arch"]), dtype=dtype_name)
+    cfg = C.get_config(spec["arch"])
+    cfg = dataclasses.replace(cfg, dtype=dtype_name,
+                              block_repeat=depth or cfg.block_repeat)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = T.init_params(gen, cfg, device=DEVICE)
     start = {n: p.detach().clone() for n, p in params.named_parameters()}
     batch = {k: t.to(DEVICE) for k, t in TokenPipeline(
-        cfg.vocab_size, TRAIN["seq"], TRAIN["batch"],
+        cfg.vocab_size, spec["seq"], spec["batch"],
         seed=seed).global_batch_at(0).items()}
-    step = make_train_step(cfg, microbatches=TRAIN["microbatches"],
+    step = make_train_step(cfg, microbatches=spec["microbatches"],
                            remat=True)
     runs = []
     for plain in (False, True):
@@ -737,7 +793,7 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
         with plain_kernels() if plain else contextlib.nullcontext():
             _, opt, metrics = step(params, opt, batch)
         sync(torch)
-        if plain and counts() != (0, 0, 0):
+        if plain and counts() != (0, 0, 0, 0):
             fail("train parity: the plain run launched a kernel")
         runs.append((float(metrics["loss"]), float(metrics["grad_norm"]),
                      opt.master))
@@ -747,7 +803,11 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
         diff_sq += float((master_k[n] - master_p[n]).square().sum())
         upd_sq += float((master_p[n] - start[n].float()).square().sum())
     if profile:
-        profile_train_step(torch, step, params, adamw_init(params), batch)
+        profile_train_step(torch, step, params, adamw_init(params), batch,
+                           f"{spec['arch']} FULL width, {cfg.block_repeat} "
+                           f"layers, bf16 train step ({spec['batch']}x"
+                           f"{spec['seq']} tokens, {spec['microbatches']} "
+                           f"microbatches, remat)")
     del params, start, runs, master_k, master_p
     torch.cuda.empty_cache()
     master = math.sqrt(diff_sq / upd_sq)
@@ -759,11 +819,13 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
                 gnorm_p=gnorm_p, master=master, update=math.sqrt(upd_sq))
 
 
-def train_parity_phase(torch) -> None:
+def train_parity_phase(torch, spec: dict = TRAIN, limits=None,
+                       depth=None, phase: str = "train") -> None:
+    limits = limits or TRAIN_TOL
     for dtype_name in ("float32", "bfloat16"):
-        r = train_parity(torch, dtype_name,
+        r = train_parity(torch, dtype_name, spec=spec, depth=depth,
                          profile=dtype_name == "bfloat16")
-        tol = TRAIN_TOL[dtype_name]
+        tol = limits[dtype_name]
         readings = (f"loss {r['loss_k']:.6f} kernels vs {r['loss_p']:.6f} "
                     f"plain (|diff| {r['loss']:.3e}, tol {tol['loss']}), "
                     f"grad norm {r['gnorm_k']:.6f} vs {r['gnorm_p']:.6f} "
@@ -772,12 +834,16 @@ def train_parity_phase(torch) -> None:
                     f"{r['master']:.3e} (tol {tol['master']}; |update| "
                     f"{r['update']:.3e})")
         if any(r[key] > tol[key] for key in tol):
-            fail(f"train parity {dtype_name}: {readings}")
-        say("train", f"parity {dtype_name}, one step from the same weights "
-            f"and batch: {readings}")
+            fail(f"{phase} parity {dtype_name}: {readings}")
+        shape = "" if depth is None else f" at full width and depth {depth}"
+        say(phase, f"parity {dtype_name}{shape}, one step from the same "
+            f"weights and batch: {readings}")
 
 
-def profile_train_step(torch, step, params, opt, batch) -> None:
+def profile_train_step(torch, step, params, opt, batch,
+                       label: str = "qwen2-0.5b FULL bf16 train step "
+                                    "(8x1024 tokens, 2 microbatches, remat)"
+                       ) -> None:
     """Device time of one bf16 train step by kernel family, and the busy
     share (device kernel time / wall time of the profiled step)."""
     from torch.profiler import ProfilerActivity, profile
@@ -788,8 +854,8 @@ def profile_train_step(torch, step, params, opt, batch) -> None:
         step(params, opt, batch)
         sync(torch)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    families = {"flash_attention": 0.0, "rmsnorm": 0.0, "gemm": 0.0,
-                "other": 0.0}
+    families = {"flash_attention": 0.0, "ssd_scan": 0.0, "rmsnorm": 0.0,
+                "gemm": 0.0, "other": 0.0}
     n_kernels = 0
     per_kernel = []
     for e in prof.key_averages():
@@ -803,6 +869,7 @@ def profile_train_step(torch, step, params, opt, batch) -> None:
         n_kernels += e.count
         name = e.key.lower()
         fam = ("flash_attention" if "flash_attention" in name else
+               "ssd_scan" if "ssd_scan" in name else
                "rmsnorm" if "rmsnorm" in name else
                "gemm" if any(w in name for w in GEMM_WORDS) else "other")
         families[fam] += us / 1e3
@@ -812,14 +879,119 @@ def profile_train_step(torch, step, params, opt, batch) -> None:
         say("profile", f"train step wall {wall_ms:.1f} ms; device time not "
             f"measured (the profiler saw no device kernels)")
         return
-    say("profile", f"qwen2-0.5b FULL bf16 train step (8x1024 tokens, 2 "
-        f"microbatches, remat): wall {wall_ms:.1f} ms under the profiler, "
+    say("profile", f"{label}: wall {wall_ms:.1f} ms under the profiler, "
         f"device kernels {busy:.1f} ms ({n_kernels} launches, busy share "
         f"{busy / wall_ms:.1%}): "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in families.items()))
     top = sorted(per_kernel, reverse=True)[:8]
     say("profile", "top kernels by device ms/step: " + "; ".join(
         f"{name[:60]} x{n} {ms:.2f} ms" for ms, n, name in top))
+
+
+# -- 8. ssd -------------------------------------------------------------------
+
+# (B, S, H, P, N, chunk)
+SSD_MAIN = (4, 1024, 80, 64, 128, 128)       # mamba2-2.7b training microbatch
+
+
+def ssd_inputs(torch, case, dt, gen):
+    """x, dt, a_log, b, c as the model makes them: dt softplus-activated
+    in fp32, a_log = log(linspace(1, 16, H)) as ``init_mamba2`` sets it."""
+    B, S, H, P, N, _ = case
+    x = (0.5 * torch.randn(B, S, H, P, generator=gen, device="cuda")).to(dt)
+    dtv = torch.nn.functional.softplus(
+        torch.randn(B, S, H, generator=gen, device="cuda"))
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, device="cuda"))
+    b = (0.3 * torch.randn(B, S, N, generator=gen, device="cuda")).to(dt)
+    c = (0.3 * torch.randn(B, S, N, generator=gen, device="cuda")).to(dt)
+    return x, dtv, a_log, b, c
+
+
+def ssd_work(case, dtype_name: str):
+    """(bytes, FLOPs, bound ms, bound by) of the scan on ``case``: each
+    input read once and y written once; the least work is C B^T on the
+    lower triangle once per (b, chunk), the intra-chunk product on the
+    lower triangle, C h^T and the state update per (b, h, chunk)."""
+    B, S, H, P, N, chunk = case
+    Q = min(chunk, S)
+    n_chunks = -(-S // Q)
+    es = 4 if dtype_name == "float32" else 2
+    nbytes = (2 * B * S * H * P * es + 4 * B * S * H + 4 * H
+              + 2 * B * S * N * es)
+    tri = Q * (Q + 1) // 2
+    flops = B * n_chunks * (2.0 * N * tri
+                            + H * (2.0 * P * tri + 4.0 * Q * P * N))
+    peak = BF16_FLOPS if dtype_name == "bfloat16" else FP32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (nbytes, flops) + ((t_ops, "operations") if t_ops >= t_bytes
+                              else (t_bytes, "bytes"))
+
+
+def ssd_case(torch, case, dtype_name, gen, timed: bool = True) -> dict:
+    from repro_torch.kernels import ssd_scan as ssd
+    chunk = case[-1]
+    args = ssd_inputs(torch, case, getattr(torch, dtype_name), gen)
+    got = ssd.ssd_scan(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    what = f"ssd_scan {case} {dtype_name}"
+    err, differ = compare(torch, got, ssd.ssd_scan_plain(*args, chunk=chunk),
+                          dtype_name, what)
+    if not timed:
+        return dict(max_abs_err=err, differ=differ)
+    seq = ""
+    if dtype_name == "float32" and case == SSD_MAIN:
+        want = ssd.ssd_scan_sequential(*args)
+        seq_err, _ = compare(torch, got, want, dtype_name,
+                             what + " vs the sequential recurrence", SEQ_TOL)
+        seq = (f", vs the sequential recurrence {seq_err:.3e} (rtol "
+               f"{SEQ_TOL['rtol']} atol {SEQ_TOL['atol']}, max|y| "
+               f"{float(want.float().abs().max()):.3g})")
+    ms = time_ms(torch, lambda: ssd.ssd_scan(*args, chunk=chunk), inner=5,
+                 reps=11)
+    plain_ms = time_ms(torch, lambda: ssd.ssd_scan_plain(*args, chunk=chunk),
+                       inner=2, reps=5)
+    nbytes, flops, bound_ms, bound_by = ssd_work(case, dtype_name)
+    say("ssd", f"x {case[:4]} N {case[4]} chunk {chunk} {dtype_name}: "
+        f"max_abs_err {err:.3e} ({tol_text(dtype_name)}), not bit-equal "
+        f"{differ:.2e}{seq} | kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms library none bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {nbytes} B, {flops:.4g} FLOP) | "
+        f"{flops / ms / 1e9:.2f} TFLOP/s, grid {case[0] * case[2]} blocks")
+    return dict(max_abs_err=err, differ=differ, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def ssd_phase(torch) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for dtype_name in ("float32", "bfloat16"):
+        results[("ssd_scan", SSD_MAIN, dtype_name)] = ssd_case(
+            torch, SSD_MAIN, dtype_name, gen)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for dtype_name in ("float32", "bfloat16"):
+        for P in (32, 64):
+            for N in (16, 128):
+                for S in (100, 1024):
+                    for chunk in (32, 128):
+                        r = ssd_case(torch, (2, S, 8, P, N, chunk),
+                                     dtype_name, gen, timed=False)
+                        worst[dtype_name] = max(worst[dtype_name],
+                                                r["max_abs_err"])
+                        n += 1
+    say("ssd", f"sweep: {n} cases (B 2, H 8, P 32/64, N 16/128, S 100/1024, "
+        f"chunk 32/128, fp32 and bf16) all within tolerance, worst "
+        f"max_abs_err fp32 {worst['float32']:.3e} bf16 "
+        f"{worst['bfloat16']:.3e}")
+    return results
+
+
+# -- 9. mamba2 ----------------------------------------------------------------
+
+MAMBA_TRAIN = dict(arch="mamba2-2.7b", steps=5, batch=8, seq=1024,
+                   microbatches=2)
+MAMBA_PARITY_DEPTH = 8
 
 
 def main() -> int:
@@ -851,6 +1023,10 @@ def main() -> int:
     results.update(flash_phase(torch, F))
     trained = train_phase(torch, smi)
     train_parity_phase(torch)
+    results.update(ssd_phase(torch))
+    mamba = train_phase(torch, smi, MAMBA_TRAIN, "mamba2")
+    train_parity_phase(torch, MAMBA_TRAIN, MAMBA_TRAIN_TOL,
+                       MAMBA_PARITY_DEPTH, "mamba2")
 
     # one entry per kernel and path: the path's launches, read right after
     # its run, beside the kernel's numbers at that path's bf16 shape
@@ -863,6 +1039,8 @@ def main() -> int:
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention/flash_attention.py:95"),
+        "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/ssd_scan.py:76"),
     }
     paths = (
         ("rmsnorm", "serve", ("rmsnorm", (4, 1, 896)), served[0]),
@@ -870,6 +1048,8 @@ def main() -> int:
          ("decode_attention", (4, 14, 2, 64, 512)), served[1]),
         ("rmsnorm", "train", ("rmsnorm", (4, 1024, 896)), trained[0]),
         ("flash_attention", "train", (FLASH_MAIN,), trained[2]),
+        ("rmsnorm", "mamba2_train", ("rmsnorm", (4, 1024, 5120)), mamba[0]),
+        ("ssd_scan", "mamba2_train", ("ssd_scan", SSD_MAIN), mamba[3]),
     )
     kernels = []
     for name, path, key, n in paths:

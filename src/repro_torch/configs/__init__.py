@@ -2,8 +2,9 @@
 exporting ``FULL`` (the published dims) and ``REDUCED`` (a same-family
 miniature for CPU tests), copied from ``repro/configs``.
 
-This slice carries the dense GQA decoders only; the other architectures of
-the JAX registry arrive with the slices that port their layers.
+The port carries the dense GQA decoders and the attention-free Mamba2
+model; the other architectures of the JAX registry arrive with the slices
+that port their layers.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ ARCHS: List[str] = [
     "internlm2_1_8b",
     "qwen2_0_5b",
     "qwen1_5_32b",
+    "mamba2_2_7b",
 ]
 
 # canonical ids as given in the assignment -> module names
@@ -24,6 +26,7 @@ ALIASES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen1.5-32b": "qwen1_5_32b",
+    "mamba2-2.7b": "mamba2_2_7b",
 }
 
 

@@ -3,13 +3,16 @@
 The reference's pytrees are nested dicts with the repeating block's
 parameters stacked on a leading R axis; the port's ``Transformer`` keeps
 one module per block, so its parameter ``blocks.<r>.l0.attn.wq`` is
-``tree["blocks"]["l0"]["attn"]["wq"][r]``.  Into the port,
+``tree["blocks"]["l0"]["attn"]["wq"][r]`` (a Mamba2 layer's
+``blocks.<r>.l0.mixer.w_x`` likewise).  Into the port,
 ``params_from_jax`` and ``cache_from_jax`` take host numpy arrays
 (``jax.device_get(tree)``); the way back, ``params_to_numpy``, gives the
 same layout as host numpy.  bf16 crosses as raw bits, with no rounding
 through fp32: ``ml_dtypes.bfloat16`` arrays into the port, ``uint16``
-arrays back (the port needs no ``ml_dtypes``).  Weights keep the JAX
-layout, so conversion is a copy.
+arrays back (the port needs no ``ml_dtypes``).  Every leaf keeps its own
+dtype: the fp32 leaves of a bf16 Mamba2 mixer (``a_log``, ``dt_bias``,
+``d_skip``) and the fp32 SSM state of its cache stay fp32.  Weights keep
+the JAX layout, so conversion is a copy.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (DecoderLayer, Transformer,
-                                            check_supported)
+from repro_torch.models.transformer import (DecoderLayer, SSMLayer,
+                                            Transformer, check_supported)
 
 
 def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
@@ -49,13 +52,18 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
     """The port's ``Transformer`` holding the reference's weights.
 
     ``tree`` is ``jax.device_get(repro.models.transformer.init_params(
-    key, cfg))`` for a dense decoder config."""
+    key, cfg))`` for a config the port carries (dense GQA or Mamba2)."""
     check_supported(cfg)
     blocks = nn.ModuleList()
     for r in range(cfg.block_repeat):
         layers = {}
-        for i in range(len(cfg.block_pattern)):
+        for i, spec in enumerate(cfg.block_pattern):
             lt = tree["blocks"][f"l{i}"]
+            if spec.kind == "ssm":
+                layers[f"l{i}"] = SSMLayer(
+                    _param(np.asarray(lt["norm1"])[r], device),
+                    _param_dict(lt["mixer"], device, r))
+                continue
             layers[f"l{i}"] = DecoderLayer(
                 _param(np.asarray(lt["norm1"])[r], device),
                 _param_dict(lt["attn"], device, r),
@@ -69,7 +77,8 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
 
 def cache_from_jax(tree: Mapping, device=None) -> dict:
     """The port's cache from the reference's ``init_cache``/``prefill``
-    cache pytree (attention layers only): same keys and shapes."""
+    cache pytree (attention and SSM layers): same keys, shapes and
+    dtypes."""
     return {
         "blocks": {slot: {name: to_torch(a, device)
                           for name, a in lc.items()}

@@ -4,8 +4,8 @@ version.
   * ``rmsnorm``          -- replaces ``repro/kernels/rmsnorm``
   * ``decode_attention`` -- replaces ``repro/kernels/decode_attention``
   * ``flash_attention``  -- replaces ``repro/kernels/flash_attention``
+  * ``ssd_scan``         -- replaces ``repro/kernels/ssd_scan``
 
 ``build`` compiles ``csrc/*.cu`` with nvcc into one shared library at
-first launch on a CUDA tensor.  The SSD-scan kernel of the JAX package
-is not ported yet.
+first launch on a CUDA tensor.
 """

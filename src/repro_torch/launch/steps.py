@@ -102,7 +102,9 @@ def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
                         for k, x in batch.items()}
                 mb_loss = loss_fn(params, part)
                 mb_grads = torch.autograd.grad(mb_loss, leaves)
-                torch._foreach_add_(grads, [g.float() for g in mb_grads])
+                # fp32 += bf16 promotes each element exactly, with no fp32
+                # copy of the whole gradient
+                torch._foreach_add_(grads, list(mb_grads))
                 del mb_grads
                 loss = loss + mb_loss.detach()
             loss = loss / microbatches

@@ -2,10 +2,13 @@
 crash-resume (``repro/launch/train.py``).
 
 Data pipeline -> microbatched AdamW step (through the flash-attention
-and RMSNorm kernels on a card) -> atomic checkpoints -> resume.
+or SSD-scan kernel and the RMSNorm kernel on a card) -> atomic
+checkpoints -> resume.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --full --steps 5
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
+        --full --steps 5 --seq 1024 --microbatches 2
 
 Without ``--device cpu`` it needs a CUDA card; ``--device cpu`` runs the
 plain PyTorch versions of the kernels (sensible with the reduced configs).

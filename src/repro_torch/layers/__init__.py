@@ -1,11 +1,12 @@
-"""Layers of the port, in PyTorch: the dense decoder path of
-``repro.layers``.
+"""Layers of the port, in PyTorch: the dense decoder path and the Mamba2
+mixer of ``repro.layers``.
 
 Parameters are ``nn.ParameterDict``s (or bare ``nn.Parameter``s for norm
 weights) keyed as in the JAX pytrees, with weights in the JAX layout
 ``x @ W``, ``W (d_in, d_out)``.  ``rms_norm``, the attention of
-``gqa_attention`` and that of ``gqa_decode_step`` go through the
-hand-written kernels in ``repro_torch.kernels`` on CUDA tensors.
+``gqa_attention`` and that of ``gqa_decode_step``, and the SSD scan of
+``mamba2_forward`` go through the hand-written kernels in
+``repro_torch.kernels`` on CUDA tensors.
 """
 
 from .attention import (blockwise_attention, gqa_attention,
@@ -13,7 +14,9 @@ from .attention import (blockwise_attention, gqa_attention,
 from .mlp import init_mlp, mlp_forward
 from .norms import rms_norm
 from .rope import apply_rope, rope_angles
+from .ssm import init_mamba2, mamba2_decode_step, mamba2_forward
 
 __all__ = ["apply_rope", "blockwise_attention", "gqa_attention",
-           "gqa_decode_step", "init_attention", "init_mlp",
-           "mlp_forward", "rms_norm", "rope_angles"]
+           "gqa_decode_step", "init_attention", "init_mamba2", "init_mlp",
+           "mamba2_decode_step", "mamba2_forward", "mlp_forward",
+           "rms_norm", "rope_angles"]

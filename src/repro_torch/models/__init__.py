@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder path of ``repro.models``."""
+"""Model zoo of the port: the dense decoder and Mamba2 paths of
+``repro.models``."""
 
 from .config import EncoderConfig, LayerSpec, ModelConfig
 from .transformer import (decode_step, forward, init_cache, init_params,

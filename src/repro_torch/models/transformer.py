@@ -1,23 +1,31 @@
-"""Dense decoder of the port (``repro/models/transformer.py``, dense path).
+"""Decoder of the port (``repro/models/transformer.py``): dense GQA
+decoders and attention-free Mamba2 stacks.
 
 Parameters are an ``nn.Module`` tree that mirrors the reference's pytree:
 ``embed``, ``final_norm``, optional ``head``, and ``blocks``, a
 ``ModuleList`` of ``block_repeat`` blocks, each a ``ModuleDict`` of
-``DecoderLayer``s keyed ``l0``, ``l1``, ... by block-pattern slot.  The
-reference stacks block parameters on a leading R axis for ``lax.scan``;
-here the scan is a loop over the R block modules.
+layers keyed ``l0``, ``l1``, ... by block-pattern slot: a
+``DecoderLayer`` (``norm1``, ``attn``, ``norm2``, ``ffn``) for an
+attention slot, an ``SSMLayer`` (``norm1``, ``mixer``) for an SSM slot.
+The reference stacks block parameters on a leading R axis for
+``lax.scan``; here the scan is a loop over the R block modules.
 
-``forward`` (training) runs the whole sequence through the flash
-kernel; ``decode_step`` and the token-replay ``prefill`` (serving) run
-under ``torch.no_grad`` through the decode-attention kernel.
+``forward`` (training) runs the whole sequence through the flash kernel
+or the SSD-scan kernel; ``decode_step`` and the token-replay ``prefill``
+(serving) run under ``torch.no_grad`` through the decode-attention
+kernel or the one-step Mamba2 recurrence.
 
-The cache keeps the reference's layout: per pattern slot ``k``/``v`` of
-shape (R, B, Smax, Hkv, D), plus ``len`` (B,) int32.  ``decode_step``
-writes the new K/V rows into it in place.
+The cache keeps the reference's layout, per pattern slot: ``k``/``v``
+(R, B, Smax, Hkv, D) for attention; ``ssm`` (R, B, H, P, N) fp32 and the
+conv windows ``conv_x`` (R, B, K-1, d_inner) and ``conv_bc`` (R, B, K-1,
+2 N) for SSM; plus ``len`` (B,) int32.  ``decode_step`` writes the new
+K/V rows and the new SSM state and windows into it in place.
 
-Only dense GQA decoders are ported: SSM, MLA, MoE (or no) FFN,
-cross-attention, shared attention, first-k-dense prefixes and embedding
-inputs raise ``NotImplementedError``.
+Ported: dense GQA decoders and all-SSM stacks without an FFN (mamba2).
+MLA, MoE, attention without an FFN, attention and SSM layers in one
+block, cross-attention, shared attention (zamba2), several SSM groups,
+first-k-dense prefixes and embedding inputs raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -31,8 +39,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import torch_dtype
 from repro_torch.layers import (gqa_attention, gqa_decode_step,
-                                init_attention, init_mlp, mlp_forward,
-                                rms_norm)
+                                init_attention, init_mamba2, init_mlp,
+                                mamba2_decode_step, mamba2_forward,
+                                mlp_forward, rms_norm)
 from repro_torch.layers.mlp import normal_param
 from .config import LayerSpec, ModelConfig
 
@@ -45,12 +54,15 @@ def ring_size(window: int, multiple: int = 16) -> int:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this slice does not port."""
     missing = []
-    if any(s.kind != "attn" for s in cfg.block_pattern):
-        missing.append("SSM layers")
+    ssm = any(s.kind == "ssm" for s in cfg.block_pattern)
+    if ssm and any(s.kind == "attn" for s in cfg.block_pattern):
+        missing.append("attention and SSM layers in one block")
     if cfg.attn_kind != "gqa":
         missing.append(f"attn_kind={cfg.attn_kind!r}")
-    if cfg.ffn_kind != "dense":
+    if cfg.ffn_kind != ("none" if ssm else "dense"):
         missing.append(f"ffn_kind={cfg.ffn_kind!r}")
+    if ssm and cfg.n_ssm_groups != 1:
+        missing.append(f"n_ssm_groups={cfg.n_ssm_groups}")
     if cfg.cross_attn or cfg.encoder is not None:
         missing.append("cross-attention / encoder")
     if cfg.shared_attn:
@@ -82,8 +94,17 @@ class DecoderLayer(nn.Module):
         self.ffn = ffn
 
 
+class SSMLayer(nn.Module):
+    """One Mamba2 layer: ``norm1`` and the ``mixer`` (no FFN)."""
+
+    def __init__(self, norm1: nn.Parameter, mixer: nn.ParameterDict):
+        super().__init__()
+        self.norm1 = norm1
+        self.mixer = mixer
+
+
 class Transformer(nn.Module):
-    """Parameter tree of a dense decoder (see the module docstring)."""
+    """Parameter tree of a decoder (see the module docstring)."""
 
     def __init__(self, embed: nn.Parameter, final_norm: nn.Parameter,
                  blocks: nn.ModuleList,
@@ -113,7 +134,11 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         head = normal_param(gen, (d, cfg.vocab_size), 1.0 / math.sqrt(d),
                             dt, device)
 
-    def layer() -> DecoderLayer:
+    def layer(spec: LayerSpec) -> nn.Module:
+        if spec.kind == "ssm":
+            return SSMLayer(_ones(d, dt, device), init_mamba2(
+                gen, d, cfg.d_inner, cfg.d_state, cfg.n_ssd_heads,
+                cfg.d_conv, cfg.n_ssm_groups, dtype=dt, device=device))
         attn = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
                               cfg.resolved_head_dim, cfg.qkv_bias, dtype=dt,
                               device=device)
@@ -123,23 +148,37 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
                             _ones(d, dt, device), ffn)
 
     blocks = nn.ModuleList(
-        nn.ModuleDict({f"l{i}": layer()
-                       for i in range(len(cfg.block_pattern))})
+        nn.ModuleDict({f"l{i}": layer(spec)
+                       for i, spec in enumerate(cfg.block_pattern)})
         for _ in range(cfg.block_repeat))
     return Transformer(embed, _ones(d, dt, device), blocks, head)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None, cache_dtype=None) -> dict:
-    """All-zero cache: per pattern slot ``k``/``v`` (R, B, Smax, Hkv, D),
-    ``Smax = max_len`` for full attention and ``min(max_len,
-    ring_size(window))`` for sliding-window layers; ``len`` (B,) int32."""
+    """All-zero cache: per attention slot ``k``/``v`` (R, B, Smax, Hkv,
+    D), ``Smax = max_len`` for full attention and ``min(max_len,
+    ring_size(window))`` for sliding-window layers; per SSM slot ``ssm``
+    (R, B, H, P, N) fp32, ``conv_x`` (R, B, K-1, d_inner) and ``conv_bc``
+    (R, B, K-1, 2 G N); ``len`` (B,) int32."""
     check_supported(cfg)
     dt = torch_dtype(cache_dtype if cache_dtype is not None else cfg.dtype)
     R = cfg.block_repeat
     hd = cfg.resolved_head_dim
 
     def layer_cache(spec: LayerSpec) -> dict:
+        if spec.kind == "ssm":
+            P = cfg.d_inner // cfg.n_ssd_heads
+            gn = cfg.n_ssm_groups * cfg.d_state
+            return {
+                "ssm": torch.zeros(R, batch, cfg.n_ssd_heads, P,
+                                   cfg.d_state, dtype=torch.float32,
+                                   device=device),
+                "conv_x": torch.zeros(R, batch, cfg.d_conv - 1, cfg.d_inner,
+                                      dtype=dt, device=device),
+                "conv_bc": torch.zeros(R, batch, cfg.d_conv - 1, 2 * gn,
+                                       dtype=dt, device=device),
+            }
         kv_len = max_len if spec.window is None \
             else min(max_len, ring_size(spec.window))
         shape = (R, batch, kv_len, cfg.n_kv_heads, hd)
@@ -153,8 +192,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
-def _layer_apply(cfg: ModelConfig, spec: LayerSpec, p: DecoderLayer,
+def _layer_apply(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
                  x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    if spec.kind == "ssm":
+        return x + mamba2_forward(p.mixer, rms_norm(x, p.norm1),
+                                  d_inner=cfg.d_inner, d_state=cfg.d_state,
+                                  n_heads=cfg.n_ssd_heads,
+                                  n_groups=cfg.n_ssm_groups)
     h = rms_norm(x, p.norm1)
     x = x + gqa_attention(p.attn, h, positions, n_heads=cfg.n_heads,
                           n_kv_heads=cfg.n_kv_heads,
@@ -201,13 +245,24 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     return x @ head
 
 
-def _layer_decode(cfg: ModelConfig, spec: LayerSpec, p: DecoderLayer,
-                  x: torch.Tensor, cache_k: torch.Tensor,
-                  cache_v: torch.Tensor,
+def _layer_decode(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
+                  x: torch.Tensor, lc: dict, r: int,
                   cache_len: torch.Tensor) -> torch.Tensor:
+    """One layer of block ``r`` for one token; writes the layer's cache
+    ``lc`` (block ``r``'s rows) in place."""
     h = rms_norm(x, p.norm1)
+    if spec.kind == "ssm":
+        y, state, conv = mamba2_decode_step(
+            p.mixer, h, lc["ssm"][r],
+            {"x": lc["conv_x"][r], "bc": lc["conv_bc"][r]},
+            d_inner=cfg.d_inner, d_state=cfg.d_state,
+            n_heads=cfg.n_ssd_heads, n_groups=cfg.n_ssm_groups)
+        lc["ssm"][r].copy_(state)
+        lc["conv_x"][r].copy_(conv["x"])
+        lc["conv_bc"][r].copy_(conv["bc"])
+        return x + y
     y, _, _ = gqa_decode_step(
-        p.attn, h, cache_k, cache_v, cache_len,
+        p.attn, h, lc["k"][r], lc["v"][r], cache_len,
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.resolved_head_dim, window=spec.window,
         rope=cfg.rope, rope_theta=cfg.rope_theta)
@@ -228,8 +283,9 @@ def decode_step(params: Transformer, cfg: ModelConfig,
     """One serving step: (B, 1) token ids + cache -> logits (B, vocab) and
     the cache with ``len`` advanced by one.
 
-    The K/V tensors of ``cache`` are updated in place and shared by the
-    returned cache; only ``len`` is a new tensor.
+    The K/V (or SSM state and conv window) tensors of ``cache`` are
+    updated in place and shared by the returned cache; only ``len`` is a
+    new tensor.
     """
     check_supported(cfg)
     _no_embeds(embeds)
@@ -237,9 +293,8 @@ def decode_step(params: Transformer, cfg: ModelConfig,
     cache_len = cache["len"]
     for r, blk in enumerate(params.blocks):
         for i, spec in enumerate(cfg.block_pattern):
-            lc = cache["blocks"][f"l{i}"]
-            x = _layer_decode(cfg, spec, blk[f"l{i}"], x, lc["k"][r],
-                              lc["v"][r], cache_len)
+            x = _layer_decode(cfg, spec, blk[f"l{i}"], x,
+                              cache["blocks"][f"l{i}"], r, cache_len)
     x = rms_norm(x, params.final_norm)
     head = params.embed.T if cfg.tie_embeddings else params.head
     new_cache = dict(cache, len=cache_len + 1)

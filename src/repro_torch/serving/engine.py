@@ -100,7 +100,8 @@ class EngineReport:
 
 class ServingEngine:
     """Serve requests with ``params`` (a ``models.transformer``
-    parameter tree already on ``device``).
+    parameter tree already on ``device``).  Configs with SSM layers raise
+    ``NotImplementedError`` (see the message).
 
     ``device`` defaults to CUDA and raises without a card; pass
     ``device="cpu"`` for the plain path.  ``dtype`` (default
@@ -112,6 +113,16 @@ class ServingEngine:
                  max_batch: int = 4, max_len: int = 512,
                  kv_token_budget: Optional[int] = None, device=None,
                  dtype=None):
+        if any(spec.kind == "ssm" for spec in cfg.block_pattern):
+            raise NotImplementedError(
+                f"{cfg.name}: the engine does not serve SSM layers yet.  "
+                f"The reference engine (repro/serving/engine.py, "
+                f"_prefill_slot and the main loop) replays one slot's "
+                f"prompt through decode_step over the whole batch and "
+                f"restores only the other slots' lengths, so every other "
+                f"slot's SSM state and conv windows advance for good, and "
+                f"it never resets a reused slot's state: a request's "
+                f"tokens would depend on the requests beside it")
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)

@@ -28,7 +28,10 @@ def _port_modules():
 
 def test_importing_every_port_module_loads_no_jax_and_no_repro():
     mods = _port_modules()
-    assert "repro_torch.serving.engine" in mods
+    for name in ("repro_torch.serving.engine", "repro_torch.layers.ssm",
+                 "repro_torch.kernels.ssd_scan",
+                 "repro_torch.configs.mamba2_2_7b"):
+        assert name in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -198,4 +198,4 @@ def test_source_hash_tracks_sources(tmp_path):
         tmp_path)
     assert {p.name for p in build.sources()} == {
         "decode_attention.cu", "errors.cu", "flash_attention.cu",
-        "rmsnorm.cu"}
+        "rmsnorm.cu", "ssd_scan.cu"}
