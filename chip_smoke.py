@@ -8,11 +8,18 @@ Phases, one line each (the kernels phases print one line per case):
   1. probe   -- nvidia-smi name and power limit, torch, CUDA and nvcc
                versions.
   2. build   -- seconds to build the kernels' shared library from
-               ``src/repro_torch/kernels/csrc`` (plus ptxas register use).
+               ``src/repro_torch/kernels/csrc`` (plus ptxas register use),
+               and the library's SASS (``cuobjdump -sass``): every
+               instance of the bf16 flash kernel must issue HGMMA
+               (Hopper's wgmma), or the run fails.
   3. kernels -- the RMSNorm and decode-attention kernels against their
                plain PyTorch versions on the card, fp32 and bf16, at the
-               main paths' shapes: max error against tolerance, kernel /
-               plain / library ms.
+               main paths' shapes and, for decode attention, a long cache
+               (qwen2-0.5b heads at Smax 32768, lengths 1 / 4096 / 16384 /
+               32768, read cold) and an untimed sweep of groups, head
+               dims and lengths on, one past and between span
+               boundaries: max error against tolerance, kernel / plain /
+               library ms, and the launch grid the wrapper reports.
   4. model   -- qwen2-0.5b at FULL width and depth: ``decode_step``
                through the kernels and through the plain versions on the
                same seeded weights and cache; logits compared, launches
@@ -27,7 +34,7 @@ Phases, one line each (the kernels phases print one line per case):
                ragged length, a sliding window, a prefix offset, and an
                untimed sweep of head dims and groups; per timed case the
                max errors against tolerance, kernel / plain / SDPA /
-               bound ms.
+               bound ms, and the launch grid the wrapper reports.
   7. train   -- ``launch.train.train`` trains qwen2-0.5b FULL in bf16 for
                5 steps (global batch 8 x 1024 tokens, 2 microbatches,
                remat) through the port's training entry point: loss and
@@ -70,6 +77,7 @@ repository's ``src/repro_torch`` beside it, the script exits 1 at once.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -199,6 +207,34 @@ def build_phase() -> None:
                 name = None
     say("build", f"{secs:.1f} s for {build.BUILD_DIR / build.LIB_NAME} "
         f"(ptxas registers: {' '.join(usage) or 'n/a'})")
+    sass_check(build)
+
+
+def sass_check(build) -> None:
+    """The bf16 flash kernel must run on the tensor cores: every instance
+    of ``flash_attention_wgmma_kernel`` in the built library's SASS must
+    hold HGMMA instructions (wgmma as the card executes it)."""
+    tool = Path(build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        fail(f"sass: {tool} not found")
+    sass = subprocess.run([str(tool), "-sass",
+                           str(build.BUILD_DIR / build.LIB_NAME)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hgmma = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            if "flash_attention_wgmma_kernel" in name:
+                hgmma[name] = 0
+        elif name in hgmma and "HGMMA" in line:
+            hgmma[name] += 1
+    if not hgmma or min(hgmma.values()) == 0:
+        fail(f"sass: bf16 flash kernels without HGMMA: {hgmma}")
+    say("build", f"sass: {len(hgmma)} bf16 flash kernels, HGMMA "
+        f"instructions per kernel {sorted(hgmma.values())}")
 
 
 # -- 3. kernels ---------------------------------------------------------------
@@ -240,9 +276,12 @@ def compare(torch, got, want, dtype: str, what: str, tol=None):
         fail(f"{what}: non-finite output")
     err = (got - want).abs()
     tol = tol or TOL[dtype]
-    if bool((err > tol["atol"] + tol["rtol"] * want.abs()).any()):
+    beyond = float((err > tol["atol"] + tol["rtol"] * want.abs()).float()
+                   .mean())
+    if beyond > 0:
         fail(f"{what}: max abs err {float(err.max()):.3e} beyond "
-             f"rtol={tol['rtol']} atol={tol['atol']}")
+             f"rtol={tol['rtol']} atol={tol['atol']} ({beyond:.2e} of "
+             f"elements; {differ:.2e} not bit-equal)")
     if differ > DIFFER_MAX[dtype]:
         fail(f"{what}: {differ:.2e} of elements not bit-equal, more than "
              f"{DIFFER_MAX[dtype]}")
@@ -294,8 +333,17 @@ def attention_inputs(torch, B, Hq, Hkv, D, smax, lengths, dt, gen):
     return q, k, v, lens
 
 
+def in_turn(fn, arg_sets):
+    """A call of ``fn`` on each of ``arg_sets`` in turn, one per call."""
+    turn = itertools.count()
+    return lambda: fn(*arg_sets[next(turn) % len(arg_sets)])
+
+
 def attention_case(torch, F, shape, lengths, dtype_name, gen,
-                   timed: bool = True) -> dict:
+                   timed: bool = True, copies: int = 1) -> dict:
+    """One decode-attention case; ``copies`` > 1 times the calls over that
+    many caches in turn, so a cache that fits the 50 MB L2 is read cold
+    as a serving step reads it."""
     from repro_torch.kernels import decode_attention as da
     B, Hq, Hkv, D, smax = shape
     dt = getattr(torch, dtype_name)
@@ -307,35 +355,49 @@ def attention_case(torch, F, shape, lengths, dtype_name, gen,
     err, differ = compare(torch, got,
                           da.decode_attention_plain(q, k, v, lens),
                           dtype_name, what)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid_text = (f"grid {'x'.join(map(str, da.grid(q, k)))} blocks (span "
+                 f"{da.split_plan(smax, B * Hkv, sms)[0]}) on {sms} SMs")
     if not timed:
-        return dict(max_abs_err=err, differ=differ)
-    ms = time_ms(torch, lambda: da.decode_attention(q, k, v, lens))
-    plain_ms = time_ms(torch, lambda: da.decode_attention_plain(q, k, v,
-                                                                lens))
+        return dict(max_abs_err=err, differ=differ, grid=grid_text)
+    kvs = [(k, v)] + [(torch.randn_like(k), torch.randn_like(v))
+                      for _ in range(copies - 1)]
+    ms = time_ms(torch, in_turn(
+        lambda kk, vv: da.decode_attention(q, kk, vv, lens), kvs))
+    plain_ms = time_ms(torch, in_turn(
+        lambda kk, vv: da.decode_attention_plain(q, kk, vv, lens), kvs))
     # yardstick: SDPA on K/V repeated to Hq heads, boolean length mask
     rep = Hq // Hkv
-    qs = q[:, :, None, :]
-    ks = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
-    vs = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+    sdpa_kvs = [tuple(t.repeat_interleave(rep, dim=2).transpose(1, 2)
+                      .contiguous() for t in pair) for pair in kvs]
     mask = (torch.arange(smax, device="cuda")[None, :]
             < lens[:, None])[:, None, None, :]
-    lib = F.scaled_dot_product_attention
-    library_ms = time_ms(torch, lambda: lib(qs, ks, vs, attn_mask=mask))
+    library_ms = time_ms(torch, in_turn(
+        lambda ks, vs: F.scaled_dot_product_attention(
+            q[:, :, None, :], ks, vs, attn_mask=mask), sdpa_kvs))
+    del kvs, sdpa_kvs
     es = q.element_size()
     n_kv = sum(min(max(n, 0), smax) for n in lengths)
     nbytes = n_kv * Hkv * 2 * D * es + 2 * q.numel() * es + 4 * B
     flops = n_kv * Hq * 4.0 * D
     bound_ms, bound_by = bound(nbytes, flops)
+    cold = f"; {copies} caches in turn, read cold" if copies > 1 else ""
     say("kernels", f"decode_attention q {(B, Hq, D)} k/v "
         f"{(B, smax, Hkv, D)} lengths {lengths} {dtype_name}: max_abs_err "
         f"{err:.3e} ({tol_text(dtype_name)}), not bit-equal {differ:.2e} "
         f"| kernel "
         f"{ms:.4f} ms plain {plain_ms:.4f} ms library(SDPA) "
         f"{library_ms:.4f} ms bound {bound_ms:.5f} ms ({bound_by}, "
-        f"{nbytes} B) | grid {Hkv}x{B} blocks on "
-        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+        f"{nbytes} B{cold}) | {grid_text}")
     return dict(max_abs_err=err, differ=differ, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+# qwen2-0.5b's heads at its published context of 32768 (27 MB of bf16
+# K/V at these lengths): (B, Hq, Hkv, D, Smax)
+DECODE_LONG = (4, 14, 2, 64, 32768)
+DECODE_LONG_LENGTHS = [1, 4096, 16384, 32768]
+DECODE_EDGE_SMAX = 1000
 
 
 def kernels_phase(torch, F) -> dict:
@@ -370,6 +432,36 @@ def kernels_phase(torch, F) -> dict:
         f"and 128, Smax 70, lengths 1/33/70, fp32 and bf16) all within "
         f"tolerance, worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
         f"{worst['bfloat16']:.3e}")
+    # the split grid's edges: lengths on a span boundary, one past it, and
+    # an Smax that is not a multiple of the span
+    from repro_torch.kernels import decode_attention as da
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = 0
+    grids = set()
+    for dtype_name in ("float32", "bfloat16"):
+        for D in (64, 128):
+            for group in (1, 7, 8):
+                shape = (4, 2 * group, 2, D, DECODE_EDGE_SMAX)
+                span, splits = da.split_plan(DECODE_EDGE_SMAX, 8, sms)
+                if DECODE_EDGE_SMAX % span == 0 or splits < 4:
+                    fail(f"kernels: Smax {DECODE_EDGE_SMAX} gives span "
+                         f"{span} x {splits}, not a ragged split grid")
+                r = attention_case(torch, F, shape,
+                                   [span, span + 1, 3 * span,
+                                    DECODE_EDGE_SMAX], dtype_name, gen,
+                                   timed=False)
+                worst[dtype_name] = max(worst[dtype_name], r["max_abs_err"])
+                grids.add(r["grid"])
+                n += 1
+    say("kernels", f"decode_attention split edges: {n} cases (group "
+        f"1/7/8, D 64 and 128, Smax {DECODE_EDGE_SMAX}, lengths span, "
+        f"span + 1, 3 span, Smax; fp32 and bf16) all within tolerance, "
+        f"worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
+        f"{worst['bfloat16']:.3e} | {'; '.join(sorted(grids))}")
+    for dtype_name in ("float32", "bfloat16"):
+        r = attention_case(torch, F, DECODE_LONG, DECODE_LONG_LENGTHS,
+                           dtype_name, gen, copies=3)
+        results[("decode_attention", DECODE_LONG, dtype_name)] = r
     return results
 
 
@@ -642,6 +734,7 @@ def flash_case(torch, F, case, dtype_name, gen, timed: bool = True) -> dict:
         sdpa = dict(attn_mask=mask)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, ks, vs, enable_gqa=True, **sdpa), inner=5, reps=11)
+    (gx, gy), threads = fa.grid(q)
     pairs = int(mask.sum())
     es = q.element_size()
     nbytes = 2 * (q.numel() + k.numel()) * es + 4 * lse.numel()
@@ -658,7 +751,8 @@ def flash_case(torch, F, case, dtype_name, gen, timed: bool = True) -> dict:
         f"plain {plain_ms:.4f} ms library(SDPA) {library_ms:.4f} ms bound "
         f"{bound_ms:.5f} ms ({bound_by}: {flops:.4g} FLOP at "
         f"{peak / 1e12:.0f} TFLOP/s, {nbytes} B) | "
-        f"{flops / ms / 1e9:.1f} TFLOP/s, grid {-(-Sq // 64)}x{B * Hq}")
+        f"{flops / ms / 1e9:.1f} TFLOP/s, grid {gx}x{gy} blocks of "
+        f"{threads} threads")
     return dict(max_abs_err=max(err, lse_err), differ=differ, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)

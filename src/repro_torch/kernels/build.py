@@ -30,6 +30,9 @@ BUILD_DIR = CHECKOUT / "build" / "kernels"
 LIB_NAME = "libapex_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+# The link adds no library: the flash kernel's tensor-map encoder comes
+# from the driver through cudaGetDriverEntryPointByVersion, not -lcuda.
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 _fns: dict = {}
@@ -56,10 +59,12 @@ def sources(csrc: Path = CSRC) -> list:
     return sorted(csrc.glob("*.cu"))
 
 
-def source_hash(csrc: Path = CSRC, flags: Sequence[str] = NVCC_FLAGS
-                ) -> str:
-    """sha256 over every source and header file and the nvcc flags."""
+def source_hash(csrc: Path = CSRC, flags: Sequence[str] = NVCC_FLAGS,
+                link_flags: Sequence[str] = LINK_FLAGS) -> str:
+    """sha256 over every source and header file and the nvcc compile and
+    link flags."""
     h = hashlib.sha256(" ".join(flags).encode())
+    h.update(b"\0" + " ".join(link_flags).encode())
     for f in sorted(list(csrc.glob("*.cu")) + list(csrc.glob("*.cuh"))):
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -117,7 +122,7 @@ def compile_library(out_dir: Path = BUILD_DIR) -> Path:
                                + "\n".join(log))
         tmp_lib = Path(tmp) / LIB_NAME
         link = subprocess.run(
-            [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp_lib),
+            [nvcc, *LINK_FLAGS, "-o", str(tmp_lib),
              *[str(o) for _, o, _ in procs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         log.append(f"== link (rc={link.returncode})\n{link.stdout}")

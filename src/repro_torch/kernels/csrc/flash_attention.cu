@@ -18,23 +18,65 @@
 // dense bf16 tensor cores, against 17 MB of q, k, v and out, 5 us at
 // 3.35 TB/s.
 //
-// Design: the Pallas kernel walks KV tiles along the minor grid axis, which
-// runs in order on one TPU core, and carries (m, l, acc) in VMEM across
-// those steps.  CUDA blocks run in no order, so here one 128-thread block
-// owns a BQ = 64-row query tile of one (b, h) and loops over the KV tiles
-// itself, from the first tile the window reaches to the last tile
-// causality allows (the Pallas `live` test turned into loop bounds).
-// The grid is (ceil(Sq / BQ), B * Hq), the query tiles taken last-first
-// so the long causal rows start first.  K and V are read at kv head
-// h / group with no repeat in memory.  The tiles sit in shared memory as
-// fp32: Q^T and K^T (so a thread reads 4 query rows and 2 x 4 keys as
-// float4s), then V in K's place, and P^T.  Each thread computes a 4 x 8
-// block of the 64 x 64 score tile with fp32 FMAs on the CUDA cores; the 8
-// threads that share 4 rows reduce their row max and row sum with
-// shuffles and each keeps those 4 rows' (m, l) and a 4 x D/8 block of the
-// accumulator in registers.  This spends none of the tensor cores, whose
-// rate the bound assumes; a wgmma / TMA pipeline with producer and
-// consumer warps is the redesign that closes the gap.
+// Two kernels, picked by dtype (a dispatch, not a fallback):
+//
+// bf16: tensor cores.  A 288-thread CTA owns a 128-row query tile of one
+// (b, h): two consumer warpgroups of 64 rows each and one producer warp.
+// The producer's lane 0 loads Q once and K/V tiles of BK = 64 keys into a
+// three-stage ring with TMA (cp.async.bulk.tensor over a 4-D map (D, H, S,
+// B), so the ragged end of a sequence reads zeros, not the next batch's
+// rows), each stage guarded by a full and an empty mbarrier, so the loads
+// of the next tiles overlap the math on tile j.  Shared memory is swizzled
+// by D: 32, 64 or 128 B for rows of 16, 32 or 64 bf16; D = 128 is two
+// 128 B atoms side by side.  Per tile each consumer warpgroup issues
+// S = Q K^T as D / 16 wgmma m64n64k16 with both operands K-major in
+// shared memory (bf16 x bf16 products are exact in fp32, so S matches
+// the reference's fp32 dot up to summation order), runs the online
+// softmax in registers in fp32 with expf, and adds P V with
+// register-sourced wgmma m64nDk16, V MN-major (imm-trans-b).  BK = 64
+// keeps S, P and O of D = 128 in registers; a BK = 128 tile would fit
+// shared memory too, but not the register file of two warpgroups.
+// P stays fp32 as in the reference, which multiplies fp32 p by v: it is
+// split as P_hi = bf16(P), P_lo = bf16(P - P_hi), and both products go
+// into the same accumulator (1.5x the least work).  Rounding P to bf16
+// once moves 39% of bf16 outputs off the fp32-P result (10.6% beyond
+// one bf16 ulp; causal S 1024, D 64, on the CPU); the split moves 0.22%,
+// none beyond one ulp, so the limits of chip_smoke.py hold unchanged.
+// Only the diagonal and window-edge tiles are masked: the softmax is
+// compiled twice, and interior tiles run the copy with no key test and
+// no probability select (0.073 -> 0.052 ms at the training shape on an
+// H100).  A warpgroup skips the math on a tile that is wholly masked for
+// its 64 rows.  Within a warpgroup S, the softmax and P V of a tile run
+// in turn; the overlap comes from the other warpgroup and, for D <= 64,
+// a second CTA on the SM (four consumer warpgroups).  Issuing S of tile j + 1 beside P V of
+// tile j read slower on an H100 (0.158 against 0.108 ms at the training
+// shape): it spills at the two-CTA register cap.  The grid is (B * Hq,
+// ceil(Sq / 128)), query tiles last-first: x launches fastest, so the
+// tiles with the most keys start first on the whole card and the short
+// ones fill the tail (0.107 -> 0.075 ms at the training shape on an
+// H100); the KV loop runs over the tiles the causal and window `live`
+// test of the Pallas kernel keeps.  cuTensorMapEncodeTiled comes from
+// cudaGetDriverEntryPointByVersion, so the library does not link
+// libcuda.  At the training shape the tensor-core work is 7.6 us at
+// the bf16 peak, 11.4 us with P_lo; the softmax's expf is kept for fp32
+// agreement with the reference (__expf in its place read 0.081 against
+// 0.107 ms before the grid order changed).
+//
+// fp32: CUDA cores (the tensor cores have no fp32 mode, and TF32 would
+// miss the fp32 limits; fp32 only runs the parity reference).  One
+// 128-thread block owns a BQ = 64-row query tile of one (b, h) and loops
+// over the KV tiles itself; the grid is (ceil(Sq / BQ), B * Hq), query
+// tiles last-first.  The tiles sit in shared memory as Q^T and K^T (so a
+// thread reads 4 query rows and 2 x 4 keys as float4s), then V in K's
+// place, and P^T.  Each thread computes a 4 x 8 block of the 64 x 64
+// score tile with FMAs; the 8 threads that share 4 rows reduce their row
+// max and row sum with shuffles and each keeps those 4 rows' (m, l) and a
+// 4 x D/8 block of the accumulator in registers.
+#include <cuda.h>
+#include <cudaTypedefs.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -278,24 +320,579 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dim(int head_dim, const void* q, const void* k, const void* v,
-               void* out, void* lse, int batch, int sq, int skv, int hq,
-               int hkv, int q_offset, int causal, int window, float scale,
-               cudaStream_t stream) {
+// ---- bf16: wgmma + TMA ------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBQ = 128;         // query rows per CTA: two warpgroups of 64
+constexpr int kBK = 64;          // keys per K/V tile
+constexpr int kStages = 3;       // K/V ring depth
+constexpr int kConsumers = 256;  // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+// cuTensorMapEncodeTiled's CUresult comes back as kTensorMapError + code
+// (see errors.cu).
+constexpr int kTensorMapError = 100000;
+
+// Shared-memory layout for head dim D.  A row of a swizzle atom holds
+// min(D, 64) bf16 (32, 64 or 128 bytes, the swizzle width); D = 128 is
+// two atoms side by side, each a tile of its own.
+template <int D>
+struct Cfg {
+  static constexpr int kAtomCols = D < 64 ? D : 64;
+  static constexpr int kRowBytes = kAtomCols * 2;
+  static constexpr int kAtoms = D / kAtomCols;
+  // wgmma descriptor layout type: 1 = 128 B, 2 = 64 B, 3 = 32 B swizzle
+  static constexpr uint64_t kLayout =
+      kRowBytes == 128 ? 1 : (kRowBytes == 64 ? 2 : 3);
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                       : (kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                          : CU_TENSOR_MAP_SWIZZLE_32B);
+  static constexpr int kQAtom = kBQ * kRowBytes;   // bytes of one Q atom
+  static constexpr int kKVAtom = kBK * kRowBytes;  // bytes of one K/V atom
+  static constexpr int kQBytes = kBQ * D * 2;
+  static constexpr int kKVBytes = kBK * D * 2;     // one K or V tile
+  // Q, then K[stage], then V[stage]; + 1 KB to align the base to the
+  // 1024-byte period of the 128 B swizzle
+  static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box of a 4-D map (D, H, S, B) into shared memory; completion
+// counts the box's bytes on `bar` (out-of-range elements read as 0).
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int h, int s,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(d),
+      "r"(h), "r"(s), "r"(b)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units) and the swizzle layout type.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo,
+                                              uint64_t layout) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from touching wgmma registers across the asynchronous
+// window: a read after wgmma_wait_all() sees the finished value.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// S (+)= Q K^T over 16 of D, m64n64k16: A (64 rows x 16) and B (64 keys x
+// 16) K-major in shared memory; scale_d = 0 ignores the old accumulator.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                            uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// O += P V over 16 keys, m64nDk16: A = P from registers (the fragment of
+// an m64n16 accumulator, bf16 pairs), B = V MN-major in shared memory
+// (transposed, imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// Two CTAs per SM for D <= 64 (registers capped near 112 a thread), one
+// for D = 128.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
+    flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                                 const __grid_constant__ CUtensorMap map_k,
+                                 const __grid_constant__ CUtensorMap map_v,
+                                 __nv_bfloat16* __restrict__ out,
+                                 float* __restrict__ lse, int sq, int skv,
+                                 int hq, int group, int q_offset, int causal,
+                                 int window, float scale) {
+  using C = Cfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bar_q;
+  __shared__ __align__(8) uint64_t bar_full[kStages];
+  __shared__ __align__(8) uint64_t bar_empty[kStages];
+  uint8_t* s_q = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* s_k = s_q + C::kQBytes;               // [kStages][kKVBytes]
+  uint8_t* s_v = s_k + kStages * C::kKVBytes;    // [kStages][kKVBytes]
+
+  // x runs fastest in launch order: every (b, h)'s longest causal rows
+  // start first, and the short tiles fill in behind them
+  const int q_tile = gridDim.y - 1 - blockIdx.y;
+  const int bh = blockIdx.x;
+  const int b = bh / hq;
+  const int h = bh - b * hq;
+  const int kvh = h / group;
+  const int q0 = q_tile * kBQ;
+
+  // KV range any row of this tile can see: the `live` test as bounds
+  const int q_last = min(q0 + kBQ, sq) - 1;
+  int k_end = skv;
+  if (causal) k_end = min(k_end, q_offset + q_last + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q_offset + q0 - window + 1);
+  const int kt0 = (k_begin / kBK) * kBK;
+  const int n_tiles = k_end > kt0 ? (k_end - kt0 + kBK - 1) / kBK : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bar_full[s], 1);
+      mbar_init(&bar_empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // producer: lane 0 of the last warp issues every copy
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(&bar_q, C::kQBytes);
+#pragma unroll
+      for (int a = 0; a < C::kAtoms; ++a) {
+        tma_load(s_q + a * C::kQAtom, &map_q, &bar_q, a * C::kAtomCols, h,
+                 q0, b);
+      }
+      for (int i = 0; i < n_tiles; ++i) {
+        const int stage = i % kStages;
+        const int k0 = kt0 + i * kBK;
+        mbar_wait(&bar_empty[stage], ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(&bar_full[stage], 2 * C::kKVBytes);
+        uint8_t* dk = s_k + stage * C::kKVBytes;
+        uint8_t* dv = s_v + stage * C::kKVBytes;
+#pragma unroll
+        for (int a = 0; a < C::kAtoms; ++a) {
+          tma_load(dk + a * C::kKVAtom, &map_k, &bar_full[stage],
+                   a * C::kAtomCols, kvh, k0, b);
+          tma_load(dv + a * C::kKVAtom, &map_v, &bar_full[stage],
+                   a * C::kAtomCols, kvh, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile; a
+  // thread holds rows r0 and r0 + 8 of them (the wgmma fragment), in each
+  // 8-column group the two columns cq, cq + 1
+  const int wg = threadIdx.x >> 7;
+  const int t = threadIdx.x & 127;
+  const int r0 = 16 * (t >> 5) + ((t & 31) >> 2);
+  const int cq = 2 * (t & 3);
+  const int pos_lo = q_offset + q0 + 64 * wg;   // position of row 0
+  const int pos_hi = pos_lo + 63;
+  const int pos[2] = {pos_lo + r0, pos_lo + r0 + 8};
+  const uint32_t q_addr = smem_u32(s_q) + wg * 64 * C::kRowBytes;
+  constexpr uint32_t kSbo = 8 * C::kRowBytes;  // next group of 8 rows
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  mbar_wait(&bar_q, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int stage = i % kStages;
+    const int k0 = kt0 + i * kBK;
+    mbar_wait(&bar_full[stage], (i / kStages) & 1);
+    // the whole tile is masked for these 64 rows: nothing to add
+    const bool skip = (causal && k0 > pos_hi) ||
+                      (window > 0 && k0 + kBK - 1 <= pos_lo - window);
+    if (!skip) {
+      const uint32_t k_addr = smem_u32(s_k + stage * C::kKVBytes);
+      const uint32_t v_addr = smem_u32(s_v + stage * C::kKVBytes);
+      float s[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) s[e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        // 16 columns of D: atom ks * 16 / kAtomCols, 32 bytes per step
+        const uint32_t col = (ks * 16) / C::kAtomCols;
+        const uint32_t within = ((ks * 16) % C::kAtomCols) * 2;
+        wgmma_ss_n64(
+            s, make_desc(q_addr + col * C::kQAtom + within, 16, kSbo,
+                         C::kLayout),
+            make_desc(k_addr + col * C::kKVAtom + within, 16, kSbo,
+                      C::kLayout),
+            ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // s[4 c + 2 hh + j]: row r0 + 8 hh, key k0 + 8 c + cq + j.  Only a
+      // tile the causal or window mask cuts (or the ragged end) tests
+      // keys: the softmax is compiled twice, with and without the mask.
+      float corr[2];
+      auto softmax = [&](auto masked) {
+        uint32_t valid = 0xffffffffu;
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const int e = 4 * c + 2 * hh + j;
+              float x = s[e] * scale;
+              if constexpr (decltype(masked)::value) {
+                const int key = k0 + 8 * c + cq + j;
+                const bool ok = key < skv &&
+                                (!causal || key <= pos[hh]) &&
+                                (window <= 0 || key > pos[hh] - window);
+                if (!ok) {
+                  x = kNegInf;
+                  valid &= ~(1u << e);
+                }
+              }
+              s[e] = x;
+              mx[hh] = fmaxf(mx[hh], x);
+            }
+          }
+        }
+        float rs[2] = {0.f, 0.f};
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          // the 4 threads of a quad hold the same two rows
+          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+          mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+          const float m_new = fmaxf(m[hh], mx[hh]);
+          corr[hh] = expf(m[hh] - m_new);
+          m[hh] = m_new;
+        }
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int hh = (e >> 1) & 1;
+          float p = expf(s[e] - m[hh]);
+          if constexpr (decltype(masked)::value) {
+            p = (valid >> e) & 1u ? p : 0.f;
+          }
+          s[e] = p;
+          rs[hh] += p;
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 1);
+          rs[hh] += __shfl_xor_sync(0xffffffffu, rs[hh], 2);
+          l[hh] = l[hh] * corr[hh] + rs[hh];
+        }
+      };
+      if (k0 + kBK > skv || (causal && k0 + kBK - 1 > pos_lo) ||
+          (window > 0 && k0 <= pos_hi - window)) {
+        softmax(std::true_type{});
+      } else {
+        softmax(std::false_type{});
+      }
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+
+      // P as the A fragments of 4 k16 steps, split into bf16 hi + lo
+      uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x0 = s[8 * kk + 2 * r];
+          const float x1 = s[8 * kk + 2 * r + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+          const float2 back = __bfloat1622float2(hi);
+          p_hi[kk][r] = *reinterpret_cast<const uint32_t*>(&hi);
+          p_lo[kk][r] = pack_bf16(x0 - back.x, x1 - back.y);
+        }
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        // keys 16 kk .. 16 kk + 15 are rows of V; N = D spans the atoms
+        const uint64_t dv = make_desc(v_addr + kk * 16 * C::kRowBytes,
+                                      C::kKVAtom, kSbo, C::kLayout);
+        wgmma_rs(o, p_hi[kk], dv);
+        wgmma_rs(o, p_lo[kk], dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        fence_regs(p_hi[kk]);
+        fence_regs(p_lo[kk]);
+      }
+    }
+    mbar_arrive(&bar_empty[stage]);
+  }
+
+  const size_t q_pitch = static_cast<size_t>(hq) * D;
+  __nv_bfloat16* ob = out + static_cast<size_t>(b) * sq * q_pitch + h * D;
+  float* lb = lse + static_cast<size_t>(bh) * sq;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q0 + 64 * wg + r0 + 8 * hh;
+    if (row < sq) {
+      const float l_safe = fmaxf(l[hh], 1e-30f);
+      const float inv = 1.0f / l_safe;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            ob + static_cast<size_t>(row) * q_pitch + 8 * c + cq) =
+            __floats2bfloat162_rn(o[4 * c + 2 * hh] * inv,
+                                  o[4 * c + 2 * hh + 1] * inv);
+      }
+      if ((t & 3) == 0) lb[row] = m[hh] + logf(l_safe);
+    }
+  }
+}
+
+using EncodeFn = PFN_cuTensorMapEncodeTiled_v12000;
+
+EncodeFn encoder() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeFn>(p);
+    }
+  }
+  return fn;
+}
+
+// Map of a contiguous (batch, seq, heads, D) bf16 tensor as the 4-D
+// (D, heads, seq, batch), boxes of one swizzle atom x `rows` rows.
+template <int D>
+int encode(CUtensorMap* map, const void* base, int heads, int seq,
+           int batch, int rows) {
+  EncodeFn fn = encoder();
+  if (fn == nullptr) return kTensorMapError + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(D) * 2, static_cast<cuuint64_t>(heads) * D * 2,
+      static_cast<cuuint64_t>(seq) * heads * D * 2};
+  const cuuint32_t box[4] = {Cfg<D>::kAtomCols, 1,
+                             static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, Cfg<D>::kSwizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + static_cast<int>(r);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse,
+           int batch, int sq, int skv, int hq, int hkv, int q_offset,
+           int causal, int window, float scale, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  int err = encode<D>(&map_q, q, hq, sq, batch, kBQ);
+  if (err == 0) err = encode<D>(&map_k, k, hkv, skv, batch, kBK);
+  if (err == 0) err = encode<D>(&map_v, v, hkv, skv, batch, kBK);
+  if (err != 0) return err;
+  constexpr int bytes = Cfg<D>::kSmem;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(batch * hq, (sq + kBQ - 1) / kBQ);
+  flash_attention_wgmma_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), sq, skv, hq, hq / hkv, q_offset, causal,
+      window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+
+template <int D>
+int launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                 void* out, void* lse, int batch, int sq, int skv, int hq,
+                 int hkv, int q_offset, int causal, int window, float scale,
+                 cudaStream_t stream) {
+  if (dtype == apex::kFloat32) {
+    return launch<float, D>(q, k, v, out, lse, batch, sq, skv, hq, hkv,
+                            q_offset, causal, window, scale, stream);
+  }
+  return tc::launch<D>(q, k, v, out, lse, batch, sq, skv, hq, hkv, q_offset,
+                       causal, window, scale, stream);
+}
+
+int launch_dim(int head_dim, int dtype, const void* q, const void* k,
+               const void* v, void* out, void* lse, int batch, int sq,
+               int skv, int hq, int hkv, int q_offset, int causal, int window,
+               float scale, cudaStream_t stream) {
   switch (head_dim) {
     case 16:
-      return launch<T, 16>(q, k, v, out, lse, batch, sq, skv, hq, hkv,
-                           q_offset, causal, window, scale, stream);
+      return launch_dtype<16>(dtype, q, k, v, out, lse, batch, sq, skv, hq,
+                              hkv, q_offset, causal, window, scale, stream);
     case 32:
-      return launch<T, 32>(q, k, v, out, lse, batch, sq, skv, hq, hkv,
-                           q_offset, causal, window, scale, stream);
+      return launch_dtype<32>(dtype, q, k, v, out, lse, batch, sq, skv, hq,
+                              hkv, q_offset, causal, window, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, out, lse, batch, sq, skv, hq, hkv,
-                           q_offset, causal, window, scale, stream);
+      return launch_dtype<64>(dtype, q, k, v, out, lse, batch, sq, skv, hq,
+                              hkv, q_offset, causal, window, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, out, lse, batch, sq, skv, hq, hkv,
-                            q_offset, causal, window, scale, stream);
+      return launch_dtype<128>(dtype, q, k, v, out, lse, batch, sq, skv, hq,
+                               hkv, q_offset, causal, window, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -304,29 +901,25 @@ int launch_dim(int head_dim, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q, out: (batch, sq, hq, D); k, v: (batch, skv, hkv, D); lse: (batch, hq,
-// sq) fp32.  All contiguous; q/k/v/out of one dtype.  D is 16, 32, 64 or
+// sq) fp32.  All contiguous; q/k/v/out of one dtype, fp32 (CUDA cores) or
+// bf16 (wgmma + TMA: q, k and v 16-byte aligned).  D is 16, 32, 64 or
 // 128; hq is a multiple of hkv with hq / hkv in 1..8; sq, skv >= 1;
-// batch * hq <= 65535; window <= 0 means none.  Returns cudaGetLastError()
-// after the launch.
+// batch * hq <= 65535 and, for bf16, ceil(sq / 128) <= 65535; window <= 0
+// means none.  Returns cudaGetLastError()
+// after the launch, or tc::kTensorMapError + the CUresult of a failed
+// tensor-map encode.
 extern "C" int apex_flash_attention(const void* q, const void* k,
                                     const void* v, void* out, void* lse,
                                     int batch, int sq, int skv, int hq,
                                     int hkv, int head_dim, int q_offset,
                                     int causal, int window, int dtype,
                                     float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hkv < 1 || hq % hkv != 0 || hq / hkv > 8 || sq < 1 || skv < 1 ||
-      batch < 1 || batch * hq > 65535) {
+      batch < 1 || batch * hq > 65535 ||
+      (dtype != apex::kFloat32 && dtype != apex::kBFloat16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (dtype == apex::kFloat32) {
-    return launch_dim<float>(head_dim, q, k, v, out, lse, batch, sq, skv, hq,
-                             hkv, q_offset, causal, window, scale, s);
-  }
-  if (dtype == apex::kBFloat16) {
-    return launch_dim<__nv_bfloat16>(head_dim, q, k, v, out, lse, batch, sq,
-                                     skv, hq, hkv, q_offset, causal, window,
-                                     scale, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dim(head_dim, dtype, q, k, v, out, lse, batch, sq, skv, hq,
+                    hkv, q_offset, causal, window, scale,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -9,13 +9,17 @@ One new query token per sequence, ``q (B, Hq, D)``, against caches
 ``csrc/decode_attention.cu`` on CUDA tensors and runs the plain PyTorch
 version ``decode_attention_plain`` on CPU tensors.  There is no fallback:
 CUDA inputs the kernel does not take raise.  ``launches`` counts kernel
-launches in this process.
+launches in this process, one per call: the kernel splits the cache into
+spans over a (splits, Hkv, B) grid (``split_plan``, ``grid``) and merges
+the spans' partial softmax states itself.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -27,8 +31,53 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (
+_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (
     ctypes.c_float, ctypes.c_void_p)
+SPAN_QUANTUM = 128  # 4 warps x 32-slot tiles: every warp gets whole tiles
+MAX_SPLITS = 64     # spans the last block of a row merges (kMaxSplits)
+BLOCKS_PER_SM = 4   # the split grid aims at this many blocks per SM
+# per (device, stream): int32 tickets of the in-kernel combine, zeroed
+# once; every launch leaves them zero
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def split_plan(smax: int, rows: int, sm_count: int) -> Tuple[int, int]:
+    """``(span, splits)`` for caches of ``smax`` slots and ``rows = B *
+    Hkv`` (b, kv head) pairs on a card of ``sm_count`` SMs: enough spans
+    that ``rows * splits`` blocks fill the card (``BLOCKS_PER_SM`` per
+    SM), at most ``MAX_SPLITS``, each a multiple of ``SPAN_QUANTUM`` and
+    together covering ``smax`` (span * splits >= smax, every span but the
+    last full)."""
+    if smax < 1 or rows < 1 or sm_count < 1:
+        raise ValueError(f"split_plan: smax {smax}, rows {rows}, sm_count "
+                         f"{sm_count} must be >= 1")
+    want = -(-BLOCKS_PER_SM * sm_count // rows)
+    splits = min(MAX_SPLITS, want, -(-smax // SPAN_QUANTUM))
+    span = -(-smax // splits)
+    span = -(-span // SPAN_QUANTUM) * SPAN_QUANTUM
+    return span, -(-smax // span)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def grid(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, int, int]:
+    """``(splits, Hkv, B)``: the blocks a call on CUDA tensors ``q (B, Hq,
+    D)``, ``k (B, Smax, Hkv, D)`` launches (128 threads each)."""
+    B, Smax, Hkv = k.shape[0], k.shape[1], k.shape[2]
+    return split_plan(Smax, B * Hkv, _sm_count(q.device))[1], Hkv, B
+
+
+def _ticket_buffer(device: torch.device, stream: int,
+                   n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -111,12 +160,21 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check_kernel_args(q, k, v, lengths)
     B, Hq, D = q.shape
     Smax, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    span, splits = split_plan(Smax, B * Hkv, _sm_count(q.device))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
+    ws = tickets = None
+    if splits > 1:
+        ws = torch.empty(B * Hkv * splits * group * (D + 2),
+                         dtype=torch.float32, device=q.device)
+        tickets = _ticket_buffer(q.device, stream, B * Hkv)
     fn = build.kernel("apex_decode_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), B, Hkv, Hq // Hkv, Smax, D,
-             _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(D),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             out.data_ptr(), None if ws is None else ws.data_ptr(),
+             None if tickets is None else tickets.data_ptr(), B, Hkv, group,
+             Smax, D, span, splits, _DTYPE_CODES[q.dtype],
+             1.0 / math.sqrt(D), stream)
     build.check(err, "apex_decode_attention")
     launches += 1
     return out

@@ -10,11 +10,14 @@ softmax's log-sum-exp ``lse (B, Hq, Sq)`` in fp32, which the backward
 pass of ``layers.attention.blockwise_attention`` recomputes the
 probabilities from.
 
-``flash_attention`` launches the CUDA kernel of
-``csrc/flash_attention.cu`` on CUDA tensors and runs the plain PyTorch
-version ``flash_attention_plain`` on CPU tensors.  There is no fallback:
-CUDA inputs the kernel does not take raise.  ``launches`` counts kernel
-launches in this process.
+``flash_attention`` launches a CUDA kernel of ``csrc/flash_attention.cu``
+on CUDA tensors and runs the plain PyTorch version
+``flash_attention_plain`` on CPU tensors.  The kernel follows the dtype:
+bf16 runs on the tensor cores (wgmma, TMA copies; 128-row query tiles),
+fp32 on the CUDA cores (64-row query tiles).  There is no fallback: CUDA
+inputs the kernels do not take raise, and so does a failed launch or
+tensor-map encode.  ``launches`` counts kernel launches in this process;
+``grid`` gives a call's launch geometry.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ MAX_GROUP = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 10 + (
     ctypes.c_float, ctypes.c_void_p)
+# (query rows per block, threads per block) of each kernel: bf16 has two
+# consumer warpgroups and a producer warp, fp32 one 128-thread block
+_TILES = {torch.bfloat16: (128, 288), torch.float32: (64, 128)}
 
 
 def attention_mask(sq: int, skv: int, *, causal: bool,
@@ -109,6 +115,9 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention kernel: q_offset {q_offset} < 0")
     if max(Sq, Skv) + q_offset >= 2 ** 30:
         raise ValueError("flash_attention kernel: sequence too long")
+    if q.dtype == torch.bfloat16 and -(-Sq // _TILES[q.dtype][0]) > 65535:
+        raise ValueError(f"flash_attention kernel: Sq {Sq} needs more than "
+                         f"65535 query tiles")
     if window is not None and not 1 <= window < 2 ** 31:
         raise ValueError(f"flash_attention kernel: window {window} outside "
                          f"[1, 2**31)")
@@ -124,6 +133,24 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device:
             raise ValueError(f"flash_attention kernel: {name} on "
                              f"{t.device}, q on {q.device}")
+        # the bf16 kernel's TMA maps need 16-byte aligned bases (rows of
+        # D >= 16 bf16 keep every stride a multiple of 16 bytes)
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel: bf16 {name} must be "
+                             f"16-byte aligned")
+
+
+def grid(q: torch.Tensor) -> Tuple[Tuple[int, int], int]:
+    """``((grid x, grid y), threads per block)`` of the kernel a call with
+    this ``q (B, Sq, Hq, D)`` launches: ``(B * Hq, query tiles)`` in bf16
+    (every head's longest tiles launch first), ``(query tiles, B * Hq)``
+    in fp32."""
+    B, Sq, Hq, _ = q.shape
+    rows, threads = _TILES[q.dtype]
+    tiles = -(-Sq // rows)
+    if q.dtype == torch.bfloat16:
+        return (B * Hq, tiles), threads
+    return (tiles, B * Hq), threads
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

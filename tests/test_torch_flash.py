@@ -238,3 +238,56 @@ def test_flash_kernel_checks_refuse_bad_args():
         FA.check_kernel_args(q, k, v[..., :32].contiguous(), None, 0)
     with pytest.raises(ValueError):                          # not contiguous
         FA.check_kernel_args(q.transpose(1, 2), k, v, None, 0)
+
+
+def test_flash_kernel_checks_refuse_misaligned_bf16():
+    """The bf16 kernel reads q, k and v through TMA maps, whose bases must
+    be 16-byte aligned; the fp32 kernel reads elements and takes any."""
+    def shifted(shape, dtype):
+        n = math.prod(shape)
+        return torch.zeros(n + 1, dtype=dtype)[1:].view(shape)
+
+    q = torch.zeros(1, 8, 2, 16, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 1, 16, dtype=torch.bfloat16)
+    FA.check_kernel_args(q, k, k, None, 0)
+    for bad in ((shifted(q.shape, torch.bfloat16), k, k),
+                (q, shifted(k.shape, torch.bfloat16), k),
+                (q, k, shifted(k.shape, torch.bfloat16))):
+        assert bad[0].is_contiguous() and bad[1].is_contiguous()
+        with pytest.raises(ValueError, match="aligned"):
+            FA.check_kernel_args(*bad, None, 0)
+    qf = shifted(q.shape, torch.float32)
+    kf = shifted(k.shape, torch.float32)
+    FA.check_kernel_args(qf, kf, kf, None, 0)
+
+
+def test_flash_kernel_checks_refuse_too_many_bf16_query_tiles():
+    """The bf16 grid puts query tiles on y (at most 65535 of 128 rows)."""
+    # expanded views: no memory behind them, and the tile count is checked
+    # before contiguity
+    row = torch.empty(1, 1, 1, 16, dtype=torch.bfloat16)
+    k = torch.empty(1, 1, 1, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="query tiles"):
+        FA.check_kernel_args(row.expand(1, 65535 * 128 + 1, 1, 16), k, k,
+                             None, 0)
+    with pytest.raises(ValueError, match="contiguous"):   # at the limit
+        FA.check_kernel_args(row.expand(1, 65535 * 128, 1, 16), k, k,
+                             None, 0)
+
+
+@pytest.mark.parametrize("dtype,rows,threads", [
+    (torch.bfloat16, 128, 288), (torch.float32, 64, 128)])
+def test_flash_grid_reports_the_launch_geometry(dtype, rows, threads):
+    """bf16: 128-row query tiles, two consumer warpgroups and a producer
+    warp; fp32: 64-row tiles of one 128-thread block.  The grid's second
+    axis is B * Hq either way."""
+    for Sq in (1, rows - 1, rows, rows + 1, 1024):
+        q = torch.zeros(4, Sq, 14, 64, dtype=dtype)
+        (gx, gy), n = FA.grid(q)
+        assert n == threads
+        assert sorted((gx, gy)) == sorted((-(-Sq // rows), 4 * 14))
+    # bf16 puts (b, h) on x, which launches fastest: every head's longest
+    # causal tiles go first
+    assert FA.grid(torch.zeros(4, 1024, 14, 64,
+                               dtype=torch.bfloat16))[0] == (56, 8)
+    assert FA.grid(torch.zeros(4, 1024, 14, 64))[0] == (16, 56)

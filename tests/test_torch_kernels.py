@@ -10,6 +10,8 @@ argument checks must refuse what the kernels do not take.
 Tolerances: fp32 2e-5 and bf16 2e-2, as in tests/test_kernels.py.
 """
 
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -158,6 +160,139 @@ def test_decode_attention_kernel_checks_refuse_bad_args():
         DA.check_kernel_args(q.transpose(0, 1), k, v, lens)
 
 
+def _split_decode(q, k, v, lengths, span, keep_empty=False):
+    """The CUDA kernel's split-KV algorithm in plain torch: each span of
+    ``span`` slots gives a partial (m, l, acc) in fp32 over its valid
+    slots, and the spans merge by the LSE rule exp(m_s - M).  The kernel
+    runs only the live spans (those starting before lengths[b], at least
+    one); ``keep_empty`` merges every span of the grid, the empty ones
+    with m = NEG_INF and l = 0."""
+    B, Hq, D = q.shape
+    Smax, Hkv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    splits = -(-Smax // span)
+    qf = q.float().view(B, Hkv, group, D)
+    out = torch.zeros(B, Hkv, group, D)
+    for b in range(B):
+        n = min(max(int(lengths[b]), 0), Smax)
+        live = -(-n // span) if n > span else 1
+        parts = []
+        for s in range(splits if keep_empty else live):
+            lo, hi = s * span, min((s + 1) * span, n)
+            m = torch.full((Hkv, group), DA.NEG_INF)
+            l = torch.zeros(Hkv, group)
+            acc = torch.zeros(Hkv, group, D)
+            if hi > lo:
+                kk = k[b, lo:hi].float().transpose(0, 1)     # (Hkv, n, D)
+                vv = v[b, lo:hi].float().transpose(0, 1)
+                sc = torch.einsum("hgd,hnd->hgn", qf[b], kk) / math.sqrt(D)
+                m = sc.amax(-1)
+                p = torch.exp(sc - m[..., None])
+                l = p.sum(-1)
+                acc = torch.einsum("hgn,hnd->hgd", p, vv)
+            parts.append((m, l, acc))
+        big_m = torch.stack([m for m, _, _ in parts]).amax(0)
+        w = [torch.exp(m - big_m) for m, _, _ in parts]
+        lsum = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+        a = sum(wi[..., None] * acc for wi, (_, _, acc) in zip(w, parts))
+        out[b] = a / lsum.clamp_min(1e-30)[..., None]
+    return out.view(B, Hq, D).to(q.dtype)
+
+
+@pytest.mark.parametrize("smax", [1, 31, 64, 70, 512, 32768])
+@pytest.mark.parametrize("rows", [1, 8, 56, 1024])
+@pytest.mark.parametrize("sms", [1, 78, 132])
+def test_decode_split_plan_covers_every_slot_once(smax, rows, sms):
+    span, splits = DA.split_plan(smax, rows, sms)
+    assert span % DA.SPAN_QUANTUM == 0 and 1 <= splits <= DA.MAX_SPLITS
+    # the spans tile [0, smax): every slot in exactly one, none empty
+    cover = np.zeros(smax, np.int64)
+    for s in range(splits):
+        assert s * span < smax
+        cover[s * span:min((s + 1) * span, smax)] += 1
+    assert (cover == 1).all()
+    # the shortest span whose split count stays within the cap: the
+    # blocks that fill the card (BLOCKS_PER_SM per SM), MAX_SPLITS, and
+    # one span per SPAN_QUANTUM slots
+    cap = min(-(-DA.BLOCKS_PER_SM * sms // rows), DA.MAX_SPLITS,
+              -(-smax // DA.SPAN_QUANTUM))
+    assert splits <= cap
+    shorter = span - DA.SPAN_QUANTUM
+    assert shorter == 0 or -(-smax // shorter) > cap
+    # the grid (splits, Hkv, B) stays inside CUDA's limits
+    assert splits < 2 ** 31
+
+
+def test_decode_split_plan_fills_the_card_at_the_serve_shape():
+    """qwen2-0.5b at batch 4 (B * Hkv = 8) with 512-slot caches on 132
+    SMs: more blocks than the 8 of one block per (b, kv head)."""
+    span, splits = DA.split_plan(512, 8, 132)
+    assert (span, splits) == (128, 4) and 8 * splits > 8
+    assert DA.split_plan(32768, 8, 132) == (512, 64)
+    with pytest.raises(ValueError):
+        DA.split_plan(0, 8, 132)
+
+
+def test_decode_grid_reports_the_launch_geometry(monkeypatch):
+    class Props:
+        multi_processor_count = 132
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device=None: Props())
+    DA._sm_count.cache_clear()
+    monkeypatch.setattr(DA, "_sm_count", DA._sm_count.__wrapped__)
+    q = torch.zeros(4, 14, 64)
+    k = torch.zeros(4, 512, 2, 64)
+    assert DA.grid(q, k) == (4, 2, 4)
+    assert DA.grid(q, torch.zeros(4, 70, 2, 64)) == (1, 2, 4)
+
+
+@pytest.mark.parametrize("span", [16, 32, 128])
+def test_decode_split_combine_matches_plain_pallas_and_ref(span):
+    """The split + LSE combine at small spans, some of them empty (lengths
+    short of Smax, 1, and 0), against decode_attention_plain, the Pallas
+    kernel (interpret mode) and ref.py, fp32 at 2e-5."""
+    rng = np.random.default_rng(11)
+    B, Hq, Hkv, D, smax = 5, 14, 2, 64, 100
+    q = _draw(rng, (B, Hq, D), "float32")
+    k = _draw(rng, (B, smax, Hkv, D), "float32")
+    v = _draw(rng, (B, smax, Hkv, D), "float32")
+    lens = np.array([1, 16, 33, 97, 100], np.int32)
+    tq, tk, tv, tl = (to_torch(a) for a in (q, k, v, lens))
+    port = _split_decode(tq, tk, tv, tl, span)
+    tol = dict(rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(
+        port.numpy(), DA.decode_attention_plain(tq, tk, tv, tl).numpy(),
+        **tol)
+    jargs = [jnp.asarray(a) for a in (q, k, v, lens)]
+    np.testing.assert_allclose(port.numpy(), np.asarray(
+        decode_attention_pallas(*jargs, block_kv=64, interpret=True)), **tol)
+    np.testing.assert_allclose(port.numpy(),
+                               np.asarray(decode_attention_ref(*jargs)),
+                               **tol)
+    # empty spans (m = NEG_INF, l = 0) merge in as 0 and no NaN
+    every = _split_decode(tq, tk, tv, tl, span, keep_empty=True)
+    assert torch.isfinite(every).all()
+    np.testing.assert_allclose(every.numpy(), port.numpy(), **tol)
+    # a row with no valid slot gives 0, as the TPU kernel does
+    tl0 = torch.tensor([0, 16, 33, 97, 100], dtype=torch.int32)
+    zero = _split_decode(tq, tk, tv, tl0, span, keep_empty=True)
+    assert torch.equal(zero[0], torch.zeros(Hq, D))
+
+
+def test_decode_ticket_buffer_is_kept_per_device_and_stream():
+    DA._tickets.clear()
+    try:
+        a = DA._ticket_buffer(torch.device("cpu"), 7, 8)
+        assert a.dtype == torch.int32 and a.numel() >= 8
+        assert not a.any()
+        assert DA._ticket_buffer(torch.device("cpu"), 7, 8) is a
+        assert DA._ticket_buffer(torch.device("cpu"), 9, 8) is not a
+        big = DA._ticket_buffer(torch.device("cpu"), 7, 1000)
+        assert big.numel() >= 1000 and not big.any()
+    finally:
+        DA._tickets.clear()
+
+
 def test_build_needs_nvcc_only_when_building(tmp_path, monkeypatch):
     """Importing the kernels needs no nvcc; building without one raises."""
     monkeypatch.setattr(build, "find_nvcc", lambda: None)
@@ -196,6 +331,9 @@ def test_source_hash_tracks_sources(tmp_path):
     assert build.source_hash(tmp_path) != h1
     assert build.source_hash(tmp_path, ("-O2",)) != build.source_hash(
         tmp_path)
+    # the link flags count too (a library added at link time rebuilds)
+    assert build.source_hash(tmp_path, link_flags=(
+        *build.LINK_FLAGS, "-lcuda")) != build.source_hash(tmp_path)
     assert {p.name for p in build.sources()} == {
         "decode_attention.cu", "errors.cu", "flash_attention.cu",
         "rmsnorm.cu", "ssd_scan.cu"}
