@@ -10,16 +10,20 @@ Phases, one line each (the kernels phases print one line per case):
   2. build   -- seconds to build the kernels' shared library from
                ``src/repro_torch/kernels/csrc`` (plus ptxas register use),
                and the library's SASS (``cuobjdump -sass``): every
-               instance of the bf16 flash kernel must issue HGMMA
-               (Hopper's wgmma), or the run fails.
+               instance of the bf16 flash kernel and of the bf16 SSD-scan
+               kernel must issue HGMMA (Hopper's wgmma), or the run fails.
   3. kernels -- the RMSNorm and decode-attention kernels against their
                plain PyTorch versions on the card, fp32 and bf16, at the
-               main paths' shapes and, for decode attention, a long cache
-               (qwen2-0.5b heads at Smax 32768, lengths 1 / 4096 / 16384 /
-               32768, read cold) and an untimed sweep of groups, head
-               dims and lengths on, one past and between span
-               boundaries: max error against tolerance, kernel / plain /
-               library ms, and the launch grid the wrapper reports.
+               main paths' shapes (RMSNorm beside ``F.rms_norm``, with the
+               kernel its wrapper picks) and an untimed RMSNorm sweep of
+               widths and alignments over both of its kernels; for decode
+               attention a long cache (qwen2-0.5b heads at Smax 32768,
+               lengths 1 / 4096 / 16384 / 32768, read cold), an untimed
+               sweep of groups, head dims and lengths on, one past and
+               between span boundaries, and the head dims the wrapper
+               zero-pads (8, 16, 24, 32, 112): max error against
+               tolerance, kernel / plain / library ms, and the launch
+               grid the wrapper reports.
   4. model   -- qwen2-0.5b at FULL width and depth: ``decode_step``
                through the kernels and through the plain versions on the
                same seeded weights and cache; logits compared, launches
@@ -28,11 +32,17 @@ Phases, one line each (the kernels phases print one line per case):
                chat-trace requests through the port's serving entry
                point; every request must finish with its token count, and
                every decode step must have launched both decode kernels.
+     reduced -- qwen2-0.5b REDUCED (head dim 8, which both attention
+               wrappers zero-pad): ``decode_step`` logits kernels vs
+               plain, 8 requests served in bf16 as in phase 5, and one
+               train step kernels vs plain (fp32 and bf16) held to
+               TRAIN_TOL.
   6. flash   -- the flash-attention kernel's ``out`` and ``lse`` against
                ``flash_attention_plain`` on the card, fp32 and bf16: the
                training shape of qwen2-0.5b, internlm2-1.8b's heads, a
-               ragged length, a sliding window, a prefix offset, and an
-               untimed sweep of head dims and groups; per timed case the
+               ragged length, a sliding window, a prefix offset, an
+               untimed sweep of head dims and groups and one of the head
+               dims the wrapper zero-pads (8, 24, 112); per timed case the
                max errors against tolerance, kernel / plain / SDPA /
                bound ms, and the launch grid the wrapper reports.
   7. train   -- ``launch.train.train`` trains qwen2-0.5b FULL in bf16 for
@@ -45,21 +55,25 @@ Phases, one line each (the kernels phases print one line per case):
                and through the plain versions, fp32 and bf16, comparing
                loss, grad norm and the updated fp32 masters; and a
                profiled bf16 step.
-  8. ssd     -- the SSD-scan kernel against ``ssd_scan_plain`` on the
+  8. ssd     -- the SSD-scan kernels against ``ssd_scan_plain`` on the
                card, fp32 and bf16, at mamba2-2.7b's training shape (x
                4 x 1024 x 80 x 64, N 128, chunk 128; kernel / plain /
-               bound ms) and over an untimed sweep of head dim, state
-               dim, length and chunk; once in fp32 against the sequential
-               recurrence ``ssd_scan_sequential``.
+               bound ms; in bf16 the tensor-core kernel the wrapper picks
+               and the CUDA-core kernel timed in turns in the same call)
+               and over an untimed sweep of head dim, state dim, length
+               and chunk that runs every case on each kernel that takes
+               it; once in fp32 against the sequential recurrence
+               ``ssd_scan_sequential``.
   9. mamba2  -- ``launch.train.train`` trains mamba2-2.7b FULL (64
                layers, d_model 2560) in bf16 for 5 steps (global batch 8
                x 1024 tokens, 2 microbatches, remat) after the qwen2-0.5b
                phases' memory is freed: loss and grad norm per step, ms
                per step, tokens/s and peak memory; every loss and norm
-               finite, and exactly 256 SSD scans and 514 RMSNorms per
-               step.  Then train parity at full width and depth 8 (two
-               fp32 copies of 2.7B parameters and their optimizer state
-               do not fit the card): one step through the kernels and
+               finite, and exactly 256 SSD scans (all on the tensor-core
+               kernel) and 514 RMSNorms per step.  Then train parity at
+               full width and depth 8 (two fp32 copies of 2.7B
+               parameters and their optimizer state do not fit the
+               card): one step through the kernels and
                one through the plain versions, fp32 and bf16; and a
                profiled bf16 step at that depth.
 
@@ -146,6 +160,10 @@ SEQ_TOL = dict(rtol=2e-4, atol=2e-4)
 # 1.7e-4 / 1.6e-4, grad norm 1.1e-5 / 7.3e-6, masters 0.096 / 0.111: fp32
 # fails every limit; in bf16 only the masters limit (1.45x the worst
 # sound reading) catches it, and the kernel check catches it by 3.8.
+# bf16 now runs the tensor-core SSD kernel (1.0e-4 of its outputs
+# not bit-equal to the plain version's, against 1.4e-7): bf16 masters
+# 0.088 to 0.090 over seeds 0-2; 0.110 with W' split into two bf16 terms
+# instead of three (PERF.md).
 MAMBA_TRAIN_TOL = {"float32": dict(loss=1e-5, gnorm=1e-6, master=1e-3),
                    "bfloat16": dict(loss=1e-3, gnorm=1e-3, master=0.1)}
 # substrings of cuBLAS / CUTLASS matrix-product kernel names
@@ -210,10 +228,15 @@ def build_phase() -> None:
     sass_check(build)
 
 
+# kernels that must run on the tensor cores: every instance of each in the
+# library's SASS holds HGMMA
+WGMMA_KERNELS = ("flash_attention_wgmma_kernel", "ssd_scan_wgmma_kernel")
+
+
 def sass_check(build) -> None:
-    """The bf16 flash kernel must run on the tensor cores: every instance
-    of ``flash_attention_wgmma_kernel`` in the built library's SASS must
-    hold HGMMA instructions (wgmma as the card executes it)."""
+    """The bf16 flash and SSD-scan kernels must run on the tensor cores:
+    every instance of each of ``WGMMA_KERNELS`` in the built library's
+    SASS must hold HGMMA instructions (wgmma as the card executes it)."""
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     if not tool.exists():
         fail(f"sass: {tool} not found")
@@ -221,20 +244,23 @@ def sass_check(build) -> None:
                            str(build.BUILD_DIR / build.LIB_NAME)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    hgmma = {}
-    name = None
+    hgmma = {k: {} for k in WGMMA_KERNELS}
+    name = family = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             name = m.group(1)
-            if "flash_attention_wgmma_kernel" in name:
-                hgmma[name] = 0
-        elif name in hgmma and "HGMMA" in line:
-            hgmma[name] += 1
-    if not hgmma or min(hgmma.values()) == 0:
-        fail(f"sass: bf16 flash kernels without HGMMA: {hgmma}")
-    say("build", f"sass: {len(hgmma)} bf16 flash kernels, HGMMA "
-        f"instructions per kernel {sorted(hgmma.values())}")
+            family = next((k for k in WGMMA_KERNELS if k in name), None)
+            if family:
+                hgmma[family][name] = 0
+        elif family and "HGMMA" in line:
+            hgmma[family][name] += 1
+    for k, per in hgmma.items():
+        if not per or min(per.values()) == 0:
+            fail(f"sass: {k} instances without HGMMA: {per}")
+    say("build", "sass: " + "; ".join(
+        f"{len(per)} instances of {k}, HGMMA instructions per instance "
+        f"{sorted(per.values())}" for k, per in hgmma.items()))
 
 
 # -- 3. kernels ---------------------------------------------------------------
@@ -294,16 +320,33 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def rmsnorm_case(torch, F, shape, dtype_name, gen) -> dict:
+def rmsnorm_variant_text(rmsnorm, x, w) -> str:
+    warps, vecs = rmsnorm.variant(
+        x.shape[-1], x.element_size(),
+        all(t.data_ptr() % 16 == 0 for t in (x, w)))
+    return (f"vector kernel, {warps} warp(s) a row, {vecs} vectors a lane"
+            if warps else "rows kernel")
+
+
+def rmsnorm_case(torch, F, shape, dtype_name, gen, timed: bool = True,
+                 offset: int = 0) -> dict:
+    """One RMSNorm case; ``offset`` > 0 starts x that many elements into
+    its buffer, so it is not 16-byte aligned."""
     from repro_torch.kernels import rmsnorm
     dt = getattr(torch, dtype_name)
-    x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+    n = math.prod(shape)
+    x = torch.randn(n + offset, generator=gen, device="cuda").to(dt)[
+        offset:].view(shape)
     w = (1 + 0.1 * torch.randn(shape[-1], generator=gen,
                                device="cuda")).to(dt)
     got = rmsnorm.rms_norm(x, w)
     torch.cuda.synchronize()
+    kernel = rmsnorm_variant_text(rmsnorm, x, w)
     err, differ = compare(torch, got, rmsnorm.rms_norm_plain(x, w),
-                          dtype_name, f"rmsnorm {shape} {dtype_name}")
+                          dtype_name, f"rmsnorm {shape} {dtype_name} "
+                          f"({kernel})")
+    if not timed:
+        return dict(max_abs_err=err, differ=differ, kernel=kernel)
     ms = time_ms(torch, lambda: rmsnorm.rms_norm(x, w))
     plain_ms = time_ms(torch, lambda: rmsnorm.rms_norm_plain(x, w))
     lib = getattr(F, "rms_norm", None)
@@ -311,7 +354,8 @@ def rmsnorm_case(torch, F, shape, dtype_name, gen) -> dict:
         torch, lambda: lib(x, (shape[-1],), w, 1e-6))
     nbytes = 2 * x.numel() * x.element_size() + w.numel() * w.element_size()
     bound_ms, bound_by = bound(nbytes, 4.0 * x.numel())
-    say("kernels", f"rmsnorm {tuple(shape)} {dtype_name}: max_abs_err "
+    say("kernels", f"rmsnorm {tuple(shape)} {dtype_name} ({kernel}): "
+        f"max_abs_err "
         f"{err:.3e} ({tol_text(dtype_name)}), not bit-equal {differ:.2e} "
         f"| kernel "
         f"{ms:.4f} ms plain {plain_ms:.4f} ms library "
@@ -398,6 +442,10 @@ def attention_case(torch, F, shape, lengths, dtype_name, gen,
 DECODE_LONG = (4, 14, 2, 64, 32768)
 DECODE_LONG_LENGTHS = [1, 4096, 16384, 32768]
 DECODE_EDGE_SMAX = 1000
+# head dims the attention wrappers zero-pad (REDUCED 8, 16 and 24;
+# zamba2's 112)
+PADDED_DECODE_DIMS = (8, 16, 24, 32, 112)
+PADDED_FLASH_DIMS = (8, 24, 112)
 
 
 def kernels_phase(torch, F) -> dict:
@@ -411,6 +459,23 @@ def kernels_phase(torch, F) -> dict:
                       (4, 1024, 5120)):  # mamba2-2.7b: the gated norm
             r = rmsnorm_case(torch, F, shape, dtype_name, gen)
             results[("rmsnorm", shape, dtype_name)] = r
+    # both kernels: REDUCED widths (qwen2 56, mamba2 64 and 128), widths
+    # that are not a multiple of the vector, every warps-per-row group,
+    # and x that is not 16-byte aligned
+    picked = {}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for dtype_name in ("float32", "bfloat16"):
+        for d in (56, 64, 100, 128, 1000, 2050, 4096, 8192):
+            for offset in (0, 1):
+                r = rmsnorm_case(torch, F, (3, 5, d), dtype_name, gen,
+                                 timed=False, offset=offset)
+                worst[dtype_name] = max(worst[dtype_name], r["max_abs_err"])
+                picked[r["kernel"]] = picked.get(r["kernel"], 0) + 1
+    say("kernels", f"rmsnorm sweep: {sum(picked.values())} cases (15 rows "
+        f"of d 56/64/100/128/1000/2050/4096/8192, aligned and not, fp32 "
+        f"and bf16) all within tolerance, worst max_abs_err fp32 "
+        f"{worst['float32']:.3e} bf16 {worst['bfloat16']:.3e} | "
+        + "; ".join(f"{k}: {n}" for k, n in sorted(picked.items())))
     lengths = [1, 77, 300, 512]          # 1, not a multiple of 32, Smax
     for dtype_name in ("float32", "bfloat16"):
         for shape in ((4, 14, 2, 64, 512),      # qwen2-0.5b, group 7
@@ -458,6 +523,22 @@ def kernels_phase(torch, F) -> dict:
         f"span + 1, 3 span, Smax; fp32 and bf16) all within tolerance, "
         f"worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
         f"{worst['bfloat16']:.3e} | {'; '.join(sorted(grids))}")
+    # head dims the wrapper zero-pads to the kernel's 64 or 128
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for dtype_name in ("float32", "bfloat16"):
+        for D in PADDED_DECODE_DIMS:
+            for group in (1, 7):
+                r = attention_case(torch, F, (3, 2 * group, 2, D, 300),
+                                   [1, 129, 300], dtype_name, gen,
+                                   timed=False)
+                worst[dtype_name] = max(worst[dtype_name], r["max_abs_err"])
+                n += 1
+    say("kernels", f"decode_attention padded head dims: {n} cases (D "
+        f"{'/'.join(map(str, PADDED_DECODE_DIMS))} zero-padded to 64 or "
+        f"128, group 1/7, Smax 300, fp32 and bf16) all within tolerance, "
+        f"worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
+        f"{worst['bfloat16']:.3e}")
     for dtype_name in ("float32", "bfloat16"):
         r = attention_case(torch, F, DECODE_LONG, DECODE_LONG_LENGTHS,
                            dtype_name, gen, copies=3)
@@ -491,6 +572,8 @@ def kernel_modules():
 def reset_counts() -> None:
     for mod in kernel_modules():
         mod.launches = 0
+        for k in getattr(mod, "variant_launches", {}):
+            mod.variant_launches[k] = 0
 
 
 def counts():
@@ -500,17 +583,18 @@ def counts():
 
 
 def model_check(torch, dtype_name: str, seed: int = 0,
-                profile: bool = False) -> dict:
-    """qwen2-0.5b FULL: ``decode_step`` through the kernels and through
-    the plain versions on the same weights, cache and tokens from
-    ``seed``.  Checks launches and logits' shape and finiteness; returns
-    the logits' max abs difference, max |logit|, argmax agreement and
-    wall ms per step (the comparison limits are the caller's)."""
+                profile: bool = False, reduced: bool = False) -> dict:
+    """qwen2-0.5b FULL (or REDUCED): ``decode_step`` through the kernels
+    and through the plain versions on the same weights, cache and tokens
+    from ``seed``.  Checks launches and logits' shape and finiteness;
+    returns the logits' max abs difference, max |logit|, argmax agreement
+    and wall ms per step (the comparison limits are the caller's)."""
     import dataclasses
 
     from repro_torch import configs as C
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(C.get_config("qwen2-0.5b"), dtype=dtype_name)
+    cfg = (C.get_reduced if reduced else C.get_config)("qwen2-0.5b")
+    cfg = dataclasses.replace(cfg, dtype=dtype_name)
     R = cfg.block_repeat
     per_step = (2 * R + 1, R, 0, 0)
     B, max_len, steps = 4, 512, 6
@@ -565,19 +649,20 @@ def model_check(torch, dtype_name: str, seed: int = 0,
                 ms_plain=t_plain / (steps - 1) * 1e3)
 
 
-def model_phase(torch) -> None:
+def model_phase(torch, reduced: bool = False, phase: str = "model") -> None:
     for dtype_name in ("float32", "bfloat16"):
-        r = model_check(torch, dtype_name,
-                        profile=dtype_name == "bfloat16")
+        r = model_check(torch, dtype_name, reduced=reduced,
+                        profile=dtype_name == "bfloat16" and not reduced)
         tol, floor = LOGIT_TOL[dtype_name], ARGMAX_FLOOR[dtype_name]
         readings = (f"logits max_abs_err kernels vs plain {r['worst']:.3e} "
                     f"(tol {tol}, max|logit| {r['scale']:.3e}), argmax "
                     f"agree {r['agree']}/{r['rows']} (floor {floor:.0%})")
         if r["worst"] > tol or r["agree"] < floor * r["rows"]:
-            fail(f"model {dtype_name}: {readings}")
+            fail(f"{phase} {dtype_name}: {readings}")
         cfg = r["cfg"]
-        say("model", f"qwen2-0.5b FULL ({cfg.block_repeat} layers, d "
-            f"{cfg.d_model}, vocab {cfg.vocab_size}) {dtype_name} batch "
+        say(phase, f"qwen2-0.5b {'REDUCED' if reduced else 'FULL'} "
+            f"({cfg.block_repeat} layers, d {cfg.d_model}, head dim "
+            f"{cfg.head_dim}, vocab {cfg.vocab_size}) {dtype_name} batch "
             f"{r['batch']} lens {r['start_lens']}+{r['steps']} steps: "
             f"{readings}, launches/step rmsnorm {r['per_step'][0]} "
             f"decode_attention {r['per_step'][1]}, wall per step after the "
@@ -643,35 +728,37 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
 
 # -- 5. serve -----------------------------------------------------------------
 
-def serve_phase(torch, smi: str):
+def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve"):
     from repro_torch.launch.serve import serve
     from repro_torch import configs as C
-    vocab = C.get_config("qwen2-0.5b").vocab_size
+    cfg = (C.get_config if size == "full" else C.get_reduced)("qwen2-0.5b")
+    vocab = cfg.vocab_size
     reset_counts()
-    report, reqs = serve(arch="qwen2-0.5b", size="full", requests=8,
+    report, reqs = serve(arch="qwen2-0.5b", size=size, requests=8,
                          max_batch=4, max_len=512, prompt_cap=128,
                          gen_cap=64, seed=0, device=DEVICE,
                          log=lambda s: None)
     launched = counts()
     if len(report.results) != len(reqs):
-        fail(f"serve: {len(report.results)} of {len(reqs)} finished")
+        fail(f"{phase}: {len(report.results)} of {len(reqs)} finished")
     by_rid = {r["rid"]: r for r in reqs}
     for res in report.results:
         want = max(by_rid[res.rid]["gen_len"], 2)
         if len(res.tokens) != want:
-            fail(f"serve: rid {res.rid} gave {len(res.tokens)} tokens, "
+            fail(f"{phase}: rid {res.rid} gave {len(res.tokens)} tokens, "
                  f"expected {want}")
         if not all(0 <= t < vocab for t in res.tokens):
-            fail(f"serve: rid {res.rid} has a token outside the vocab")
+            fail(f"{phase}: rid {res.rid} has a token outside the vocab")
     steps = report.iterations + sum(len(r["prompt"]) for r in reqs)
-    R = C.get_config("qwen2-0.5b").block_repeat
+    R = cfg.block_repeat
     if report.preemptions == 0 and launched != ((2 * R + 1) * steps,
                                                 R * steps, 0, 0):
-        fail(f"serve: launches {launched} for {steps} decode steps, "
+        fail(f"{phase}: launches {launched} for {steps} decode steps, "
              f"expected {((2 * R + 1) * steps, R * steps, 0, 0)}")
     if min(launched[:2]) <= 0:
-        fail(f"serve: a kernel was never launched: {launched}")
-    say("serve", f"qwen2-0.5b FULL bf16 on {smi}: {len(report.results)} "
+        fail(f"{phase}: a kernel was never launched: {launched}")
+    say(phase, f"qwen2-0.5b {size.upper()} (head dim {cfg.head_dim}) bf16 "
+        f"on {smi}: {len(report.results)} "
         f"requests (prompts {[len(r['prompt']) for r in reqs]}, gen "
         f"{[r['gen_len'] for r in reqs]}) in {report.total_time:.3f} s, "
         f"{report.iterations} iterations + "
@@ -682,6 +769,14 @@ def serve_phase(torch, smi: str):
         f"{report.throughput:.1f} tok/s | launches rmsnorm {launched[0]} "
         f"decode_attention {launched[1]}")
     return launched
+
+
+def reduced_phase(torch, smi: str) -> None:
+    """qwen2-0.5b REDUCED, head dim 8: both attention kernels run it
+    zero-padded (decode to 64, flash to 16)."""
+    model_phase(torch, reduced=True, phase="reduced")
+    serve_phase(torch, smi, size="reduced", phase="reduced")
+    train_parity_phase(torch, phase="reduced", reduced=True)
 
 
 # -- 6. flash -----------------------------------------------------------------
@@ -782,6 +877,25 @@ def flash_phase(torch, F) -> dict:
         f"causal and window 19 with q_offset 5, fp32 and bf16) all within "
         f"tolerance, worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
         f"{worst['bfloat16']:.3e}")
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for dtype_name in ("float32", "bfloat16"):
+        for D in PADDED_FLASH_DIMS:
+            for group in (1, 7):
+                for window, q_offset in ((None, 0), (19, 5)):
+                    case = (2, 77, 77 + q_offset, 2 * group, 2, D, window,
+                            q_offset)
+                    r = flash_case(torch, F, case, dtype_name, gen,
+                                   timed=False)
+                    worst[dtype_name] = max(worst[dtype_name],
+                                            r["max_abs_err"])
+                    n += 1
+    say("flash", f"padded head dims: {n} cases (D "
+        f"{'/'.join(map(str, PADDED_FLASH_DIMS))} zero-padded to 16, 32 "
+        f"and 128, group 1/7, Sq 77, causal and window 19 with q_offset 5, "
+        f"fp32 and bf16; out and lse) all within tolerance, worst "
+        f"max_abs_err fp32 {worst['float32']:.3e} bf16 "
+        f"{worst['bfloat16']:.3e}")
     return results
 
 
@@ -852,7 +966,7 @@ def train_phase(torch, smi: str, spec: dict = TRAIN, phase: str = "train"):
 
 def train_parity(torch, dtype_name: str, seed: int = 0,
                  profile: bool = False, spec: dict = TRAIN,
-                 depth=None) -> dict:
+                 depth=None, reduced: bool = False) -> dict:
     """One train step of ``spec``'s arch at FULL width (and ``depth``
     blocks, if given) from the same weights and batch through the
     kernels and through the plain versions; returns |loss difference|,
@@ -866,7 +980,7 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import transformer as T
     from repro_torch.training.optimizer import adamw_init
-    cfg = C.get_config(spec["arch"])
+    cfg = (C.get_reduced if reduced else C.get_config)(spec["arch"])
     cfg = dataclasses.replace(cfg, dtype=dtype_name,
                               block_repeat=depth or cfg.block_repeat)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -889,6 +1003,8 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
         sync(torch)
         if plain and counts() != (0, 0, 0, 0):
             fail("train parity: the plain run launched a kernel")
+        if not plain:
+            launched = counts()
         runs.append((float(metrics["loss"]), float(metrics["grad_norm"]),
                      opt.master))
     (loss_k, gnorm_k, master_k), (loss_p, gnorm_p, master_p) = runs
@@ -910,15 +1026,21 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
             fail(f"train parity {dtype_name}: non-finite reading")
     return dict(loss=abs(loss_k - loss_p), loss_k=loss_k, loss_p=loss_p,
                 gnorm=abs(gnorm_k - gnorm_p) / gnorm_p, gnorm_k=gnorm_k,
-                gnorm_p=gnorm_p, master=master, update=math.sqrt(upd_sq))
+                gnorm_p=gnorm_p, master=master, update=math.sqrt(upd_sq),
+                launched=launched)
 
 
 def train_parity_phase(torch, spec: dict = TRAIN, limits=None,
-                       depth=None, phase: str = "train") -> None:
+                       depth=None, phase: str = "train",
+                       reduced: bool = False) -> None:
     limits = limits or TRAIN_TOL
     for dtype_name in ("float32", "bfloat16"):
         r = train_parity(torch, dtype_name, spec=spec, depth=depth,
-                         profile=dtype_name == "bfloat16")
+                         reduced=reduced,
+                         profile=dtype_name == "bfloat16" and not reduced)
+        if r["launched"][0] == 0 or sum(r["launched"][2:]) == 0:
+            fail(f"{phase} parity {dtype_name}: launches "
+                 f"{r['launched']}, no RMSNorm or no mixer kernel")
         tol = limits[dtype_name]
         readings = (f"loss {r['loss_k']:.6f} kernels vs {r['loss_p']:.6f} "
                     f"plain (|diff| {r['loss']:.3e}, tol {tol['loss']}), "
@@ -929,7 +1051,11 @@ def train_parity_phase(torch, spec: dict = TRAIN, limits=None,
                     f"{r['update']:.3e})")
         if any(r[key] > tol[key] for key in tol):
             fail(f"{phase} parity {dtype_name}: {readings}")
-        shape = "" if depth is None else f" at full width and depth {depth}"
+        shape = ("" if depth is None else
+                 f" at full width and depth {depth}")
+        if reduced:
+            shape = (f" at REDUCED size ({launch_text(r['launched'])} "
+                     f"launches)")
         say(phase, f"parity {dtype_name}{shape}, one step from the same "
             f"weights and batch: {readings}")
 
@@ -1022,13 +1148,28 @@ def ssd_work(case, dtype_name: str):
                               else (t_bytes, "bytes"))
 
 
-def ssd_case(torch, case, dtype_name, gen, timed: bool = True) -> dict:
+def ssd_kernels(torch, ssd, case, dtype_name):
+    """The kernels that take ``case``: the wrapper's pick first, then the
+    CUDA-core kernel where that is not it (it takes every case)."""
+    dt = getattr(torch, dtype_name)
+    picked = ssd.variant(dt, dt, case[3], case[4], case[5])
+    return (picked,) if picked == "cuda_cores" else (picked, "cuda_cores")
+
+
+def ssd_case(torch, case, dtype_name, gen, timed: bool = True,
+             kernel=None) -> dict:
+    """One SSD case on ``kernel`` (the wrapper's pick unless given).
+    Timed in bf16 on the tensor-core kernel, the CUDA-core kernel is timed
+    in the same call on the same inputs, in turns (old, new, new, old)."""
     from repro_torch.kernels import ssd_scan as ssd
     chunk = case[-1]
     args = ssd_inputs(torch, case, getattr(torch, dtype_name), gen)
-    got = ssd.ssd_scan(*args, chunk=chunk)
+    ssd.check_kernel_args(*args, chunk)
+    kernel = kernel or ssd.variant(args[0].dtype, args[3].dtype, case[3],
+                                   case[4], chunk)
+    got = ssd._launch(*args, chunk, kernel=kernel)
     torch.cuda.synchronize()
-    what = f"ssd_scan {case} {dtype_name}"
+    what = f"ssd_scan {case} {dtype_name} ({kernel} kernel)"
     err, differ = compare(torch, got, ssd.ssd_scan_plain(*args, chunk=chunk),
                           dtype_name, what)
     if not timed:
@@ -1041,43 +1182,69 @@ def ssd_case(torch, case, dtype_name, gen, timed: bool = True) -> dict:
         seq = (f", vs the sequential recurrence {seq_err:.3e} (rtol "
                f"{SEQ_TOL['rtol']} atol {SEQ_TOL['atol']}, max|y| "
                f"{float(want.float().abs().max()):.3g})")
-    ms = time_ms(torch, lambda: ssd.ssd_scan(*args, chunk=chunk), inner=5,
-                 reps=11)
+    def run(k):
+        return time_ms(torch, lambda: ssd._launch(*args, chunk, kernel=k),
+                       inner=5, reps=11)
+
+    old = ""
+    if kernel == "cuda_cores":
+        ms = run(kernel)
+    else:
+        old_ms = [run("cuda_cores")]
+        new_ms = [run(kernel), run(kernel)]
+        old_ms.append(run("cuda_cores"))
+        ms = statistics.median(new_ms)
+        old_err, _ = compare(torch, ssd._launch(*args, chunk,
+                                                kernel="cuda_cores"),
+                             ssd.ssd_scan_plain(*args, chunk=chunk),
+                             dtype_name, what + " on the cuda_cores kernel")
+        old = (f" | in turns cuda_cores / {kernel} / {kernel} / cuda_cores "
+               f"{old_ms[0]:.4f} / {new_ms[0]:.4f} / {new_ms[1]:.4f} / "
+               f"{old_ms[1]:.4f} ms (cuda_cores max_abs_err "
+               f"{old_err:.3e}), {statistics.mean(old_ms) / ms:.1f}x")
     plain_ms = time_ms(torch, lambda: ssd.ssd_scan_plain(*args, chunk=chunk),
                        inner=2, reps=5)
     nbytes, flops, bound_ms, bound_by = ssd_work(case, dtype_name)
-    say("ssd", f"x {case[:4]} N {case[4]} chunk {chunk} {dtype_name}: "
+    say("ssd", f"x {case[:4]} N {case[4]} chunk {chunk} {dtype_name} "
+        f"({kernel} kernel): "
         f"max_abs_err {err:.3e} ({tol_text(dtype_name)}), not bit-equal "
         f"{differ:.2e}{seq} | kernel "
         f"{ms:.4f} ms plain {plain_ms:.4f} ms library none bound "
         f"{bound_ms:.5f} ms ({bound_by}: {nbytes} B, {flops:.4g} FLOP) | "
-        f"{flops / ms / 1e9:.2f} TFLOP/s, grid {case[0] * case[2]} blocks")
+        f"{flops / ms / 1e9:.2f} TFLOP/s, grid {case[0] * case[2]} "
+        f"blocks{old}")
     return dict(max_abs_err=err, differ=differ, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def ssd_phase(torch) -> dict:
+    from repro_torch.kernels import ssd_scan as ssd
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dtype_name in ("float32", "bfloat16"):
         results[("ssd_scan", SSD_MAIN, dtype_name)] = ssd_case(
             torch, SSD_MAIN, dtype_name, gen)
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    n = 0
+    worst = {}
+    n = {}
     for dtype_name in ("float32", "bfloat16"):
         for P in (32, 64):
-            for N in (16, 128):
-                for S in (100, 1024):
-                    for chunk in (32, 128):
-                        r = ssd_case(torch, (2, S, 8, P, N, chunk),
-                                     dtype_name, gen, timed=False)
-                        worst[dtype_name] = max(worst[dtype_name],
-                                                r["max_abs_err"])
-                        n += 1
-    say("ssd", f"sweep: {n} cases (B 2, H 8, P 32/64, N 16/128, S 100/1024, "
-        f"chunk 32/128, fp32 and bf16) all within tolerance, worst "
-        f"max_abs_err fp32 {worst['float32']:.3e} bf16 "
-        f"{worst['bfloat16']:.3e}")
+            for N in (16, 32, 64, 128):
+                for S in (1, 100, 300, 1024):   # one row; one padded
+                    for chunk in (32, 128):     # chunk; a ragged last one
+                        case = (2, S, 8, P, N, chunk)
+                        for kernel in ssd_kernels(torch, ssd, case,
+                                                  dtype_name):
+                            r = ssd_case(torch, case, dtype_name, gen,
+                                         timed=False, kernel=kernel)
+                            key = f"{kernel} {dtype_name}"
+                            worst[key] = max(worst.get(key, 0.0),
+                                             r["max_abs_err"])
+                            n[key] = n.get(key, 0) + 1
+    say("ssd", f"sweep: {sum(n.values())} runs (B 2, H 8, P 32/64, N "
+        f"16/32/64/128, S 1/100/300/1024, chunk 32/128, fp32 and bf16; every "
+        f"case on each kernel that takes it) all within tolerance | "
+        + "; ".join(f"{k}: {n[k]} cases, worst max_abs_err {worst[k]:.3e}"
+                    for k in sorted(n)))
     return results
 
 
@@ -1114,11 +1281,16 @@ def main() -> int:
     results = kernels_phase(torch, F)
     model_phase(torch)
     served = serve_phase(torch, smi)
+    reduced_phase(torch, smi)
     results.update(flash_phase(torch, F))
     trained = train_phase(torch, smi)
     train_parity_phase(torch)
     results.update(ssd_phase(torch))
+    from repro_torch.kernels import ssd_scan
     mamba = train_phase(torch, smi, MAMBA_TRAIN, "mamba2")
+    if ssd_scan.variant_launches["wgmma"] != mamba[3]:
+        fail(f"mamba2: {ssd_scan.variant_launches} of {mamba[3]} SSD "
+             f"launches were not on the tensor-core kernel")
     train_parity_phase(torch, MAMBA_TRAIN, MAMBA_TRAIN_TOL,
                        MAMBA_PARITY_DEPTH, "mamba2")
 

@@ -1,6 +1,6 @@
 // Error text for the codes the kernels' C entry points return: a
 // cudaError_t, or 100000 + the CUresult of a failed tensor-map encode
-// (flash_attention.cu).
+// (hopper.cuh).
 #include <cuda_runtime.h>
 
 extern "C" const char* apex_error_string(int err) {

@@ -12,6 +12,15 @@ CUDA inputs the kernel does not take raise.  ``launches`` counts kernel
 launches in this process, one per call: the kernel splits the cache into
 spans over a (splits, Hkv, B) grid (``split_plan``, ``grid``) and merges
 the spans' partial softmax states itself.
+
+A head dim the kernel is not built for (the REDUCED configs' 8, 16 and
+24; 32; zamba2's 112) runs zero-padded to the next one it is
+(``padded_head_dim``; ``attend_padded``), with the scale ``1/sqrt(D)`` of
+the true D and the output sliced back: zero columns add nothing to
+``q . k`` and give zero output columns.  Cost: the padding copies the
+whole K/V cache on every call, 64 / D times its bytes, so it is for the
+REDUCED configs; the FULL configs' head dims (64, 128) copy nothing.  A
+head dim above 128 raises.
 """
 
 from __future__ import annotations
@@ -19,9 +28,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -81,10 +91,11 @@ def _ticket_buffer(device: torch.device, stream: int,
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
+                           v: torch.Tensor, lengths: torch.Tensor,
+                           scale: Optional[float] = None) -> torch.Tensor:
     """fp32 softmax attention over the first ``lengths[b]`` slots
-    (``repro/kernels/decode_attention/ref.py``).  Returns (B, Hq, Dv).
+    (``repro/kernels/decode_attention/ref.py``), scores scaled by
+    ``scale`` (``1/sqrt(D)`` unless given).  Returns (B, Hq, Dv).
 
     Agrees with the kernel for ``lengths >= 1``, all that decoding gives
     it.  A row with no valid slot yields the mean of V here, as in the
@@ -94,12 +105,38 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     rep = Hq // Hkv
     kr = k.repeat_interleave(rep, dim=2)
     vr = v.repeat_interleave(rep, dim=2)
-    s = torch.einsum("bhd,bkhd->bhk", q.float(), kr.float()) / math.sqrt(D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bhd,bkhd->bhk", q.float(), kr.float()) * scale
     valid = torch.arange(Smax, device=q.device)[None, :] < lengths[:, None]
     s = s.masked_fill(~valid[:, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", p, vr.float())
     return out.to(q.dtype)
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim a call of head dim ``d`` runs at: the least of
+    ``HEAD_DIMS`` that is ``>= d`` (8, 16, 24, 32 -> 64; 112 -> 128).
+    Raises ``ValueError`` above the largest."""
+    for dim in HEAD_DIMS:
+        if d <= dim:
+            return dim
+    raise ValueError(f"decode_attention kernel: head dim {d} above "
+                     f"{HEAD_DIMS[-1]}, the largest of {HEAD_DIMS}")
+
+
+def attend_padded(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """``fn(q, k, v, lengths, scale=1/sqrt(D))`` on q, k and v zero-padded
+    along D to ``padded_head_dim(D)``, the output sliced back to D.  No
+    copy where D is the kernel's own."""
+    D = q.shape[-1]
+    pad = padded_head_dim(D) - D
+    if pad:
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    out = fn(q, k, v, lengths, scale=1.0 / math.sqrt(D))
+    return out[..., :D].contiguous() if pad else out
 
 
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -152,11 +189,16 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """Attention of q (B, Hq, D) over the first lengths[b] slots of
     k/v (B, Smax, Hkv, D).  Returns (B, Hq, D) in q's dtype."""
-    global launches
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
+    return attend_padded(_launch, q, k, v, lengths)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lengths: torch.Tensor, scale: float) -> torch.Tensor:
+    global launches
     check_kernel_args(q, k, v, lengths)
     B, Hq, D = q.shape
     Smax, Hkv = k.shape[1], k.shape[2]
@@ -173,8 +215,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
              out.data_ptr(), None if ws is None else ws.data_ptr(),
              None if tickets is None else tickets.data_ptr(), B, Hkv, group,
-             Smax, D, span, splits, _DTYPE_CODES[q.dtype],
-             1.0 / math.sqrt(D), stream)
+             Smax, D, span, splits, _DTYPE_CODES[q.dtype], scale, stream)
     build.check(err, "apex_decode_attention")
     launches += 1
     return out

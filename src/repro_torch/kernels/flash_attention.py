@@ -18,6 +18,15 @@ fp32 on the CUDA cores (64-row query tiles).  There is no fallback: CUDA
 inputs the kernels do not take raise, and so does a failed launch or
 tensor-map encode.  ``launches`` counts kernel launches in this process;
 ``grid`` gives a call's launch geometry.
+
+A head dim the kernels are not built for (the REDUCED configs' 8 and 24,
+zamba2's 112) runs zero-padded to the next one they are
+(``padded_head_dim``; ``attend_padded``): q, k and v get zero columns,
+the scale stays ``1/sqrt(D)`` of the true D, and ``out`` is sliced back.
+Zero columns add nothing to ``q . k`` and give zero output columns, so
+``out`` and ``lse`` are those of the unpadded call.  The padding copies
+q, k and v once per call, and only for such head dims.  A head dim above
+the largest kernel's raises.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -59,10 +69,12 @@ def attention_mask(sq: int, skv: int, *, causal: bool,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
-                          window: Optional[int] = None, q_offset: int = 0
+                          window: Optional[int] = None, q_offset: int = 0,
+                          scale: Optional[float] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """fp32 masked softmax over the whole score matrix
     (``repro/kernels/flash_attention/ref.py``), plus its log-sum-exp.
+    Scores are scaled by ``scale``, ``1/sqrt(D)`` unless given.
 
     Masked scores are ``NEG_INF`` and get probability 0, and the row sum
     is clamped at 1e-30 as in the kernel, so a row with no valid key
@@ -73,7 +85,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rep = Hq // Hkv
     kr = k.float().repeat_interleave(rep, dim=2)
     vr = v.float().repeat_interleave(rep, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) / math.sqrt(D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr) * scale
     mask = attention_mask(Sq, Skv, causal=causal, window=window,
                           q_offset=q_offset, device=q.device)
     s = s.masked_fill(~mask, NEG_INF)
@@ -83,6 +97,31 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bhqk,bkhd->bqhd", p / l, vr)
     lse = (m + torch.log(l))[..., 0]
     return out.to(q.dtype), lse
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim a call of head dim ``d`` runs at: the least of
+    ``HEAD_DIMS`` that is ``>= d`` (8 -> 16, 24 -> 32, 112 -> 128).
+    Raises ``ValueError`` above the largest."""
+    for dim in HEAD_DIMS:
+        if d <= dim:
+            return dim
+    raise ValueError(f"flash_attention kernel: head dim {d} above "
+                     f"{HEAD_DIMS[-1]}, the largest of {HEAD_DIMS}")
+
+
+def attend_padded(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  **kw) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fn(q, k, v, scale=1/sqrt(D), **kw)`` on q, k and v zero-padded
+    along D to ``padded_head_dim(D)``, with ``out`` sliced back to D;
+    ``fn`` returns ``(out, lse)`` as ``flash_attention_plain`` does.  No
+    copy where D is a kernel's own."""
+    D = q.shape[-1]
+    pad = padded_head_dim(D) - D
+    if pad:
+        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    out, lse = fn(q, k, v, scale=1.0 / math.sqrt(D), **kw)
+    return (out[..., :D].contiguous() if pad else out), lse
 
 
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -159,12 +198,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Attention of q (B, Sq, Hq, D) over k/v (B, Skv, Hkv, D).  Returns
     ``(out (B, Sq, Hq, D) in q's dtype, lse (B, Hq, Sq) fp32)``."""
-    global launches
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return attend_padded(_launch, q, k, v, causal=causal, window=window,
+                         q_offset=q_offset)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            scale: float, causal: bool, window: Optional[int],
+            q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global launches
     check_kernel_args(q, k, v, window, q_offset)
     B, Sq, Hq, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -173,8 +219,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fn = build.kernel("apex_flash_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              lse.data_ptr(), B, Sq, Skv, Hq, Hkv, D, q_offset, int(causal),
-             0 if window is None else window, _DTYPE_CODES[q.dtype],
-             1.0 / math.sqrt(D),
+             0 if window is None else window, _DTYPE_CODES[q.dtype], scale,
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "apex_flash_attention")
     launches += 1

@@ -1,10 +1,11 @@
 """RMSNorm: the port of ``repro/kernels/rmsnorm`` (``rms_norm_pallas``).
 
-``rms_norm`` launches the CUDA kernel of ``csrc/rmsnorm.cu`` on a CUDA
+``rms_norm`` launches a CUDA kernel of ``csrc/rmsnorm.cu`` on a CUDA
 tensor and runs the plain PyTorch version ``rms_norm_plain`` on a CPU
-tensor.  There is no fallback: a CUDA tensor the kernel does not take
+tensor.  There is no fallback: a CUDA tensor the kernels do not take
 raises.  ``launches`` counts kernel launches in this process (forward
-launches only: the gradient is plain PyTorch).
+launches only: the gradient is plain PyTorch), one per call whichever
+kernel ``variant`` picks.
 
 On CUDA the kernel sits in a ``torch.autograd.Function`` whose backward
 is ``rms_norm_grads``, the fp32 derivative of ``rms_norm_plain``.  The
@@ -25,10 +26,32 @@ from . import build
 launches = 0
 
 MAX_D = 8192
+MAX_VECS = 8         # 16-byte vectors of a row one lane of the kernel holds
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-             ctypes.c_int, ctypes.c_void_p)
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+def variant(d: int, itemsize: int, aligned: bool) -> Tuple[int, int]:
+    """``(warps_per_row, vecs)``: which kernel of ``csrc/rmsnorm.cu`` a
+    call with rows of ``d`` elements of ``itemsize`` bytes takes.
+
+    The vector kernel, when ``d`` is a multiple of the 16-byte vector
+    (8 bf16, 4 fp32) and x, weight and output are 16-byte aligned
+    (``aligned``): the fewest warps per row of 1, 2, 4 and 8 that give
+    each lane at most ``MAX_VECS`` vectors, and ``vecs`` the vectors a
+    lane then holds (d 896 bf16: (1, 4); 2560: (2, 5); 5120: (4, 5)).
+    Otherwise ``(0, 0)``: the rows kernel, a block per row."""
+    per_vec = 16 // itemsize
+    if d % per_vec or not aligned:
+        return 0, 0
+    n_vec = d // per_vec
+    for warps in (1, 2, 4, 8):
+        vecs = -(-n_vec // (32 * warps))
+        if vecs <= MAX_VECS:
+            return warps, vecs
+    return 0, 0
 
 
 def rms_norm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -115,10 +138,12 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
     rows = x.numel() // x.shape[-1]
     if rows == 0:
         return out
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, weight, out))
+    warps, vecs = variant(x.shape[-1], x.element_size(), aligned)
     fn = build.kernel("apex_rmsnorm", _ARGTYPES)
     err = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows,
              x.shape[-1], eps, _DTYPE_CODES[x.dtype],
-             _DTYPE_CODES[weight.dtype],
+             _DTYPE_CODES[weight.dtype], warps, vecs,
              torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "apex_rmsnorm")
     launches += 1

@@ -14,11 +14,15 @@ the sequence padded with zero rows to a multiple of Q, in fp32::
 with the (P, N) state h carried from one chunk to the next, rounded to
 x's dtype once at the end.
 
-``ssd_scan`` launches the CUDA kernel of ``csrc/ssd_scan.cu`` on CUDA
+``ssd_scan`` launches a CUDA kernel of ``csrc/ssd_scan.cu`` on CUDA
 tensors and runs the plain PyTorch version ``ssd_scan_plain`` on CPU
-tensors.  There is no fallback: CUDA inputs the kernel does not take
-raise.  ``launches`` counts kernel launches in this process (forward
-launches only).
+tensors.  Two kernels, picked by ``variant`` (a written rule, not a
+fallback): ``"wgmma"`` (tensor cores and TMA) for bf16 x, b and c at
+chunk 128 with head dim 32 or 64 and state dim 16, 32, 64 or 128, which
+is mamba2-2.7b's training and mamba2 REDUCED's; ``"cuda_cores"`` (fp32
+FMAs) for every other call, fp32 and other chunks among them.  CUDA
+inputs neither takes raise.  ``launches`` counts kernel launches in this
+process (forward launches only), one per call whichever kernel runs.
 
 Gradient: on CUDA the kernel sits in a ``torch.autograd.Function`` whose
 backward, ``ssd_scan_grads``, runs ``ssd_scan_plain`` again under
@@ -34,7 +38,7 @@ recurrence, the oracle of the tests and of chip_smoke.py.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,14 +46,35 @@ import torch.nn.functional as F
 from . import build
 
 launches = 0
+# launches by kernel, so a run can show which one its path took
+variant_launches = {"wgmma": 0, "cuda_cores": 0}
 
 NEG_INF = -1e30
 MAX_P = 64
 MAX_N = 128
 MAX_CHUNK = 128
+WGMMA_CHUNK = 128
+WGMMA_HEAD_DIMS = (32, 64)
+WGMMA_STATE_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8 + (
     ctypes.c_void_p,)
+_WGMMA_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 5 + (
+    ctypes.c_void_p,)
+
+
+def variant(x_dtype: torch.dtype, bc_dtype: torch.dtype, head_dim: int,
+            d_state: int, chunk: int) -> str:
+    """The kernel a CUDA call takes: ``"wgmma"`` when x, b and c are bf16,
+    ``chunk == WGMMA_CHUNK`` (a sequence shorter than the chunk is one
+    chunk, zero-padded: zero rows leave y and the state exact), the head
+    dim is in ``WGMMA_HEAD_DIMS`` and the state dim in
+    ``WGMMA_STATE_DIMS``; ``"cuda_cores"`` otherwise."""
+    if (x_dtype == torch.bfloat16 and bc_dtype == torch.bfloat16
+            and chunk == WGMMA_CHUNK and head_dim in WGMMA_HEAD_DIMS
+            and d_state in WGMMA_STATE_DIMS):
+        return "wgmma"
+    return "cuda_cores"
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -161,6 +186,7 @@ def check_kernel_args(x: torch.Tensor, dt: torch.Tensor,
     if dt.dtype != torch.float32 or a_log.dtype != torch.float32:
         raise ValueError(f"ssd_scan kernel: dt {dt.dtype} and a_log "
                          f"{a_log.dtype} must be float32")
+    wgmma = variant(x.dtype, b.dtype, P, N, chunk) == "wgmma"
     for name, t in (("x", x), ("dt", dt), ("a_log", a_log), ("b", b),
                     ("c", c)):
         if not t.is_contiguous():
@@ -168,6 +194,11 @@ def check_kernel_args(x: torch.Tensor, dt: torch.Tensor,
         if t.device != x.device:
             raise ValueError(f"ssd_scan kernel: {name} on {t.device}, x on "
                              f"{x.device}")
+        # the wgmma kernel reads x, b and c through TMA maps, whose bases
+        # must be 16-byte aligned
+        if wgmma and name in ("x", "b", "c") and t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan kernel: bf16 {name} must be 16-byte "
+                             f"aligned")
 
 
 def ssd_scan_grads(x, dt, a_log, b, c, dy, chunk: int = 128
@@ -210,15 +241,30 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return _SSDScanKernel.apply(x, dt, a_log, b, c, chunk)
 
 
-def _launch(x, dt, a_log, b, c, chunk: int) -> torch.Tensor:
+def _launch(x, dt, a_log, b, c, chunk: int,
+            kernel: Optional[str] = None) -> torch.Tensor:
+    """Launch ``kernel`` (``variant``'s pick unless given: chip_smoke.py
+    times the two kernels on the same inputs) on checked inputs."""
     global launches
     B, S, H, P = x.shape
+    N = b.shape[2]
+    kernel = kernel or variant(x.dtype, b.dtype, P, N, chunk)
+    if kernel not in variant_launches:
+        raise ValueError(f"ssd_scan: no kernel {kernel!r}")
     y = torch.empty_like(x)
-    fn = build.kernel("apex_ssd_scan", _ARGTYPES)
-    err = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-             c.data_ptr(), y.data_ptr(), B, S, H, P, b.shape[2],
-             min(chunk, S), _DTYPE_CODES[x.dtype], _DTYPE_CODES[b.dtype],
-             torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "apex_ssd_scan")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if kernel == "wgmma":
+        name = "apex_ssd_scan_wgmma"
+        err = build.kernel(name, _WGMMA_ARGTYPES)(
+            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), B, S, H, P, N, stream)
+    else:
+        name = "apex_ssd_scan"
+        err = build.kernel(name, _ARGTYPES)(
+            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), B, S, H, P, N, min(chunk, S),
+            _DTYPE_CODES[x.dtype], _DTYPE_CODES[b.dtype], stream)
+    build.check(err, name)
     launches += 1
+    variant_launches[kernel] += 1
     return y
