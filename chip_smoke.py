@@ -37,6 +37,20 @@ Phases, one line each (the kernels phases print one line per case):
                plain, 8 requests served in bf16 as in phase 5, and one
                train step kernels vs plain (fp32 and bf16) held to
                TRAIN_TOL.
+     profile -- the port's op profiler (``repro_torch.core.profiles``,
+               which times the tables of the simulator's measured
+               backends) over every (op, axes) table the simulator prices
+               qwen2-0.5b FULL with, at x = 1, 2, 4 ... 4096: the GEMMs
+               (n, k) (1152, 896), (896, 896), (9728, 896), (896, 4864)
+               and the LM head (151936, 896); decode attention (2, 64);
+               prefill attention (14, 64); and mamba2-2.7b's SSD scan
+               (5120, 128) at x 128, 1024 and 4096.  One line per table:
+               wall and device ms of each sample beside the bound of the
+               work the simulator charges it.  Fails on a time that is
+               not finite or below its bound, or unless the decode, flash
+               and SSD kernels launched exactly once per profiled call.
+               Then those three kernels against their plain versions at
+               the profile's largest shapes.
   6. flash   -- the flash-attention kernel's ``out`` and ``lse`` against
                ``flash_attention_plain`` on the card, fp32 and bf16: the
                training shape of qwen2-0.5b, internlm2-1.8b's heads, a
@@ -80,12 +94,25 @@ Phases, one line each (the kernels phases print one line per case):
 Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
 entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 ``rmsnorm/train``, ``flash_attention/train``, ``rmsnorm/mamba2_train``,
-``ssd_scan/mamba2_train``, each with that path's launches and the
-kernel's numbers at that path's bf16 shape), the
+``ssd_scan/mamba2_train``, ``decode_attention/profile``,
+``flash_attention/profile``, ``ssd_scan/profile``, each with that path's
+launches and the kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, the script exits 1 at once.
+
+The profile phase runs the port's side of APEX's fidelity loop only.  The
+loop itself, the simulator scored against the engine, lives in the
+package ``src/apex_bridge``, the only code that imports both the
+simulator (``repro.core``) and the port; this script imports neither it
+nor ``repro``.  Its two entry points run on the card, or on the CPU with
+``--device cpu``::
+
+    PYTHONPATH=src python3 -m apex_bridge.fig6 --size full
+    PYTHONPATH=src python3 -m apex_bridge.fig6 --size reduced --device cpu
+    PYTHONPATH=src python3 -m apex_bridge.serve --arch qwen2-0.5b
+    PYTHONPATH=src python3 -m apex_bridge.serve --size reduced --device cpu
 """
 
 from __future__ import annotations
@@ -779,6 +806,95 @@ def reduced_phase(torch, smi: str) -> None:
     train_parity_phase(torch, phase="reduced", reduced=True)
 
 
+# -- profile ------------------------------------------------------------------
+
+PROFILE_X_MAX = 4096
+SSD_PROFILE_X = (128, 1024, 4096)
+# the kernel each profiled op launches: its index in counts()
+PROFILE_KERNELS = {"attn_decode": 1, "attn_prefill": 2, "ssd_scan": 3}
+# the record's cases, at the profile's largest x: decode (B, Hq, Hkv, D,
+# Smax) over 4096 KV tokens; flash causal at S 90 (area 4095); the SSD
+# scan over 4096 tokens (B, S, H, P, N, chunk)
+PROFILE_DECODE = (1, 2, 2, 64, 4096)
+PROFILE_FLASH = (1, 90, 90, 14, 14, 64, None, 0)
+PROFILE_SSD = (1, 4096, 80, 64, 128, 128)
+
+
+def profile_keys(cfg, ssm_cfg, grid):
+    """``(op, axes, xs)`` of every table the simulator prices ``cfg`` (a
+    dense GQA decoder) with, by the arithmetic of ``repro/core/ir.py``:
+    per layer the fused QKV, output, gated up and down products, the LM
+    head (``ModelIR.lm_head_opcall``), decode and prefill attention, all
+    over ``grid``; then ``ssm_cfg``'s SSD scan at ``SSD_PROFILE_X``."""
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    d, q, kv = cfg.d_model, cfg.n_heads * hd, cfg.n_kv_heads * hd
+    up = (2 if cfg.ffn_gated else 1) * cfg.d_ff
+    keys = [("gemm", (n, k, "bf16"), grid)
+            for n, k in ((q + 2 * kv, d), (d, q), (up, d), (d, cfg.d_ff),
+                         (cfg.vocab_size, d))]
+    keys.append(("attn_decode", (cfg.n_kv_heads, hd, "bf16"), grid))
+    keys.append(("attn_prefill", (cfg.n_heads, hd, "bf16"), grid))
+    keys.append(("ssd_scan", (ssm_cfg.d_inner, ssm_cfg.d_state, "bf16"),
+                 SSD_PROFILE_X))
+    return keys
+
+
+def profile_phase(torch, F):
+    """The port's op profiler (``repro_torch.core.profiles``) over every
+    table qwen2-0.5b FULL needs and mamba2-2.7b's SSD scan: wall and
+    device time of each sample, each at or above its bound (the work the
+    simulator charges the sample, ``_op_work``), and exactly one kernel
+    launch per profiled attention or scan call.  Returns the launches and
+    the kernels' cases at the profile's largest shapes."""
+    from repro_torch import configs as C
+    from repro_torch.core.profiles import _GRID, MeasuredBackend, _op_work
+    timer = MeasuredBackend(DEVICE, repeats=3)
+    grid = [x for x in _GRID if x <= PROFILE_X_MAX]
+    keys = profile_keys(C.get_config("qwen2-0.5b"),
+                        C.get_config("mamba2-2.7b"), grid)
+    reset_counts()
+    t0 = time.perf_counter()
+    for op, axes, xs in keys:
+        readings = []
+        for x in xs:
+            wall, dev = timer.measure(op, axes, float(x))
+            flops, nbytes, dtype = _op_work(op, axes, float(x))
+            peak = FP32_FLOPS if dtype == "fp32" else BF16_FLOPS
+            bound_s = max(nbytes / HBM_BYTES_PER_S, flops / peak)
+            text = (f"x {x}: wall {wall * 1e3:.4f} device {dev * 1e3:.4f} "
+                    f"bound {bound_s * 1e3:.3g} ms")
+            if not (math.isfinite(wall) and math.isfinite(dev)) \
+                    or min(wall, dev) < bound_s:
+                fail(f"profile {op} {axes} {text}: not finite or below "
+                     f"the bound")
+            readings.append(text)
+        say("profile", f"op table {op} {axes}: " + "; ".join(readings))
+    secs = time.perf_counter() - t0
+    launched = counts()
+    want = [0, 0, 0, 0]
+    for op, i in PROFILE_KERNELS.items():
+        want[i] = timer.calls[op]
+    if launched != tuple(want):
+        fail(f"profile: launches {launched}, expected {tuple(want)} from "
+             f"the profiler's calls {timer.calls}")
+    say("profile", f"{sum(len(xs) for _, _, xs in keys)} samples of "
+        f"{len(keys)} tables in {secs:.1f} s (each sample one warm-up and "
+        f"2 x {timer.repeats} timed calls, L2 flushed before each timed "
+        f"one) | calls {timer.calls} | launches decode_attention "
+        f"{launched[1]} flash_attention {launched[2]} ssd_scan "
+        f"{launched[3]} rmsnorm {launched[0]}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {
+        ("decode_attention", PROFILE_DECODE, "bfloat16"): attention_case(
+            torch, F, PROFILE_DECODE, [PROFILE_DECODE[-1]], "bfloat16",
+            gen),
+        (PROFILE_FLASH, "bfloat16"): flash_case(torch, F, PROFILE_FLASH,
+                                                "bfloat16", gen),
+        ("ssd_scan", PROFILE_SSD, "bfloat16"): ssd_case(
+            torch, PROFILE_SSD, "bfloat16", gen)}
+    return launched, results
+
+
 # -- 6. flash -----------------------------------------------------------------
 
 # (B, Sq, Skv, Hq, Hkv, D, window, q_offset)
@@ -1282,6 +1398,8 @@ def main() -> int:
     model_phase(torch)
     served = serve_phase(torch, smi)
     reduced_phase(torch, smi)
+    profiled, profile_results = profile_phase(torch, F)
+    results.update(profile_results)
     results.update(flash_phase(torch, F))
     trained = train_phase(torch, smi)
     train_parity_phase(torch)
@@ -1316,6 +1434,10 @@ def main() -> int:
         ("flash_attention", "train", (FLASH_MAIN,), trained[2]),
         ("rmsnorm", "mamba2_train", ("rmsnorm", (4, 1024, 5120)), mamba[0]),
         ("ssd_scan", "mamba2_train", ("ssd_scan", SSD_MAIN), mamba[3]),
+        ("decode_attention", "profile",
+         ("decode_attention", PROFILE_DECODE), profiled[1]),
+        ("flash_attention", "profile", (PROFILE_FLASH,), profiled[2]),
+        ("ssd_scan", "profile", ("ssd_scan", PROFILE_SSD), profiled[3]),
     )
     kernels = []
     for name, path, key, n in paths:

@@ -1,0 +1,58 @@
+"""The Transformer IR (``repro.core.ir``) of a port config.
+
+``model_ir`` is a copy of ``ModelConfig.to_ir`` in
+``repro/models/config.py`` for the families the port has configs for:
+dense GQA decoders (attention + MLP cells) and Mamba2 (SSM cells).  The
+reference's method cannot be called here: ``repro.models`` loads JAX.
+"""
+
+from __future__ import annotations
+
+from repro.core import ir as IR
+
+from repro_torch.models.config import ModelConfig
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    """Raise for a config outside the dense GQA and SSM families."""
+    unsupported = []
+    if cfg.attn_kind != "gqa":
+        unsupported.append(f"attn_kind={cfg.attn_kind!r}")
+    if cfg.ffn_kind not in ("dense", "none"):
+        unsupported.append(f"ffn_kind={cfg.ffn_kind!r}")
+    if cfg.cross_attn or cfg.encoder is not None:
+        unsupported.append("encoder-decoder")
+    if cfg.shared_attn:
+        unsupported.append("shared attention block")
+    if unsupported:
+        raise NotImplementedError(
+            f"{cfg.name}: no IR for {', '.join(unsupported)}; the port has "
+            f"configs for dense GQA decoders and Mamba2 only")
+
+
+def model_ir(cfg: ModelConfig) -> IR.ModelIR:
+    """The IR ``repro.configs`` ``get_config(name).to_ir()`` gives for the
+    same architecture."""
+    _check_family(cfg)
+    cells = []
+    for i, spec in enumerate(cfg.block_pattern):
+        if spec.kind == "ssm":
+            cells.append(IR.SSMCell(
+                name=f"ssm{i}", d_model=cfg.d_model,
+                d_inner=cfg.d_inner, d_state=cfg.d_state,
+                n_ssd_heads=cfg.n_ssd_heads, d_conv=cfg.d_conv,
+                n_groups=cfg.n_ssm_groups))
+            continue
+        cells.append(IR.AttentionCell(
+            name=f"attn{i}", d_model=cfg.d_model,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim,
+            qkv_bias=cfg.qkv_bias, window=spec.window, rope=cfg.rope))
+        if cfg.ffn_kind == "dense":
+            cells.append(IR.MLPCell(
+                name=f"mlp{i}", d_model=cfg.d_model, d_ff=cfg.d_ff,
+                gated=cfg.ffn_gated))
+    block = IR.Block(cells=tuple(cells), repeat=cfg.block_repeat)
+    return IR.ModelIR(name=cfg.name, d_model=cfg.d_model,
+                      vocab_size=cfg.vocab_size, block=block,
+                      tie_embeddings=cfg.tie_embeddings)

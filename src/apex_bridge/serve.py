@@ -1,0 +1,81 @@
+"""Serving entry point: APEX plan search, then the port's engine on one card
+(the twin of ``repro/launch/serve.py``).
+
+Given (arch, trace, cluster), ``ApexSearch`` finds the best parallel plan
+for the FULL model on the named cluster preset (analytic tables) and logs
+it beside the heuristic baseline; then ``repro_torch.launch.serve.serve``
+serves synthetic requests of the same trace on one card (CUDA unless
+``device="cpu"``).  An arch the port cannot serve raises before the
+search.
+
+    PYTHONPATH=src python -m apex_bridge.serve --arch qwen2-0.5b \\
+        --trace chat --requests 8
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from repro.core import ApexSearch, get_cluster, get_trace
+
+from repro_torch import configs as C
+from repro_torch.launch import serve as port_serve
+
+from .ir import model_ir
+
+# the simulator's trace for the plan search (as in repro/launch/serve.py)
+SEARCH_RATE = 0.5
+SEARCH_REQUESTS = 64
+
+
+def servable() -> list:
+    """The archs the port's engine serves: its configs without SSM
+    layers."""
+    return sorted(name for name in C.ALIASES
+                  if all(spec.kind != "ssm"
+                         for spec in C.get_config(name).block_pattern))
+
+
+def serve(arch: str = "qwen2-0.5b", trace: str = "chat", requests: int = 8,
+          cluster: str = "h100x8", size: str = "full", device=None,
+          log=print):
+    """Plan search for ``arch`` FULL on ``cluster``, then the engine on
+    ``arch`` at ``size`` with the port entry point's defaults (4 slots of
+    512, prompts cut to 128 tokens, outputs to 64, seed 0); returns
+    (baseline report, search result, engine report)."""
+    if arch not in servable():
+        raise NotImplementedError(
+            f"the port does not serve {arch!r}; it serves {servable()}")
+    model = model_ir(C.get_config(arch))
+    clu = get_cluster(cluster)
+    reqs = get_trace(trace, arrival_rate=SEARCH_RATE,
+                     num_requests=SEARCH_REQUESTS)
+    search = ApexSearch(model, clu)
+    base = search.evaluate_baseline(reqs)
+    best = search.search(reqs, feasible_only=False)
+    log(f"APEX: baseline {base.plan_label} e2e={base.e2e_latency:.1f}s")
+    log(f"APEX: optimal  {best.best.plan_label} "
+        f"e2e={best.best.e2e_latency:.1f}s "
+        f"({base.e2e_latency / best.best.e2e_latency:.2f}x) "
+        f"[{best.num_schemes} plans in {best.search_seconds:.1f}s]")
+    report, _ = port_serve.serve(arch, size, trace, requests,
+                                 device=device, log=log)
+    return base, best, report
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--trace", default="chat")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--cluster", default="h100x8")
+    ap.add_argument("--size", default="full", choices=("full", "reduced"))
+    ap.add_argument("--device", default=None,
+                    help="default: cuda (raises without a card)")
+    args = ap.parse_args(argv)
+    serve(args.arch, args.trace, args.requests, args.cluster, args.size,
+          args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,8 @@ requests through ``ServingEngine`` and prints TTFT, TPOT and throughput.
         --requests 8
 
 The APEX plan-search half of ``repro/launch/serve.py`` needs the
-simulator, which the port does not import yet.
+simulator, which the port does not import: ``python -m apex_bridge.serve``
+runs the search and then this entry point.
 """
 
 from __future__ import annotations
