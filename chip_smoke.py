@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # the smoke
+    python3 chip_smoke.py --limits   # readings behind LOGIT_TOL for mixtral
 
 Phases, one line each (the kernels phases print one line per case):
 
@@ -33,10 +34,11 @@ Phases, one line each (the kernels phases print one line per case):
                point; every request must finish with its token count, and
                every decode step must have launched both decode kernels.
      reduced -- qwen2-0.5b REDUCED (head dim 8, which both attention
-               wrappers zero-pad): ``decode_step`` logits kernels vs
-               plain, 8 requests served in bf16 as in phase 5, and one
-               train step kernels vs plain (fp32 and bf16) held to
-               TRAIN_TOL.
+               wrappers zero-pad) and mixtral-8x7b REDUCED (head dim 16,
+               window 16: rings of 32 slots, which the served prompts
+               wrap): ``decode_step`` logits kernels vs plain, 8 requests
+               served in bf16 as in phase 5, and one train step kernels
+               vs plain (fp32 and bf16) held to TRAIN_TOL.
      profile -- the port's op profiler (``repro_torch.core.profiles``,
                which times the tables of the simulator's measured
                backends) over every (op, axes) table the simulator prices
@@ -90,12 +92,33 @@ Phases, one line each (the kernels phases print one line per case):
                card): one step through the kernels and
                one through the plain versions, fp32 and bf16; and a
                profiled bf16 step at that depth.
+ 10. mixtral -- mixtral-8x7b (MoE, 8 experts top-2, sliding window 4096)
+               at full width on seeded random weights: ``decode_step``
+               logits kernels vs plain in bf16 at depth 16 of 32 (47 GB)
+               and fp32 at depth 4, the kernel run taking the plain run's
+               MoE routes, held to LOGIT_TOL and ARGMAX_FLOOR, with the
+               share of routes the kernel run would have picked alike; a
+               profiled bf16 step (device ms by family beside the 14 ms
+               it takes to read the weights once); 8 chat requests served
+               at depth 16 as in phase 5; and a ring check at depth 2,
+               ``max_len`` 4608 (rings of 4112 slots), lengths 100 / 4111
+               / 4112 / 9000, one step kernels vs plain in fp32 and bf16.
+ 11. ssm-serve -- ``ServingEngine`` serves mamba2-2.7b FULL (64 layers):
+               4 chat requests, prompts cut to 64, outputs to 16, 4 slots,
+               the last request admitted into a reused slot; in bf16
+               every request finishes with its token count and every step
+               launches its RMSNorms; in fp32 each prefilled slot's SSM
+               state and conv windows equal a batch-1 ``prefill`` of the
+               prompt within SSM_STATE_TOL, and the other active slots'
+               are unchanged.
 
 Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
 entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 ``rmsnorm/train``, ``flash_attention/train``, ``rmsnorm/mamba2_train``,
 ``ssd_scan/mamba2_train``, ``decode_attention/profile``,
-``flash_attention/profile``, ``ssd_scan/profile``, each with that path's
+``flash_attention/profile``, ``ssd_scan/profile``,
+``rmsnorm/mixtral-serve``, ``decode_attention/mixtral-serve``,
+``rmsnorm/ssm-serve``, each with that path's
 launches and the kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -153,6 +176,15 @@ DIFFER_MAX = {"float32": 1.0, "bfloat16": 1e-2}
 # long rows read 5.7 (17/24) and one that swaps bf16 pairs 6.9 (1/24).
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 0.25}
 ARGMAX_FLOOR = {"float32": 0.95, "bfloat16": 0.8}
+# A MoE model is held to the same limits: its kernel run takes the plain
+# run's routes (``replayed_routes``), so a near-tie of router logits
+# cannot send the two runs to different experts.  Read on an H100 for
+# mixtral-8x7b at full width over seeds 0-5 (PERF.md; ``python3
+# chip_smoke.py --limits``): fp32 (depth 4) 1.4e-5 to 2.0e-5 with every
+# argmax agreeing, bf16 (depth 16) 0.164 to 0.188 with 21-24 of 24; a
+# decode kernel that drops the last tile read 4.45 fp32 / 5.78 bf16
+# (6/24), one that swaps pairs 7.28 / 6.94 (0/24), one that rounds
+# toward zero 3.6e-2 / 0.305 (23/24).
 # one train step of qwen2-0.5b FULL (batch 8 x 1024, 2 microbatches,
 # remat) through the kernels vs the plain versions, from the same weights
 # and batch: |loss difference|, relative grad-norm difference, and the
@@ -467,6 +499,8 @@ def attention_case(torch, F, shape, lengths, dtype_name, gen,
 # qwen2-0.5b's heads at its published context of 32768 (27 MB of bf16
 # K/V at these lengths): (B, Hq, Hkv, D, Smax)
 DECODE_LONG = (4, 14, 2, 64, 32768)
+# mixtral-8x7b's heads in the mixtral phase's serve run: 4 slots of 512
+MIXTRAL_DECODE = (4, 32, 8, 128, 512)
 DECODE_LONG_LENGTHS = [1, 4096, 16384, 32768]
 DECODE_EDGE_SMAX = 1000
 # head dims the attention wrappers zero-pad (REDUCED 8, 16 and 24;
@@ -481,7 +515,9 @@ def kernels_phase(torch, F) -> dict:
     for dtype_name in ("float32", "bfloat16"):
         for shape in ((4, 1, 896), (512, 896), (4, 1, 2048), (512, 2048),
                       (4, 1, 5120),     # d of qwen2-0.5b, internlm2, 32b
+                      (4, 1, 4096),     # mixtral-8x7b serving
                       (4, 1024, 896),   # qwen2-0.5b training microbatch
+                      (4, 1, 2560),     # mamba2-2.7b serving: norm1, final
                       (4, 1024, 2560),  # mamba2-2.7b: norm1, final norm
                       (4, 1024, 5120)):  # mamba2-2.7b: the gated norm
             r = rmsnorm_case(torch, F, shape, dtype_name, gen)
@@ -506,7 +542,8 @@ def kernels_phase(torch, F) -> dict:
     lengths = [1, 77, 300, 512]          # 1, not a multiple of 32, Smax
     for dtype_name in ("float32", "bfloat16"):
         for shape in ((4, 14, 2, 64, 512),      # qwen2-0.5b, group 7
-                      (4, 16, 8, 128, 512)):    # internlm2-1.8b, group 2
+                      (4, 16, 8, 128, 512),     # internlm2-1.8b, group 2
+                      MIXTRAL_DECODE):          # mixtral-8x7b, group 4
             r = attention_case(torch, F, shape, lengths, dtype_name, gen)
             results[("decode_attention", shape, dtype_name)] = r
     # every group the kernel takes, both head dims, ragged Smax
@@ -609,23 +646,72 @@ def counts():
     return tuple(mod.launches for mod in kernel_modules())
 
 
+@contextlib.contextmanager
+def recorded_routes(log: list):
+    """Append the experts every MoE layer picks (``layers.moe.route``,
+    (B, S, top_k) each) to ``log``."""
+    from repro_torch.layers import moe
+    route = moe.route
+
+    def recording(*args, **kwargs):
+        gates, experts = route(*args, **kwargs)
+        log.append(experts)
+        return gates, experts
+
+    with mock.patch.object(moe, "route", recording):
+        yield log
+
+
+@contextlib.contextmanager
+def replayed_routes(log: list, agree: list):
+    """Send every MoE layer to the experts ``recorded_routes`` put in
+    ``log`` (taken in order), gated by the softmax of this run's own
+    router logits at them, so that a near-tie of router logits cannot
+    send two runs to different experts.  Adds to ``agree`` ([same, all])
+    the (token, layer) routes this run would have picked alike."""
+    from repro_torch.layers import moe
+    route = moe.route
+    fixed = iter(log)
+
+    def replaying(params, x, top_k, router_noise=None):
+        _, own = route(params, x, top_k, router_noise)
+        experts = next(fixed)
+        agree[0] += int((own.sort(-1).values == experts.sort(-1).values)
+                        .all(-1).sum())
+        agree[1] += own[..., 0].numel()
+        logits = x.float() @ params["router"]
+        if router_noise is not None:
+            logits = logits + router_noise
+        return logits.gather(-1, experts).softmax(-1), experts
+
+    with mock.patch.object(moe, "route", replaying):
+        yield agree
+
+
 def model_check(torch, dtype_name: str, seed: int = 0,
-                profile: bool = False, reduced: bool = False) -> dict:
-    """qwen2-0.5b FULL (or REDUCED): ``decode_step`` through the kernels
-    and through the plain versions on the same weights, cache and tokens
-    from ``seed``.  Checks launches and logits' shape and finiteness;
-    returns the logits' max abs difference, max |logit|, argmax agreement
+                profile: bool = False, reduced: bool = False,
+                arch: str = "qwen2-0.5b", depth=None, max_len: int = 512,
+                start_lens=(0, 37, 200, 500), steps: int = 6) -> dict:
+    """``arch`` FULL (or REDUCED; at ``depth`` blocks if given):
+    ``steps`` ``decode_step`` calls through the plain versions and
+    through the kernels on the same weights, cache of ``max_len`` slots
+    filled with seeded random K/V at ``start_lens``, and tokens from
+    ``seed``; a MoE model's kernel run takes the plain run's routes
+    (``replayed_routes``).  Checks launches and logits' shape and
+    finiteness; returns the logits' max abs difference, max |logit|,
+    argmax agreement, the routes the kernel run would have picked alike
     and wall ms per step (the comparison limits are the caller's)."""
     import dataclasses
 
     from repro_torch import configs as C
     from repro_torch.models import transformer as T
-    cfg = (C.get_reduced if reduced else C.get_config)("qwen2-0.5b")
-    cfg = dataclasses.replace(cfg, dtype=dtype_name)
+    cfg = (C.get_reduced if reduced else C.get_config)(arch)
+    cfg = dataclasses.replace(cfg, dtype=dtype_name,
+                              block_repeat=depth or cfg.block_repeat)
     R = cfg.block_repeat
     per_step = (2 * R + 1, R, 0, 0)
-    B, max_len, steps = 4, 512, 6
-    start_lens = [0, 37, 200, 500]
+    B = len(start_lens)
+    start_lens = list(start_lens)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = T.init_params(gen, cfg, device=DEVICE)
     cache = T.init_cache(cfg, B, max_len, device=DEVICE)
@@ -639,62 +725,135 @@ def model_check(torch, dtype_name: str, seed: int = 0,
     toks = torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=gen,
                          device=DEVICE, dtype=torch.int32)
     worst, scale, agree = 0.0, 0.0, 0
+    routes = [0, 0]
     t_kern = t_plain = 0.0
     for s in range(steps):
         reset_counts()
-        sync(torch)
-        t0 = time.perf_counter()
-        logits, cache = T.decode_step(params, cfg, toks[s], cache)
-        sync(torch)
-        if s:                            # step 0 pays one-time set-up
-            t_kern += time.perf_counter() - t0
-        if counts() != per_step:
-            fail(f"model {dtype_name}: launches {counts()} in one "
-                 f"decode_step, expected {per_step}")
-        with plain_kernels():
+        step_routes = []
+        with plain_kernels(), recorded_routes(step_routes):
+            sync(torch)
             t0 = time.perf_counter()
             plain, plain_cache = T.decode_step(params, cfg, toks[s],
                                                plain_cache)
             sync(torch)
-            if s:
+            if s:                        # step 0 pays one-time set-up
                 t_plain += time.perf_counter() - t0
-        if counts() != per_step:
+        if any(counts()):
             fail("model: the plain run launched a kernel")
+        t0 = time.perf_counter()
+        with replayed_routes(step_routes, routes):
+            logits, cache = T.decode_step(params, cfg, toks[s], cache)
+        sync(torch)
+        if s:
+            t_kern += time.perf_counter() - t0
+        if counts() != per_step:
+            fail(f"model {dtype_name}: launches {counts()} in one "
+                 f"decode_step, expected {per_step}")
         if tuple(logits.shape) != (B, cfg.vocab_size) or not bool(
                 torch.isfinite(logits).all()):
             fail(f"model {dtype_name}: bad logits {logits.shape}")
         worst = max(worst, float((logits.float() - plain.float()).abs().max()))
         scale = max(scale, float(plain.float().abs().max()))
         agree += int((logits.argmax(-1) == plain.argmax(-1)).sum())
+    smax = cache["blocks"]["l0"]["k"].shape[2] if "k" in \
+        cache["blocks"]["l0"] else None
     if profile:
         profile_steps(torch, T, params, cfg, cache, toks[:5])
     del params, cache, plain_cache
     torch.cuda.empty_cache()
     return dict(cfg=cfg, batch=B, start_lens=start_lens, steps=steps,
+                max_len=max_len, smax=smax,
                 per_step=per_step, worst=worst, scale=scale, agree=agree,
                 rows=B * steps, ms_kernels=t_kern / (steps - 1) * 1e3,
-                ms_plain=t_plain / (steps - 1) * 1e3)
+                ms_plain=t_plain / (steps - 1) * 1e3, routes=tuple(routes))
 
 
-def model_phase(torch, reduced: bool = False, phase: str = "model") -> None:
+def model_readings(r: dict, dtype_name: str) -> str:
+    text = (f"logits max_abs_err kernels vs plain {r['worst']:.3e} (tol "
+            f"{LOGIT_TOL[dtype_name]}, max|logit| {r['scale']:.3e}), argmax "
+            f"agree {r['agree']}/{r['rows']} (floor "
+            f"{ARGMAX_FLOOR[dtype_name]:.0%})")
+    same, n = r["routes"]
+    if n:
+        text += (f", MoE routes replayed from the plain run (the kernel "
+                 f"run's own agree {same}/{n}, {same / n:.2%})")
+    return text
+
+
+def model_phase(torch, reduced: bool = False, phase: str = "model",
+                arch: str = "qwen2-0.5b", depths=None, **shape) -> None:
+    """``model_check`` in fp32 and bf16 (at ``depths[dtype]`` blocks where
+    given), held to LOGIT_TOL and ARGMAX_FLOOR; the bf16 FULL run also
+    profiles its decode steps unless ``shape`` (``model_check``'s
+    ``max_len``, ``start_lens``, ``steps``) is given."""
     for dtype_name in ("float32", "bfloat16"):
-        r = model_check(torch, dtype_name, reduced=reduced,
-                        profile=dtype_name == "bfloat16" and not reduced)
-        tol, floor = LOGIT_TOL[dtype_name], ARGMAX_FLOOR[dtype_name]
-        readings = (f"logits max_abs_err kernels vs plain {r['worst']:.3e} "
-                    f"(tol {tol}, max|logit| {r['scale']:.3e}), argmax "
-                    f"agree {r['agree']}/{r['rows']} (floor {floor:.0%})")
-        if r["worst"] > tol or r["agree"] < floor * r["rows"]:
+        r = model_check(torch, dtype_name, reduced=reduced, arch=arch,
+                        depth=(depths or {}).get(dtype_name),
+                        profile=dtype_name == "bfloat16" and not reduced
+                        and not shape, **shape)
+        readings = model_readings(r, dtype_name)
+        if r["worst"] > LOGIT_TOL[dtype_name] or \
+                r["agree"] < ARGMAX_FLOOR[dtype_name] * r["rows"]:
             fail(f"{phase} {dtype_name}: {readings}")
         cfg = r["cfg"]
-        say(phase, f"qwen2-0.5b {'REDUCED' if reduced else 'FULL'} "
+        say(phase, f"{arch} {'REDUCED' if reduced else 'FULL width'} "
             f"({cfg.block_repeat} layers, d {cfg.d_model}, head dim "
             f"{cfg.head_dim}, vocab {cfg.vocab_size}) {dtype_name} batch "
-            f"{r['batch']} lens {r['start_lens']}+{r['steps']} steps: "
+            f"{r['batch']} max_len {r['max_len']} ({r['smax']} slots) lens "
+            f"{r['start_lens']}+{r['steps']} steps: "
             f"{readings}, launches/step rmsnorm {r['per_step'][0]} "
             f"decode_attention {r['per_step'][1]}, wall per step after the "
             f"first {r['ms_kernels']:.2f} ms kernels / {r['ms_plain']:.2f} "
             f"ms plain")
+
+
+# broken decode-attention kernels, made by a wrapper around the sound one,
+# read against the model phase's limits (``--limits``)
+CONTROLS = ("drop_tile", "swap_pairs", "round_to_zero")
+
+
+def broken_decode(torch, kind: str):
+    """Patch the decode-attention wrapper with a deliberate fault:
+    ``drop_tile`` skips the last 32-slot tile of every row longer than one
+    tile; ``swap_pairs`` stores each pair of output elements swapped;
+    ``round_to_zero`` rounds the fp32 result toward zero to bf16
+    precision instead of to nearest."""
+    from repro_torch.kernels import decode_attention as da
+    sound = da.decode_attention
+
+    def faulty(q, k, v, lengths):
+        if kind == "drop_tile":
+            last = (lengths - 1) % 32 + 1
+            return sound(q, k, v, torch.where(lengths > 32, lengths - last,
+                                              lengths))
+        if kind == "swap_pairs":
+            out = sound(q, k, v, lengths)
+            return out.unflatten(-1, (-1, 2)).flip(-1).flatten(-2)
+        out = sound(q.float(), k.float(), v.float(), lengths)
+        return (out.view(torch.int32) & -65536).view(torch.float32).to(
+            q.dtype)
+
+    return mock.patch.object(da, "decode_attention", faulty)
+
+
+def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
+                 seeds=range(6)) -> None:
+    """The readings that show the model phase's limits fit ``arch``:
+    ``model_check`` over ``seeds`` with the sound kernels, and at seed 0
+    under each broken kernel of CONTROLS, fp32 and bf16.  Prints them
+    and checks nothing (``python3 chip_smoke.py --limits``)."""
+    depths = MIXTRAL_DEPTHS if depths is None else depths
+    runs = [(seed, None) for seed in seeds] + [(0, k) for k in CONTROLS]
+    for dtype_name in ("float32", "bfloat16"):
+        for seed, kind in runs:
+            with (broken_decode(torch, kind) if kind
+                  else contextlib.nullcontext()):
+                r = model_check(torch, dtype_name, seed=seed, arch=arch,
+                                depth=depths.get(dtype_name))
+            say("limits", f"{arch} {dtype_name} depth "
+                f"{r['cfg'].block_repeat} "
+                f"{f'control {kind}' if kind else f'seed {seed}'}: "
+                + model_readings(r, dtype_name))
 
 
 def profile_steps(torch, T, params, cfg, cache, toks) -> None:
@@ -721,6 +880,12 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
                 "other": 0.0}
     per_kernel = []
     n_kernels = 0
+    # every weight is read once a step (a MoE FFN computes every expert),
+    # but an untied embedding table only at the batch's rows
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for n, p in params.named_parameters()
+                       if n != "embed" or cfg.tie_embeddings)
+    weight_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     for e in prof.key_averages():
         if "cuda" not in str(e.device_type).lower():
             continue
@@ -741,13 +906,16 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
         say("profile", f"decode_step wall {wall * 1e3:.2f} ms; device time "
             f"not measured (the profiler saw no device kernels)")
         return
-    say("profile", f"qwen2-0.5b FULL bf16 decode_step, batch 4: wall "
+    say("profile", f"{cfg.name} FULL width, {cfg.block_repeat} layers, bf16 "
+        f"decode_step, batch 4: wall "
         f"{wall * 1e3:.2f} ms/step ({wall_prof * 1e3:.2f} ms under the "
         f"profiler), device kernels {busy:.3f} ms/step "
         f"({n_kernels / steps:.0f} launches/step, busy share "
         f"{busy / (wall_prof * 1e3):.1%} of profiled wall, "
         f"{busy / (wall * 1e3):.1%} of unprofiled): "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in families.items()))
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in families.items())
+        + f" | weights {weight_bytes / 1e9:.2f} GB, read once a step: "
+        f"bound {weight_ms:.3f} ms (device time {busy / weight_ms:.2f}x it)")
     top = sorted(per_kernel, reverse=True)[:6]
     say("profile", "top kernels by device ms/step: " + "; ".join(
         f"{name[:60]} x{n} {ms:.3f} ms" for ms, n, name in top))
@@ -755,16 +923,24 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
 
 # -- 5. serve -----------------------------------------------------------------
 
-def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve"):
+def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
+                arch: str = "qwen2-0.5b", depth=None):
+    """8 chat-trace requests served through ``launch.serve.serve`` in
+    bf16 (at ``depth`` blocks if given); every request must finish with
+    its token count, and every step must launch its kernels."""
+    import dataclasses
+
     from repro_torch.launch.serve import serve
     from repro_torch import configs as C
-    cfg = (C.get_config if size == "full" else C.get_reduced)("qwen2-0.5b")
+    cfg = (C.get_config if size == "full" else C.get_reduced)(arch)
+    cfg = dataclasses.replace(cfg, block_repeat=depth or cfg.block_repeat)
     vocab = cfg.vocab_size
+    torch.cuda.empty_cache()
     reset_counts()
-    report, reqs = serve(arch="qwen2-0.5b", size=size, requests=8,
+    report, reqs = serve(arch=arch, size=size, requests=8,
                          max_batch=4, max_len=512, prompt_cap=128,
                          gen_cap=64, seed=0, device=DEVICE,
-                         log=lambda s: None)
+                         log=lambda s: None, depth=depth)
     launched = counts()
     if len(report.results) != len(reqs):
         fail(f"{phase}: {len(report.results)} of {len(reqs)} finished")
@@ -784,8 +960,8 @@ def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve"):
              f"expected {((2 * R + 1) * steps, R * steps, 0, 0)}")
     if min(launched[:2]) <= 0:
         fail(f"{phase}: a kernel was never launched: {launched}")
-    say(phase, f"qwen2-0.5b {size.upper()} (head dim {cfg.head_dim}) bf16 "
-        f"on {smi}: {len(report.results)} "
+    say(phase, f"{arch} {size.upper()} ({cfg.block_repeat} layers, head "
+        f"dim {cfg.head_dim}) bf16 on {smi}: {len(report.results)} "
         f"requests (prompts {[len(r['prompt']) for r in reqs]}, gen "
         f"{[r['gen_len'] for r in reqs]}) in {report.total_time:.3f} s, "
         f"{report.iterations} iterations + "
@@ -800,10 +976,15 @@ def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve"):
 
 def reduced_phase(torch, smi: str) -> None:
     """qwen2-0.5b REDUCED, head dim 8: both attention kernels run it
-    zero-padded (decode to 64, flash to 16)."""
-    model_phase(torch, reduced=True, phase="reduced")
-    serve_phase(torch, smi, size="reduced", phase="reduced")
-    train_parity_phase(torch, phase="reduced", reduced=True)
+    zero-padded (decode to 64, flash to 16).  mixtral-8x7b REDUCED, head
+    dim 16 (decode pads it to 64), window 16: its ring caches hold 32
+    slots, so the served prompts (up to 128 tokens) wrap them, and its
+    train step runs the flash kernel with the window."""
+    for arch in ("qwen2-0.5b", "mixtral-8x7b"):
+        model_phase(torch, reduced=True, phase="reduced", arch=arch)
+        serve_phase(torch, smi, size="reduced", phase="reduced", arch=arch)
+        train_parity_phase(torch, dict(TRAIN, arch=arch), phase="reduced",
+                           reduced=True)
 
 
 # -- profile ------------------------------------------------------------------
@@ -1172,8 +1353,8 @@ def train_parity_phase(torch, spec: dict = TRAIN, limits=None,
         if reduced:
             shape = (f" at REDUCED size ({launch_text(r['launched'])} "
                      f"launches)")
-        say(phase, f"parity {dtype_name}{shape}, one step from the same "
-            f"weights and batch: {readings}")
+        say(phase, f"{spec['arch']} parity {dtype_name}{shape}, one step "
+            f"from the same weights and batch: {readings}")
 
 
 def profile_train_step(torch, step, params, opt, batch,
@@ -1371,6 +1552,195 @@ MAMBA_TRAIN = dict(arch="mamba2-2.7b", steps=5, batch=8, seq=1024,
 MAMBA_PARITY_DEPTH = 8
 
 
+# -- 10. mixtral ----------------------------------------------------------------
+
+# mixtral-8x7b at full width is 46.7 B parameters (93.4 GB in bf16) at
+# its 32 layers: one H100 holds 16 (47.0 GB in bf16), and 4 in fp32
+MIXTRAL_DEPTHS = {"bfloat16": 16, "float32": 4}
+# the ring check: Smax = ring_size(4096) = 4112 slots at max_len 4608;
+# lengths inside the ring, one short of it, on it, and wrapped twice (and
+# one more each on the second step)
+RING = dict(depth=2, max_len=4608, smax=4112,
+            lengths=[100, 4111, 4112, 9000])
+
+
+def ring_phase(torch) -> None:
+    """mixtral-8x7b at full width and depth 2, ``max_len`` 4608, so its
+    sliding-window layers keep rings of 4112 slots: a cache of seeded
+    random K/V at ``RING["lengths"]``, two ``decode_step`` calls through
+    the kernels and through the plain versions, held as in the model
+    phase."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    window = C.get_config("mixtral-8x7b").windows[0]
+    if min(RING["max_len"], T.ring_size(window)) != RING["smax"]:
+        fail(f"ring: max_len {RING['max_len']} gives no ring of "
+             f"{RING['smax']} slots")
+    model_phase(torch, phase="mixtral", arch="mixtral-8x7b",
+                depths=dict.fromkeys(("float32", "bfloat16"), RING["depth"]),
+                max_len=RING["max_len"], start_lens=RING["lengths"],
+                steps=2)
+
+
+def mixtral_phase(torch, smi: str):
+    """mixtral-8x7b at full width: (a) bf16 ``decode_step`` logits at
+    depth 16 and (b) fp32 at depth 4, kernels vs plain, with (d) a
+    profiled bf16 step; (c) 8 chat requests served at depth 16; (e) the
+    ring check.  Returns the serve run's launches."""
+    torch.cuda.empty_cache()
+    model_phase(torch, phase="mixtral", arch="mixtral-8x7b",
+                depths=MIXTRAL_DEPTHS)
+    served = serve_phase(torch, smi, phase="mixtral", arch="mixtral-8x7b",
+                         depth=MIXTRAL_DEPTHS["bfloat16"])
+    ring_phase(torch)
+    return served
+
+
+# -- 11. ssm-serve --------------------------------------------------------------
+
+SSM_SERVE = dict(requests=4, prompt_cap=64, gen_cap=16, max_batch=4,
+                 max_len=512)
+# its RMSNorms per decode step: norm1 of 64 layers and the final norm at
+# d 2560, the gated norm of 64 layers at d_inner 5120
+SSM_SERVE_NORMS = (((4, 1, 2560), 65), ((4, 1, 5120), 64))
+
+
+def launch_mix(results: dict, parts) -> dict:
+    """A record entry's numbers for a path that launches one kernel at
+    several shapes, ``parts`` ((``results`` key, launches), ...): times
+    and bound per launch averaged over the launches, the worst error,
+    and ``bound_by`` of the shape with the largest share of the bound."""
+    rs = [(results[key], n) for key, n in parts]
+    total = sum(n for _, n in rs)
+
+    def mean(field):
+        if any(r[field] is None for r, _ in rs):
+            return None
+        return sum(r[field] * n for r, n in rs) / total
+
+    return dict({f: mean(f) for f in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms")},
+                max_abs_err=max(r["max_abs_err"] for r, _ in rs),
+                bound_by=max(rs, key=lambda p: p[0]["bound_ms"] * p[1])[0][
+                    "bound_by"])
+# the last request arrives after the others have finished, so it is
+# admitted into a slot an earlier request used
+SSM_LATE_ARRIVAL = 1e6
+# tests/test_torch_ssm.py's fp32 CACHE_TOL: the engine's state after a
+# prefill against a batch-1 prefill of the same prompt, max abs
+SSM_STATE_TOL = {"ssm": 1e-4, "conv_x": 1e-4, "conv_bc": 1e-4}
+
+
+def ssm_serve_phase(torch, smi: str):
+    """mamba2-2.7b FULL (64 layers) served by ``ServingEngine``: 4 chat
+    requests, prompts cut to 64 tokens, outputs to 16, 4 slots, the last
+    request admitted into a reused slot.  In bf16: every request finishes
+    with its token count and every step launches its RMSNorms.  In fp32:
+    after each prefill the slot's ``ssm``/``conv_x``/``conv_bc`` rows
+    equal those of a batch-1 ``prefill`` of the same prompt within
+    SSM_STATE_TOL, and the other active slots' rows are unchanged.
+    Returns the bf16 run's launches."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.data.requests import make_serving_requests
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import SSM_STATE, ServingEngine
+    base = C.get_config("mamba2-2.7b")
+    R = base.block_repeat
+    if sum(n for _, n in SSM_SERVE_NORMS) != 2 * R + 1:
+        fail(f"ssm-serve: SSM_SERVE_NORMS does not count {2 * R + 1} "
+             f"RMSNorms a step")
+    reqs = make_serving_requests("chat", 1.0, SSM_SERVE["requests"],
+                                 base.vocab_size, seed=0,
+                                 max_len=SSM_SERVE["prompt_cap"])
+    for i, r in enumerate(reqs):
+        r["gen_len"] = min(r["gen_len"], SSM_SERVE["gen_cap"])
+        r["arrival"] = SSM_LATE_ARRIVAL if i == len(reqs) - 1 else 0.0
+    launched = None
+    for dtype_name in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(base, dtype=dtype_name)
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        params = T.init_params(gen, cfg, device=DEVICE)
+        eng = ServingEngine(cfg, params, max_batch=SSM_SERVE["max_batch"],
+                            max_len=SSM_SERVE["max_len"], device=DEVICE)
+        admitted = []
+        worst = dict.fromkeys(SSM_STATE, 0.0)
+        prefill = eng._prefill_slot
+
+        def checked(i, prefill=prefill, eng=eng, cfg=cfg, params=params,
+                    worst=worst, admitted=admitted, check=dtype_name ==
+                    "float32"):
+            others = [j for j, o in enumerate(eng.slots)
+                      if o.active and j != i]
+            before = [t[:, others].clone() for t in eng._state()] \
+                if check else []
+            prefill(i)
+            admitted.append(i)
+            if not check:
+                return
+            for t, rows in zip(eng._state(), before):
+                if not torch.equal(t[:, others], rows):
+                    fail(f"ssm-serve: slots {others} changed during slot "
+                         f"{i}'s prefill")
+            prompt = torch.as_tensor(eng.slots[i].prompt[None],
+                                     device=DEVICE)
+            _, alone = T.prefill(params, cfg, prompt, eng.max_len)
+            for lc, ref in zip(eng.cache["blocks"].values(),
+                               alone["blocks"].values()):
+                for name in SSM_STATE:
+                    err = float((lc[name][:, i] - ref[name][:, 0]).abs()
+                                .max())
+                    worst[name] = max(worst[name], err)
+
+        eng._prefill_slot = checked
+        reset_counts()
+        report = eng.run(reqs, time_scale=1.0)
+        sync(torch)
+        if dtype_name == "bfloat16":
+            launched = counts()
+        if len(report.results) != len(reqs):
+            fail(f"ssm-serve {dtype_name}: {len(report.results)} of "
+                 f"{len(reqs)} finished")
+        by_rid = {r["rid"]: r for r in reqs}
+        for res in report.results:
+            if len(res.tokens) != max(by_rid[res.rid]["gen_len"], 2) or \
+                    not all(0 <= t < cfg.vocab_size for t in res.tokens):
+                fail(f"ssm-serve {dtype_name}: rid {res.rid} gave tokens "
+                     f"{res.tokens}")
+        if len(set(admitted)) == len(admitted):
+            fail(f"ssm-serve: no slot was reused ({admitted})")
+        steps = report.iterations + sum(len(r["prompt"]) for r in reqs)
+        if dtype_name == "bfloat16" and report.preemptions == 0 and \
+                launched != ((2 * R + 1) * steps, 0, 0, 0):
+            fail(f"ssm-serve: launches {launched} for {steps} decode "
+                 f"steps, expected {((2 * R + 1) * steps, 0, 0, 0)}")
+        beyond = {n: e for n, e in worst.items() if e > SSM_STATE_TOL[n]}
+        if beyond:
+            fail(f"ssm-serve: state after prefill vs batch-1 prefill "
+                 f"{worst}, beyond {SSM_STATE_TOL}")
+        state = (" | state after each prefill vs a batch-1 prefill of the "
+                 "prompt, max abs: " + ", ".join(
+                     f"{n} {e:.3e}" for n, e in worst.items())
+                 + f" (tol {SSM_STATE_TOL['ssm']}); other active slots "
+                 f"unchanged")
+        if dtype_name == "bfloat16":
+            state = f" | launches rmsnorm {launched[0]}"
+        say("ssm-serve", f"mamba2-2.7b FULL ({R} layers) {dtype_name} on "
+            f"{smi}: {len(report.results)} requests (prompts "
+            f"{[len(r['prompt']) for r in reqs]}, gen "
+            f"{[r['gen_len'] for r in reqs]}), slots in admission order "
+            f"{admitted}, {report.iterations} iterations + "
+            f"{steps - report.iterations} prefill steps, "
+            f"{report.preemptions} preemptions | TTFT mean "
+            f"{report.ttft_mean * 1e3:.1f} ms TPOT mean "
+            f"{report.tpot_mean * 1e3:.2f} ms{state}")
+        del params, eng
+        torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     try:
         import torch
@@ -1394,6 +1764,9 @@ def main() -> int:
 
     smi = probe(torch)
     build_phase()
+    if sys.argv[1:] == ["--limits"]:
+        limits_phase(torch)
+        return 0
     results = kernels_phase(torch, F)
     model_phase(torch)
     served = serve_phase(torch, smi)
@@ -1411,6 +1784,8 @@ def main() -> int:
              f"launches were not on the tensor-core kernel")
     train_parity_phase(torch, MAMBA_TRAIN, MAMBA_TRAIN_TOL,
                        MAMBA_PARITY_DEPTH, "mamba2")
+    mixtral = mixtral_phase(torch, smi)
+    ssm_served = ssm_serve_phase(torch, smi)
 
     # one entry per kernel and path: the path's launches, read right after
     # its run, beside the kernel's numbers at that path's bf16 shape
@@ -1426,6 +1801,10 @@ def main() -> int:
         "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/ssd_scan.py:76"),
     }
+    # the mamba2 serve step's RMSNorms run at two widths
+    results[("rmsnorm", SSM_SERVE_NORMS, "bfloat16")] = launch_mix(
+        results, [(("rmsnorm", shape, "bfloat16"), n)
+                  for shape, n in SSM_SERVE_NORMS])
     paths = (
         ("rmsnorm", "serve", ("rmsnorm", (4, 1, 896)), served[0]),
         ("decode_attention", "serve",
@@ -1438,6 +1817,11 @@ def main() -> int:
          ("decode_attention", PROFILE_DECODE), profiled[1]),
         ("flash_attention", "profile", (PROFILE_FLASH,), profiled[2]),
         ("ssd_scan", "profile", ("ssd_scan", PROFILE_SSD), profiled[3]),
+        ("rmsnorm", "mixtral-serve", ("rmsnorm", (4, 1, 4096)), mixtral[0]),
+        ("decode_attention", "mixtral-serve",
+         ("decode_attention", MIXTRAL_DECODE), mixtral[1]),
+        ("rmsnorm", "ssm-serve", ("rmsnorm", SSM_SERVE_NORMS),
+         ssm_served[0]),
     )
     kernels = []
     for name, path, key, n in paths:

@@ -2,7 +2,8 @@
 
 ``model_ir`` is a copy of ``ModelConfig.to_ir`` in
 ``repro/models/config.py`` for the families the port has configs for:
-dense GQA decoders (attention + MLP cells) and Mamba2 (SSM cells).  The
+GQA decoders with a dense FFN (attention + MLP cells) or a MoE FFN
+(attention + MoE cells), and Mamba2 (SSM cells).  The
 reference's method cannot be called here: ``repro.models`` loads JAX.
 """
 
@@ -14,11 +15,12 @@ from repro_torch.models.config import ModelConfig
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """Raise for a config outside the dense GQA and SSM families."""
+    """Raise for a config outside the GQA (dense or MoE FFN) and SSM
+    families."""
     unsupported = []
     if cfg.attn_kind != "gqa":
         unsupported.append(f"attn_kind={cfg.attn_kind!r}")
-    if cfg.ffn_kind not in ("dense", "none"):
+    if cfg.ffn_kind not in ("dense", "moe", "none"):
         unsupported.append(f"ffn_kind={cfg.ffn_kind!r}")
     if cfg.cross_attn or cfg.encoder is not None:
         unsupported.append("encoder-decoder")
@@ -27,7 +29,8 @@ def _check_family(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: no IR for {', '.join(unsupported)}; the port has "
-            f"configs for dense GQA decoders and Mamba2 only")
+            f"configs for dense GQA decoders, MoE GQA decoders and Mamba2 "
+            f"only")
 
 
 def model_ir(cfg: ModelConfig) -> IR.ModelIR:
@@ -48,7 +51,13 @@ def model_ir(cfg: ModelConfig) -> IR.ModelIR:
             n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim,
             qkv_bias=cfg.qkv_bias, window=spec.window, rope=cfg.rope))
-        if cfg.ffn_kind == "dense":
+        if cfg.ffn_kind == "moe":
+            cells.append(IR.MoECell(
+                name=f"moe{i}", d_model=cfg.d_model,
+                d_ff_expert=cfg.d_ff_expert, n_routed=cfg.n_routed,
+                top_k=cfg.top_k, n_shared=cfg.n_shared,
+                gated=cfg.ffn_gated))
+        elif cfg.ffn_kind == "dense":
             cells.append(IR.MLPCell(
                 name=f"mlp{i}", d_model=cfg.d_model, d_ff=cfg.d_ff,
                 gated=cfg.ffn_gated))

@@ -5,8 +5,10 @@ Given (arch, trace, cluster), ``ApexSearch`` finds the best parallel plan
 for the FULL model on the named cluster preset (analytic tables) and logs
 it beside the heuristic baseline; then ``repro_torch.launch.serve.serve``
 serves synthetic requests of the same trace on one card (CUDA unless
-``device="cpu"``).  An arch the port cannot serve raises before the
-search.
+``device="cpu"``).  An arch the port has no config for raises
+(``KeyError``) before the search.  ``depth`` serves the first blocks of
+the model at full width: mixtral-8x7b FULL is 93.4 GB in bf16, and one
+80 GB H100 holds 16 of its 32 layers (``--depth 16``).
 
     PYTHONPATH=src python -m apex_bridge.serve --arch qwen2-0.5b \\
         --trace chat --requests 8
@@ -28,24 +30,14 @@ SEARCH_RATE = 0.5
 SEARCH_REQUESTS = 64
 
 
-def servable() -> list:
-    """The archs the port's engine serves: its configs without SSM
-    layers."""
-    return sorted(name for name in C.ALIASES
-                  if all(spec.kind != "ssm"
-                         for spec in C.get_config(name).block_pattern))
-
-
 def serve(arch: str = "qwen2-0.5b", trace: str = "chat", requests: int = 8,
           cluster: str = "h100x8", size: str = "full", device=None,
-          log=print):
+          log=print, depth=None):
     """Plan search for ``arch`` FULL on ``cluster``, then the engine on
     ``arch`` at ``size`` with the port entry point's defaults (4 slots of
-    512, prompts cut to 128 tokens, outputs to 64, seed 0); returns
-    (baseline report, search result, engine report)."""
-    if arch not in servable():
-        raise NotImplementedError(
-            f"the port does not serve {arch!r}; it serves {servable()}")
+    512, prompts cut to 128 tokens, outputs to 64, seed 0), at ``depth``
+    blocks if given (the search prices every block); returns (baseline
+    report, search result, engine report)."""
     model = model_ir(C.get_config(arch))
     clu = get_cluster(cluster)
     reqs = get_trace(trace, arrival_rate=SEARCH_RATE,
@@ -59,7 +51,7 @@ def serve(arch: str = "qwen2-0.5b", trace: str = "chat", requests: int = 8,
         f"({base.e2e_latency / best.best.e2e_latency:.2f}x) "
         f"[{best.num_schemes} plans in {best.search_seconds:.1f}s]")
     report, _ = port_serve.serve(arch, size, trace, requests,
-                                 device=device, log=log)
+                                 device=device, log=log, depth=depth)
     return base, best, report
 
 
@@ -72,9 +64,11 @@ def main(argv=None):
     ap.add_argument("--size", default="full", choices=("full", "reduced"))
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a card)")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="blocks the engine keeps (default: all)")
     args = ap.parse_args(argv)
     serve(args.arch, args.trace, args.requests, args.cluster, args.size,
-          args.device)
+          args.device, depth=args.depth)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,9 @@
 exporting ``FULL`` (the published dims) and ``REDUCED`` (a same-family
 miniature for CPU tests), copied from ``repro/configs``.
 
-The port carries the dense GQA decoders and the attention-free Mamba2
-model; the other architectures of the JAX registry arrive with the slices
-that port their layers.
+The port carries the dense GQA decoders, the attention-free Mamba2
+model and the MoE decoder mixtral-8x7b; the other architectures of the
+JAX registry arrive with the slices that port their layers.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ ARCHS: List[str] = [
     "qwen2_0_5b",
     "qwen1_5_32b",
     "mamba2_2_7b",
+    "mixtral_8x7b",
 ]
 
 # canonical ids as given in the assignment -> module names
@@ -27,6 +28,7 @@ ALIASES = {
     "qwen2-0.5b": "qwen2_0_5b",
     "qwen1.5-32b": "qwen1_5_32b",
     "mamba2-2.7b": "mamba2_2_7b",
+    "mixtral-8x7b": "mixtral_8x7b",
 }
 
 

@@ -11,8 +11,12 @@ same layout as host numpy.  bf16 crosses as raw bits, with no rounding
 through fp32: ``ml_dtypes.bfloat16`` arrays into the port, ``uint16``
 arrays back (the port needs no ``ml_dtypes``).  Every leaf keeps its own
 dtype: the fp32 leaves of a bf16 Mamba2 mixer (``a_log``, ``dt_bias``,
-``d_skip``) and the fp32 SSM state of its cache stay fp32.  Weights keep
-the JAX layout, so conversion is a copy.
+``d_skip``), the fp32 router of a bf16 MoE FFN and the fp32 SSM state
+of a cache stay fp32.  Weights keep the JAX layout, so conversion is a
+copy: a MoE FFN's experts stay stacked on their leading E axis, and its
+shared experts' MLP is the submodule ``shared`` (parameter
+``blocks.<r>.l0.ffn.shared.w_up`` is ``tree["blocks"]["l0"]["ffn"]
+["shared"]["w_up"][r]``).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.layers.moe import MoEParams
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (DecoderLayer, SSMLayer,
                                             Transformer, check_supported)
@@ -47,12 +52,24 @@ def _param_dict(tree: Mapping, device, r=None) -> nn.ParameterDict:
         for name, a in tree.items()})
 
 
+def _ffn_dict(tree: Mapping, device, r: int) -> nn.ParameterDict:
+    """An FFN's parameters of block ``r``: a dense MLP's, or a MoE FFN's
+    with its shared experts, if any, as ``MoEParams.shared``."""
+    if "router" not in tree:
+        return _param_dict(tree, device, r)
+    routed = {k: a for k, a in tree.items() if k != "shared"}
+    shared = (_param_dict(tree["shared"], device, r) if "shared" in tree
+              else None)
+    return MoEParams(_param_dict(routed, device, r), shared)
+
+
 def params_from_jax(tree: Mapping, cfg: ModelConfig,
                     device=None) -> Transformer:
     """The port's ``Transformer`` holding the reference's weights.
 
     ``tree`` is ``jax.device_get(repro.models.transformer.init_params(
-    key, cfg))`` for a config the port carries (dense GQA or Mamba2)."""
+    key, cfg))`` for a config the port carries (GQA with a dense or MoE
+    FFN, or Mamba2)."""
     check_supported(cfg)
     blocks = nn.ModuleList()
     for r in range(cfg.block_repeat):
@@ -68,7 +85,7 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
                 _param(np.asarray(lt["norm1"])[r], device),
                 _param_dict(lt["attn"], device, r),
                 _param(np.asarray(lt["norm2"])[r], device),
-                _param_dict(lt["ffn"], device, r))
+                _ffn_dict(lt["ffn"], device, r))
         blocks.append(nn.ModuleDict(layers))
     head = _param(tree["head"], device) if "head" in tree else None
     return Transformer(_param(tree["embed"], device),

@@ -1,8 +1,10 @@
 """Serving entry point of the port: run the real engine on one card.
 
-Builds a config (default qwen2-0.5b at its FULL published size), draws
-random weights from a seeded ``torch.Generator``, serves chat-trace
-requests through ``ServingEngine`` and prints TTFT, TPOT and throughput.
+Builds a config (default qwen2-0.5b at its FULL published size, or at
+the first ``depth`` blocks of it, as mixtral-8x7b needs on one H100),
+draws random weights from a seeded ``torch.Generator``, serves
+chat-trace requests through ``ServingEngine`` and prints TTFT, TPOT and
+throughput.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \\
         --requests 8
@@ -15,7 +17,8 @@ runs the search and then this entry point.
 from __future__ import annotations
 
 import argparse
-from typing import List, Tuple
+import dataclasses
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -29,15 +32,18 @@ from repro_torch.serving.engine import EngineReport, ServingEngine
 def serve(arch: str = "qwen2-0.5b", size: str = "full",
           trace: str = "chat", requests: int = 8, max_batch: int = 4,
           max_len: int = 512, prompt_cap: int = 128, gen_cap: int = 64,
-          seed: int = 0, device=None, log=print
-          ) -> Tuple[EngineReport, List[dict]]:
+          seed: int = 0, device=None, log=print,
+          depth: Optional[int] = None) -> Tuple[EngineReport, List[dict]]:
     """Serve ``requests`` synthetic requests, all arriving at t=0; returns
     the engine's report and the requests as served (prompts cut to
-    ``prompt_cap`` tokens, ``gen_len`` to ``gen_cap``)."""
+    ``prompt_cap`` tokens, ``gen_len`` to ``gen_cap``).  ``depth`` cuts
+    the model to that many blocks at full width."""
     if size not in ("full", "reduced"):
         raise ValueError(f"size must be 'full' or 'reduced', got {size!r}")
     dev = resolve_device(device)
     cfg = C.get_config(arch) if size == "full" else C.get_reduced(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, block_repeat=depth)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = T.init_params(gen, cfg, device=dev)
     # the engine runs at time_scale=0.0, which moves every arrival to t=0,
@@ -73,10 +79,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a card)")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="blocks kept (default: all)")
     args = ap.parse_args(argv)
     serve(args.arch, args.size, args.trace, args.requests, args.max_batch,
           args.max_len, args.prompt_cap, args.gen_cap, args.seed,
-          args.device)
+          args.device, depth=args.depth)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Layers of the port, in PyTorch: the dense decoder path and the Mamba2
-mixer of ``repro.layers``.
+"""Layers of the port, in PyTorch: the dense decoder path, the MoE FFN
+and the Mamba2 mixer of ``repro.layers``.
 
 Parameters are ``nn.ParameterDict``s (or bare ``nn.Parameter``s for norm
 weights) keyed as in the JAX pytrees, with weights in the JAX layout
@@ -12,11 +12,13 @@ weights) keyed as in the JAX pytrees, with weights in the JAX layout
 from .attention import (blockwise_attention, gqa_attention,
                         gqa_decode_step, init_attention)
 from .mlp import init_mlp, mlp_forward
+from .moe import MoEParams, init_moe, moe_forward
 from .norms import rms_norm
 from .rope import apply_rope, rope_angles
 from .ssm import init_mamba2, mamba2_decode_step, mamba2_forward
 
-__all__ = ["apply_rope", "blockwise_attention", "gqa_attention",
-           "gqa_decode_step", "init_attention", "init_mamba2", "init_mlp",
-           "mamba2_decode_step", "mamba2_forward", "mlp_forward",
-           "rms_norm", "rope_angles"]
+__all__ = ["MoEParams", "apply_rope", "blockwise_attention",
+           "gqa_attention", "gqa_decode_step", "init_attention",
+           "init_mamba2", "init_mlp", "init_moe", "mamba2_decode_step",
+           "mamba2_forward", "mlp_forward", "moe_forward", "rms_norm",
+           "rope_angles"]

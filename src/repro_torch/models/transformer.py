@@ -1,12 +1,13 @@
-"""Decoder of the port (``repro/models/transformer.py``): dense GQA
-decoders and attention-free Mamba2 stacks.
+"""Decoder of the port (``repro/models/transformer.py``): GQA decoders
+with a dense or MoE FFN, and attention-free Mamba2 stacks.
 
 Parameters are an ``nn.Module`` tree that mirrors the reference's pytree:
 ``embed``, ``final_norm``, optional ``head``, and ``blocks``, a
 ``ModuleList`` of ``block_repeat`` blocks, each a ``ModuleDict`` of
 layers keyed ``l0``, ``l1``, ... by block-pattern slot: a
 ``DecoderLayer`` (``norm1``, ``attn``, ``norm2``, ``ffn``) for an
-attention slot, an ``SSMLayer`` (``norm1``, ``mixer``) for an SSM slot.
+attention slot (``ffn`` a ``MoEParams`` in a MoE model), an
+``SSMLayer`` (``norm1``, ``mixer``) for an SSM slot.
 The reference stacks block parameters on a leading R axis for
 ``lax.scan``; here the scan is a loop over the R block modules.
 
@@ -21,9 +22,13 @@ conv windows ``conv_x`` (R, B, K-1, d_inner) and ``conv_bc`` (R, B, K-1,
 2 N) for SSM; plus ``len`` (B,) int32.  ``decode_step`` writes the new
 K/V rows and the new SSM state and windows into it in place.
 
-Ported: dense GQA decoders and all-SSM stacks without an FFN (mamba2).
-MLA, MoE, attention without an FFN, attention and SSM layers in one
-block, cross-attention, shared attention (zamba2), several SSM groups,
+Sliding-window layers keep ring caches of ``min(max_len,
+ring_size(window))`` slots (``init_cache``, ``gqa_decode_step``).
+
+Ported: GQA decoders with a dense or MoE FFN (mixtral), and all-SSM
+stacks without an FFN (mamba2).  MLA, attention without an FFN,
+attention and SSM layers in one block, SSM layers with MoE,
+cross-attention, shared attention (zamba2), several SSM groups,
 first-k-dense prefixes and embedding inputs raise
 ``NotImplementedError``.
 """
@@ -40,8 +45,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import torch_dtype
 from repro_torch.layers import (gqa_attention, gqa_decode_step,
                                 init_attention, init_mamba2, init_mlp,
-                                mamba2_decode_step, mamba2_forward,
-                                mlp_forward, rms_norm)
+                                init_moe, mamba2_decode_step,
+                                mamba2_forward, mlp_forward, moe_forward,
+                                rms_norm)
 from repro_torch.layers.mlp import normal_param
 from .config import LayerSpec, ModelConfig
 
@@ -59,7 +65,7 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("attention and SSM layers in one block")
     if cfg.attn_kind != "gqa":
         missing.append(f"attn_kind={cfg.attn_kind!r}")
-    if cfg.ffn_kind != ("none" if ssm else "dense"):
+    if cfg.ffn_kind not in (("none",) if ssm else ("dense", "moe")):
         missing.append(f"ffn_kind={cfg.ffn_kind!r}")
     if ssm and cfg.n_ssm_groups != 1:
         missing.append(f"n_ssm_groups={cfg.n_ssm_groups}")
@@ -142,8 +148,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         attn = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
                               cfg.resolved_head_dim, cfg.qkv_bias, dtype=dt,
                               device=device)
-        ffn = init_mlp(gen, d, cfg.d_ff, cfg.ffn_gated, dtype=dt,
-                       device=device)
+        if cfg.ffn_kind == "moe":
+            ffn = init_moe(gen, d, cfg.d_ff_expert, cfg.n_routed, cfg.top_k,
+                           cfg.n_shared, cfg.ffn_gated, dtype=dt,
+                           device=device)
+        else:
+            ffn = init_mlp(gen, d, cfg.d_ff, cfg.ffn_gated, dtype=dt,
+                           device=device)
         return DecoderLayer(_ones(d, dt, device), attn,
                             _ones(d, dt, device), ffn)
 
@@ -192,6 +203,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     }
 
 
+def _ffn_apply(cfg: ModelConfig, p: nn.ParameterDict,
+               x: torch.Tensor) -> torch.Tensor:
+    if cfg.ffn_kind == "moe":
+        return moe_forward(p, x, cfg.top_k)
+    return mlp_forward(p, x)
+
+
 def _layer_apply(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
                  x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     if spec.kind == "ssm":
@@ -205,7 +223,7 @@ def _layer_apply(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
                           head_dim=cfg.resolved_head_dim,
                           window=spec.window, rope=cfg.rope,
                           rope_theta=cfg.rope_theta)
-    return x + mlp_forward(p.ffn, rms_norm(x, p.norm2))
+    return x + _ffn_apply(cfg, p.ffn, rms_norm(x, p.norm2))
 
 
 def _block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
@@ -267,7 +285,7 @@ def _layer_decode(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
         head_dim=cfg.resolved_head_dim, window=spec.window,
         rope=cfg.rope, rope_theta=cfg.rope_theta)
     x = x + y
-    return x + mlp_forward(p.ffn, rms_norm(x, p.norm2))
+    return x + _ffn_apply(cfg, p.ffn, rms_norm(x, p.norm2))
 
 
 def _no_embeds(embeds: Optional[torch.Tensor]) -> None:

@@ -15,6 +15,22 @@ policies unchanged:
   * arrivals are honoured in VIRTUAL time: the clock advances by measured
     step wall-times, each ending in a device synchronisation.
 
+SSM layers depart from the reference on purpose.  The reference's
+prefill replays one slot's prompt over the whole batch and restores only
+the other slots' lengths, so their SSM states and conv windows advance
+for good, and a reused slot starts from the state its last request left:
+a request's tokens depend on its neighbours.  Here an admitted slot's
+``ssm``, ``conv_x`` and ``conv_bc`` rows are zeroed before its prefill,
+and the other active slots' rows are put back after the replay.  The rows
+of a batch never mix inside ``decode_step``, so putting them back once
+after the replay gives what putting them back after every step would.
+Each request's tokens are then those of the request served alone.
+Attention caches behave as in the reference: the rows a replay writes
+for another slot sit at its current length and are overwritten by its
+next step before it attends to them.  The main loop needs no such care:
+its active slots all advance, and an inactive slot is zeroed when it is
+next admitted.
+
 Unlike the reference, a request's first token is stamped once the
 prefills of the iteration that admitted it have run, not at the start of
 that iteration: its TTFT counts its own prompt's replay steps and those
@@ -41,6 +57,9 @@ import torch
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+
+# the cache entries of an SSM layer that carry a request's recurrent state
+SSM_STATE = ("ssm", "conv_x", "conv_bc")
 
 
 @dataclasses.dataclass
@@ -100,8 +119,7 @@ class EngineReport:
 
 class ServingEngine:
     """Serve requests with ``params`` (a ``models.transformer``
-    parameter tree already on ``device``).  Configs with SSM layers raise
-    ``NotImplementedError`` (see the message).
+    parameter tree already on ``device``).
 
     ``device`` defaults to CUDA and raises without a card; pass
     ``device="cpu"`` for the plain path.  ``dtype`` (default
@@ -113,16 +131,6 @@ class ServingEngine:
                  max_batch: int = 4, max_len: int = 512,
                  kv_token_budget: Optional[int] = None, device=None,
                  dtype=None):
-        if any(spec.kind == "ssm" for spec in cfg.block_pattern):
-            raise NotImplementedError(
-                f"{cfg.name}: the engine does not serve SSM layers yet.  "
-                f"The reference engine (repro/serving/engine.py, "
-                f"_prefill_slot and the main loop) replays one slot's "
-                f"prompt through decode_step over the whole batch and "
-                f"restores only the other slots' lengths, so every other "
-                f"slot's SSM state and conv windows advance for good, and "
-                f"it never resets a reused slot's state: a request's "
-                f"tokens would depend on the requests beside it")
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
@@ -145,6 +153,12 @@ class ServingEngine:
     def _new_cache(self) -> dict:
         return T.init_cache(self.cfg, self.max_batch, self.max_len,
                             device=self.device, cache_dtype=self.dtype)
+
+    def _state(self) -> List[torch.Tensor]:
+        """The recurrent state of the cache, (R, B, ...) each: every SSM
+        layer's ``ssm``, ``conv_x`` and ``conv_bc``."""
+        return [lc[name] for lc in self.cache["blocks"].values()
+                for name in SSM_STATE if name in lc]
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -196,18 +210,26 @@ class ServingEngine:
                                   gen_len=req["gen_len"], order=self._order,
                                   arrival=req["arrival"])
             self._order += 1
+            for t in self._state():
+                t[:, i].zero_()
             self._prefill_slot(i)
 
     def _prefill_slot(self, i: int) -> None:
         """Replay the prompt through the decode step (the whole batch's
-        other slots ride along; only slot i's length advances)."""
+        other slots ride along; only slot i's length advances, and the
+        other active slots' recurrent state is put back afterwards)."""
         s = self.slots[i]
         self.lens[i] = 0
+        others = [j for j, o in enumerate(self.slots) if o.active and j != i]
+        state = self._state() if others else []
+        kept = [t[:, others] for t in state]
         for t in range(len(s.prompt)):
             toks = np.zeros((self.max_batch, 1), np.int32)
             toks[i, 0] = s.prompt[t]
             nxt = self._decode(toks)
             self.lens[i] += 1
+        for t, rows in zip(state, kept):
+            t[:, others] = rows
         s.generated = 1
         s.tokens.append(int(nxt[i]))
 

@@ -40,6 +40,20 @@ def test_model_ir_equals_the_jax_packages_to_ir(name, size):
 
 @pytest.mark.parametrize("change", [
     dict(ffn_kind="moe", n_routed=8, top_k=2, d_ff_expert=64),
+    dict(ffn_kind="moe", n_routed=4, top_k=1, d_ff_expert=32, n_shared=1,
+         ffn_gated=False)])
+def test_model_ir_takes_a_moe_ffn(change):
+    """A dense config given a MoE FFN: the IR has a MoE cell where the
+    MLP cell was, as the JAX package's ``to_ir`` gives it."""
+    port = dataclasses.replace(C.get_reduced("qwen2-0.5b"), **change)
+    ref = dataclasses.replace(RC.get_reduced("qwen2-0.5b"), **change)
+    ir = model_ir(port)
+    assert ir == ref.to_ir()
+    assert [type(c).__name__ for c in ir.block.cells] == ["AttentionCell",
+                                                          "MoECell"]
+
+
+@pytest.mark.parametrize("change", [
     dict(attn_kind="mla"), dict(shared_attn=True), dict(cross_attn=True)])
 def test_model_ir_raises_for_families_without_a_port_config(change):
     cfg = dataclasses.replace(C.get_reduced("qwen2-0.5b"), **change)
@@ -120,9 +134,34 @@ def test_serve_runs_the_search_then_the_engine_on_the_cpu():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "mixtral-8x7b"])
-def test_serve_raises_for_an_arch_the_port_cannot_serve(arch):
-    with pytest.raises(NotImplementedError, match="qwen2-0.5b"):
-        serve.serve(arch=arch, size="reduced", device="cpu",
+def test_serve_runs_the_ssm_and_moe_archs_on_the_cpu(arch):
+    """The engine serves every port config, SSM and MoE included: the
+    search on the FULL arch, then the engine at REDUCED size."""
+    lines = []
+    _, _, report = serve.serve(arch=arch, size="reduced", requests=3,
+                               device="cpu", log=lines.append)
+    assert lines[2].startswith(f"engine [{C.get_reduced(arch).name}")
+    assert sorted(r.rid for r in report.results) == [0, 1, 2]
+
+
+def test_serve_passes_depth_to_the_engine(monkeypatch):
+    """``depth`` reaches the port's entry point, which cuts the model to
+    that many blocks (mixtral FULL fits one card at 16 of 32)."""
+    seen = {}
+
+    def engine(*args, **kwargs):
+        seen.update(kwargs)
+        return None, []
+
+    monkeypatch.setattr(serve.port_serve, "serve", engine)
+    serve.serve(arch="mixtral-8x7b", size="reduced", requests=2,
+                device="cpu", log=lambda s: None, depth=1)
+    assert seen["depth"] == 1
+
+
+def test_serve_raises_for_an_arch_without_a_port_config():
+    with pytest.raises(KeyError, match="not yet ported"):
+        serve.serve(arch="gemma3-12b", size="reduced", device="cpu",
                     log=lambda s: None)
 
 

@@ -215,16 +215,18 @@ def test_requests_equal_reference(trace, rate, n, max_len, seed):
 
 
 @pytest.mark.parametrize("budget", [None, 40])
-def test_engine_matches_jax_engine_fp32(budget):
+@pytest.mark.parametrize("arch,ctx", [("qwen2-0.5b", 14),
+                                      ("mixtral-8x7b", 30)])
+def test_engine_matches_jax_engine_fp32(arch, ctx, budget):
     """Same requests, same (converted) fp32 weights: same tokens per rid,
-    iterations and preemptions as the reference engine."""
-    jcfg = dataclasses.replace(JC.get_reduced("qwen2-0.5b"),
-                               dtype="float32")
-    tcfg = dataclasses.replace(TC.get_reduced("qwen2-0.5b"),
-                               dtype="float32")
+    iterations and preemptions as the reference engine.  mixtral's
+    prompts of up to 30 tokens and 7 more generated run past its ring
+    of 32 slots."""
+    jcfg = dataclasses.replace(JC.get_reduced(arch), dtype="float32")
+    tcfg = dataclasses.replace(TC.get_reduced(arch), dtype="float32")
     jparams = JT.init_params(jax.random.PRNGKey(1), jcfg)
     tparams = params_from_jax(jax.device_get(jparams), tcfg, device="cpu")
-    reqs = _reqs(tcfg, 5, gen=7, ctx=14)
+    reqs = _reqs(tcfg, 5, gen=7, ctx=ctx)
     kw = dict(max_batch=3, max_len=48, kv_token_budget=budget)
     jrep = JEngine(jcfg, jparams, **kw).run(reqs, time_scale=0.0)
     trep = ServingEngine(tcfg, tparams, device="cpu", **kw).run(
@@ -235,3 +237,14 @@ def test_engine_matches_jax_engine_fp32(budget):
     assert trep.preemptions == jrep.preemptions
     if budget is not None:
         assert trep.preemptions > 0
+
+
+def test_serve_entry_point_cuts_depth():
+    """``depth`` keeps that many blocks at full width (mixtral FULL on
+    one card runs at depth 16 of 32)."""
+    lines = []
+    report, _ = serve(arch="mixtral-8x7b", size="reduced", requests=2,
+                      max_batch=2, max_len=64, prompt_cap=40, gen_cap=3,
+                      seed=0, device="cpu", log=lines.append, depth=1)
+    assert sorted(r.rid for r in report.results) == [0, 1]
+    assert "mixtral-reduced" in lines[0]

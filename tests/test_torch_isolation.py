@@ -30,7 +30,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
     mods = _port_modules()
     for name in ("repro_torch.serving.engine", "repro_torch.layers.ssm",
                  "repro_torch.kernels.ssd_scan",
-                 "repro_torch.configs.mamba2_2_7b"):
+                 "repro_torch.configs.mamba2_2_7b",
+                 "repro_torch.layers.moe",
+                 "repro_torch.configs.mixtral_8x7b"):
         assert name in mods
     code = (
         "import importlib, sys\n"

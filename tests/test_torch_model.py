@@ -1,6 +1,8 @@
-"""The port's dense decoder against the JAX reference on the REDUCED
-qwen2-0.5b, internlm2-1.8b and qwen1.5-32b configs, on the CPU, with the
-reference's weights carried across by ``convert.params_from_jax``.
+"""The port's GQA decoders against the JAX reference on the REDUCED
+qwen2-0.5b, internlm2-1.8b, qwen1.5-32b and mixtral-8x7b configs (the
+last with a MoE FFN and sliding-window ring caches: window 16, a ring of
+32 slots), on the CPU, with the reference's weights carried across by
+``convert.params_from_jax``.
 
 Tolerances on logits after several decode steps (2 layers each):
   * fp32: 1e-4 (summation order differs between XLA and torch matmuls,
@@ -39,7 +41,7 @@ from repro_torch.convert import (cache_from_jax, params_from_jax,  # noqa
                                  params_to_numpy)
 from repro_torch.models import transformer as TT  # noqa: E402
 
-ARCHS = ["qwen2-0.5b", "internlm2-1.8b", "qwen1.5-32b"]
+ARCHS = ["qwen2-0.5b", "internlm2-1.8b", "qwen1.5-32b", "mixtral-8x7b"]
 DTYPES = ["float32", "bfloat16"]
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 1e-1}
 CACHE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
@@ -149,10 +151,53 @@ def test_prefill_matches_reference(dtype):
                                    rtol=0, atol=CACHE_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_prefill_past_the_ring_matches_reference(dtype):
+    """mixtral REDUCED: 40 prompt tokens into a ring of 32 slots (window
+    16, ``max_len`` 64), so the ring wraps during the replay."""
+    jcfg, tcfg, jparams, tparams = _models("mixtral-8x7b", dtype)
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, 40)).astype(np.int32)
+    lens = np.array([40, 35], np.int32)
+    jl, jc = JT.prefill(jparams, jcfg, jnp.asarray(toks), 64,
+                        lengths=jnp.asarray(lens))
+    tl, tc = TT.prefill(tparams, tcfg, torch.from_numpy(toks), 64,
+                        lengths=torch.from_numpy(lens))
+    assert tc["blocks"]["l0"]["k"].shape[2] == 32
+    np.testing.assert_allclose(_np(tl), _np(jl), rtol=0,
+                               atol=LOGIT_TOL[dtype])
+    ported = cache_from_jax(jax.device_get(jc))
+    for name in ("k", "v"):
+        np.testing.assert_allclose(_np(tc["blocks"]["l0"][name]),
+                                   _np(ported["blocks"]["l0"][name]),
+                                   rtol=0, atol=CACHE_TOL[dtype])
+
+
+def test_moe_gqa_decoders_are_supported():
+    """A MoE FFN under GQA attention is ported (mixtral, and a dense
+    config given a MoE FFN); MoE beside MLA, first-k-dense prefixes or
+    shared attention still raises."""
+    for cfg in (TC.get_reduced("mixtral-8x7b"),
+                dataclasses.replace(TC.get_reduced("qwen2-0.5b"),
+                                    ffn_kind="moe", n_routed=4, top_k=2,
+                                    d_ff_expert=32)):
+        params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+        cache = TT.init_cache(cfg, 1, 8, device="cpu")
+        logits, _ = TT.decode_step(params, cfg,
+                                   torch.zeros(1, 1, dtype=torch.int32),
+                                   cache)
+        assert tuple(logits.shape) == (1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+        for change in (dict(attn_kind="mla"), dict(first_k_dense=1),
+                       dict(shared_attn=True)):
+            with pytest.raises(NotImplementedError):
+                TT.init_cache(dataclasses.replace(cfg, **change), 1, 8)
+
+
 def test_unported_families_raise():
     cfg = TC.get_reduced("qwen2-0.5b")
-    for change in (dict(attn_kind="mla"), dict(ffn_kind="moe"),
-                   dict(ffn_kind="none"),
+    for change in (dict(attn_kind="mla"), dict(ffn_kind="none"),
                    dict(shared_attn=True), dict(first_k_dense=1),
                    dict(embeds_input=True), dict(rope="mrope")):
         with pytest.raises(NotImplementedError):
@@ -217,7 +262,7 @@ def test_params_to_numpy_round_trips_bit_for_bit(arch, dtype):
         for p in path:
             got = got[p.key]
         want = np.asarray(want)
-        if dtype == "bfloat16":
+        if want.dtype == ml_dtypes.bfloat16:   # not mixtral's fp32 router
             assert got.dtype == np.uint16
             got = got.view(ml_dtypes.bfloat16)
         assert got.dtype == want.dtype and got.shape == want.shape

@@ -3,8 +3,8 @@ SSD-scan kernel's plain version against the TPU kernel (Pallas in
 interpret mode) and its ref.py oracle, the scan's gradients against
 ``jax.grad`` of the reference's chunked scan, the Mamba2 mixer, the
 mamba2 REDUCED model (``forward``, ``decode_step``, ``prefill``), a whole
-train step, the launch counts chip_smoke.py asserts, checkpoints across
-the two packages, and the engine's refusal of SSM configs.
+train step, the launch counts chip_smoke.py asserts, and checkpoints
+across the two packages.  Serving is in tests/test_torch_ssm_serving.py.
 
 The CUDA kernel itself runs only on the card (chip_smoke.py holds it
 against ``ssd_scan_plain`` and the sequential recurrence there).  Here
@@ -70,7 +70,6 @@ from repro_torch.launch.train import train, train_state  # noqa: E402
 from repro_torch.layers import ssm as TSSM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.config import LayerSpec  # noqa: E402
-from repro_torch.serving.engine import ServingEngine  # noqa: E402
 from repro_torch.training import checkpoint as TCK  # noqa: E402
 from repro_torch.training import optimizer as TO  # noqa: E402
 
@@ -461,12 +460,6 @@ def test_mamba2_is_supported_and_its_neighbours_are_not():
             TT.check_supported(dataclasses.replace(cfg, **change))
 
 
-def test_engine_refuses_ssm_configs():
-    cfg = TC.get_reduced(ARCH)
-    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="SSM"):
-        ServingEngine(cfg, params, device="cpu")
 
 
 # -- training -------------------------------------------------------------------

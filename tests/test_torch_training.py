@@ -173,6 +173,8 @@ TRAIN_TOL = {
     ("internlm2-1.8b", "float32", 1, True),
     ("internlm2-1.8b", "float32", 2, False),
     ("qwen2-0.5b", "bfloat16", 2, True),
+    ("mixtral-8x7b", "float32", 1, False),
+    ("mixtral-8x7b", "float32", 2, True),
 ])
 def test_train_step_matches_reference(arch, dtype, microbatches, remat):
     tol = TRAIN_TOL[dtype]
