@@ -3,26 +3,29 @@
 
     python3 chip_smoke.py            # the smoke
     python3 chip_smoke.py --limits   # readings behind LOGIT_TOL for mixtral
+    python3 chip_smoke.py --limits gemma3-12b   # and for gemma3-12b
 
 Phases, one line each (the kernels phases print one line per case):
 
   1. probe   -- nvidia-smi name and power limit, torch, CUDA and nvcc
                versions.
   2. build   -- seconds to build the kernels' shared library from
-               ``src/repro_torch/kernels/csrc`` (plus ptxas register use),
-               and the library's SASS (``cuobjdump -sass``): every
-               instance of the bf16 flash kernel and of the bf16 SSD-scan
-               kernel must issue HGMMA (Hopper's wgmma), or the run fails.
+               ``src/repro_torch/kernels/csrc`` (plus ptxas register use
+               and spills), and the library's SASS (``cuobjdump -sass``):
+               the 5 instances of the bf16 flash kernel (D 16 to 256) and
+               the 8 of the bf16 SSD-scan kernel must each issue HGMMA
+               (Hopper's wgmma), or the run fails.
   3. kernels -- the RMSNorm and decode-attention kernels against their
                plain PyTorch versions on the card, fp32 and bf16, at the
                main paths' shapes (RMSNorm beside ``F.rms_norm``, with the
                kernel its wrapper picks) and an untimed RMSNorm sweep of
                widths and alignments over both of its kernels; for decode
                attention a long cache (qwen2-0.5b heads at Smax 32768,
-               lengths 1 / 4096 / 16384 / 32768, read cold), an untimed
-               sweep of groups, head dims and lengths on, one past and
-               between span boundaries, and the head dims the wrapper
-               zero-pads (8, 16, 24, 32, 112): max error against
+               and gemma3-12b heads (D 256) at Smax 32768, lengths 1 /
+               4096 / 16384 / 32768, read cold), an untimed sweep of
+               groups 1-8, head dims 64 / 128 / 256 and lengths on, one
+               past and between span boundaries, and the head dims the
+               wrapper zero-pads (8, 16, 24, 32, 112, 200): max error against
                tolerance, kernel / plain / library ms, and the launch
                grid the wrapper reports.
   4. model   -- qwen2-0.5b at FULL width and depth: ``decode_step``
@@ -56,9 +59,11 @@ Phases, one line each (the kernels phases print one line per case):
   6. flash   -- the flash-attention kernel's ``out`` and ``lse`` against
                ``flash_attention_plain`` on the card, fp32 and bf16: the
                training shape of qwen2-0.5b, internlm2-1.8b's heads, a
-               ragged length, a sliding window, a prefix offset, an
-               untimed sweep of head dims and groups and one of the head
-               dims the wrapper zero-pads (8, 24, 112); per timed case the
+               ragged length, a sliding window, a prefix offset,
+               gemma3-12b's training shape at D 256 (window 1024 and
+               global), an untimed sweep of head dims (16 to 256) and
+               groups and one of the head dims the wrapper zero-pads (8,
+               24, 112, 200); per timed case the
                max errors against tolerance, kernel / plain / SDPA /
                bound ms, and the launch grid the wrapper reports.
   7. train   -- ``launch.train.train`` trains qwen2-0.5b FULL in bf16 for
@@ -111,6 +116,22 @@ Phases, one line each (the kernels phases print one line per case):
                state and conv windows equal a batch-1 ``prefill`` of the
                prompt within SSM_STATE_TOL, and the other active slots'
                are unchanged.
+ 12. gemma3  -- gemma3-12b (blocks of five sliding-window layers, window
+               1024, and one global layer; head dim 256) at full width on
+               seeded random weights: ``decode_step`` logits kernels vs
+               plain in fp32 at 2 blocks and bf16 at 4 (24 layers), held
+               to LOGIT_TOL and ARGMAX_FLOOR, and in bf16 at all 48
+               layers, held to ARGMAX_FLOOR (LOGIT_TOL does not hold
+               there: PERF.md); a profiled bf16 step beside
+               the 7.02 ms it takes to read the 23.5 GB of weights once;
+               a ring check at one block (rings of 1040 slots beside a
+               global cache of 4096, lengths 100 / 1039 / 1040 / 3000);
+               8 chat requests served at all 48 layers (rings of 1040,
+               global caches of 2048) with 97 RMSNorms and 48 decode
+               attentions a step; one block trained for 5 steps (8 x
+               2048 tokens, 2 microbatches, remat nested per layer) with
+               exactly the flash and RMSNorm launches that implies, and
+               one step kernels vs plain held to TRAIN_TOL.
 
 Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
 entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
@@ -118,7 +139,9 @@ entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 ``ssd_scan/mamba2_train``, ``decode_attention/profile``,
 ``flash_attention/profile``, ``ssd_scan/profile``,
 ``rmsnorm/mixtral-serve``, ``decode_attention/mixtral-serve``,
-``rmsnorm/ssm-serve``, each with that path's
+``rmsnorm/ssm-serve``, ``rmsnorm/gemma3-serve``,
+``decode_attention/gemma3-serve``, ``rmsnorm/gemma3-train``,
+``flash_attention/gemma3-train``, each with that path's
 launches and the kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -272,30 +295,69 @@ def build_phase() -> None:
     log = build.BUILD_DIR / "build.log"
     usage = []
     if log.exists():
-        name = None
+        name = spill = None
         for line in log.read_text().splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                name = m.group(1)
+                name, spill = m.group(1), None
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and name:
+                spill = (int(m.group(1)), int(m.group(2)))
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
-                short = re.sub(r"^_Z\d+", "", name)[:40]
-                usage.append(f"{short}:{m.group(1)}r")
+                usage.append((name, int(m.group(1)), spill or (0, 0)))
                 name = None
-    say("build", f"{secs:.1f} s for {build.BUILD_DIR / build.LIB_NAME} "
-        f"(ptxas registers: {' '.join(usage) or 'n/a'})")
+    say("build", f"{secs:.1f} s for {build.BUILD_DIR / build.LIB_NAME}; "
+        f"ptxas registers (and spill stores / loads, bytes): " + (" ".join(
+            f"{kernel_label(n)}:{r}r" + (f"({st}/{ld}B)" if st or ld else "")
+            for n, r, (st, ld) in usage) or "n/a"))
     sass_check(build)
 
 
-# kernels that must run on the tensor cores: every instance of each in the
-# library's SASS holds HGMMA
-WGMMA_KERNELS = ("flash_attention_wgmma_kernel", "ssd_scan_wgmma_kernel")
+def kernel_label(mangled: str) -> str:
+    """A readable name of a mangled kernel instance, such as
+    ``decode_attention_kernel<fp32, 256, 8>``: the length-prefixed name
+    that ends in ``kernel`` and its template arguments (types, integers);
+    the mangled name's first 40 characters where there is none."""
+    at = 0
+    while True:
+        m = re.compile(r"\d+").search(mangled, at)
+        if m is None:
+            return mangled[:40]
+        at = m.end() + int(m.group())
+        name, rest = mangled[m.end():at], mangled[at:]
+        if not (name.endswith("kernel") and rest.startswith("I")):
+            continue
+        rest, args = rest[1:], []
+        while rest and rest[0] != "E":
+            if rest.startswith("13__nv_bfloat16"):
+                args.append("bf16")
+                rest = rest[15:]
+            elif rest[0] == "f":
+                args.append("fp32")
+                rest = rest[1:]
+            elif rest[0] == "L" and "E" in rest:   # integer: L<type><n>E
+                end = rest.index("E")
+                args.append(rest[2:end].replace("n", "-"))
+                rest = rest[end + 1:]
+            else:
+                break
+        return f"{name}<{', '.join(args)}>"
+
+
+# kernels that must run on the tensor cores, with their instances in the
+# library (flash: D 16/32/64/128/256; SSD: P 32/64 x N 16/32/64/128):
+# every instance of each in the library's SASS holds HGMMA
+WGMMA_KERNELS = {"flash_attention_wgmma_kernel": 5,
+                 "ssd_scan_wgmma_kernel": 8}
 
 
 def sass_check(build) -> None:
     """The bf16 flash and SSD-scan kernels must run on the tensor cores:
-    every instance of each of ``WGMMA_KERNELS`` in the built library's
-    SASS must hold HGMMA instructions (wgmma as the card executes it)."""
+    each of ``WGMMA_KERNELS`` must have its count of instances in the
+    built library's SASS, and every one must hold HGMMA instructions
+    (wgmma as the card executes it)."""
     tool = Path(build.find_nvcc()).parent / "cuobjdump"
     if not tool.exists():
         fail(f"sass: {tool} not found")
@@ -315,8 +377,9 @@ def sass_check(build) -> None:
         elif family and "HGMMA" in line:
             hgmma[family][name] += 1
     for k, per in hgmma.items():
-        if not per or min(per.values()) == 0:
-            fail(f"sass: {k} instances without HGMMA: {per}")
+        if len(per) != WGMMA_KERNELS[k] or min(per.values()) == 0:
+            fail(f"sass: {k}: {len(per)} instances (expected "
+                 f"{WGMMA_KERNELS[k]}), HGMMA per instance {per}")
     say("build", "sass: " + "; ".join(
         f"{len(per)} instances of {k}, HGMMA instructions per instance "
         f"{sorted(per.values())}" for k, per in hgmma.items()))
@@ -497,19 +560,30 @@ def attention_case(torch, F, shape, lengths, dtype_name, gen,
 
 
 # qwen2-0.5b's heads at its published context of 32768 (27 MB of bf16
-# K/V at these lengths): (B, Hq, Hkv, D, Smax)
+# K/V at these lengths): (B, Hq, Hkv, D, Smax); and gemma3-12b's (head
+# dim 256, 863 MB)
 DECODE_LONG = (4, 14, 2, 64, 32768)
+GEMMA_DECODE_LONG = (4, 16, 8, 256, 32768)
 # mixtral-8x7b's heads in the mixtral phase's serve run: 4 slots of 512
 MIXTRAL_DECODE = (4, 32, 8, 128, 512)
+# gemma3-12b's serve run: 4 slots, max_len 2048, so the 40 local layers
+# keep rings of ring_size(1024) = 1040 slots and the 8 global layers 2048
+GEMMA_SERVE_MAX_LEN = 2048
+GEMMA_DECODE = ((4, 16, 8, 256, 1040), (4, 16, 8, 256, GEMMA_SERVE_MAX_LEN))
+# its RMSNorms: (4, 1, 3840) 97 times a decode step; the training
+# microbatch (4 x 2048 tokens)
+GEMMA_NORM_SERVE = (4, 1, 3840)
+GEMMA_NORM_TRAIN = (4, 2048, 3840)
 DECODE_LONG_LENGTHS = [1, 4096, 16384, 32768]
 DECODE_EDGE_SMAX = 1000
 # head dims the attention wrappers zero-pad (REDUCED 8, 16 and 24;
-# zamba2's 112)
-PADDED_DECODE_DIMS = (8, 16, 24, 32, 112)
-PADDED_FLASH_DIMS = (8, 24, 112)
+# zamba2's 112; 200, padded to 256)
+PADDED_DECODE_DIMS = (8, 16, 24, 32, 112, 200)
+PADDED_FLASH_DIMS = (8, 24, 112, 200)
 
 
 def kernels_phase(torch, F) -> dict:
+    from repro_torch.kernels import decode_attention as da
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dtype_name in ("float32", "bfloat16"):
@@ -519,7 +593,9 @@ def kernels_phase(torch, F) -> dict:
                       (4, 1024, 896),   # qwen2-0.5b training microbatch
                       (4, 1, 2560),     # mamba2-2.7b serving: norm1, final
                       (4, 1024, 2560),  # mamba2-2.7b: norm1, final norm
-                      (4, 1024, 5120)):  # mamba2-2.7b: the gated norm
+                      (4, 1024, 5120),  # mamba2-2.7b: the gated norm
+                      GEMMA_NORM_SERVE,  # gemma3-12b serving
+                      GEMMA_NORM_TRAIN):  # gemma3-12b training microbatch
             r = rmsnorm_case(torch, F, shape, dtype_name, gen)
             results[("rmsnorm", shape, dtype_name)] = r
     # both kernels: REDUCED widths (qwen2 56, mamba2 64 and 128), widths
@@ -543,33 +619,33 @@ def kernels_phase(torch, F) -> dict:
     for dtype_name in ("float32", "bfloat16"):
         for shape in ((4, 14, 2, 64, 512),      # qwen2-0.5b, group 7
                       (4, 16, 8, 128, 512),     # internlm2-1.8b, group 2
-                      MIXTRAL_DECODE):          # mixtral-8x7b, group 4
+                      MIXTRAL_DECODE,           # mixtral-8x7b, group 4
+                      *GEMMA_DECODE):           # gemma3-12b, group 2
             r = attention_case(torch, F, shape, lengths, dtype_name, gen)
             results[("decode_attention", shape, dtype_name)] = r
-    # every group the kernel takes, both head dims, ragged Smax
+    # every group the kernel takes, every head dim, ragged Smax
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     for dtype_name in ("float32", "bfloat16"):
-        for D in (64, 128):
+        for D in da.HEAD_DIMS:
             for group in range(1, 9):
                 r = attention_case(torch, F, (3, 2 * group, 2, D, 70),
                                    [1, 33, 70], dtype_name, gen,
                                    timed=False)
                 worst[dtype_name] = max(worst[dtype_name], r["max_abs_err"])
                 n += 1
-    say("kernels", f"decode_attention sweep: {n} cases (group 1-8, D 64 "
-        f"and 128, Smax 70, lengths 1/33/70, fp32 and bf16) all within "
-        f"tolerance, worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
-        f"{worst['bfloat16']:.3e}")
+    say("kernels", f"decode_attention sweep: {n} cases (group 1-8, D "
+        f"{'/'.join(map(str, da.HEAD_DIMS))}, Smax 70, lengths 1/33/70, "
+        f"fp32 and bf16) all within tolerance, worst max_abs_err fp32 "
+        f"{worst['float32']:.3e} bf16 {worst['bfloat16']:.3e}")
     # the split grid's edges: lengths on a span boundary, one past it, and
     # an Smax that is not a multiple of the span
-    from repro_torch.kernels import decode_attention as da
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     n = 0
     grids = set()
     for dtype_name in ("float32", "bfloat16"):
-        for D in (64, 128):
-            for group in (1, 7, 8):
+        for D in da.HEAD_DIMS:
+            for group in (1, 2, 7, 8):
                 shape = (4, 2 * group, 2, D, DECODE_EDGE_SMAX)
                 span, splits = da.split_plan(DECODE_EDGE_SMAX, 8, sms)
                 if DECODE_EDGE_SMAX % span == 0 or splits < 4:
@@ -583,7 +659,8 @@ def kernels_phase(torch, F) -> dict:
                 grids.add(r["grid"])
                 n += 1
     say("kernels", f"decode_attention split edges: {n} cases (group "
-        f"1/7/8, D 64 and 128, Smax {DECODE_EDGE_SMAX}, lengths span, "
+        f"1/2/7/8, D {'/'.join(map(str, da.HEAD_DIMS))}, Smax "
+        f"{DECODE_EDGE_SMAX}, lengths span, "
         f"span + 1, 3 span, Smax; fp32 and bf16) all within tolerance, "
         f"worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
         f"{worst['bfloat16']:.3e} | {'; '.join(sorted(grids))}")
@@ -599,14 +676,15 @@ def kernels_phase(torch, F) -> dict:
                 worst[dtype_name] = max(worst[dtype_name], r["max_abs_err"])
                 n += 1
     say("kernels", f"decode_attention padded head dims: {n} cases (D "
-        f"{'/'.join(map(str, PADDED_DECODE_DIMS))} zero-padded to 64 or "
-        f"128, group 1/7, Smax 300, fp32 and bf16) all within tolerance, "
-        f"worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
+        f"{'/'.join(map(str, PADDED_DECODE_DIMS))} zero-padded to 64, 128 "
+        f"or 256, group 1/7, Smax 300, fp32 and bf16) all within "
+        f"tolerance, worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
         f"{worst['bfloat16']:.3e}")
     for dtype_name in ("float32", "bfloat16"):
-        r = attention_case(torch, F, DECODE_LONG, DECODE_LONG_LENGTHS,
-                           dtype_name, gen, copies=3)
-        results[("decode_attention", DECODE_LONG, dtype_name)] = r
+        for shape in (DECODE_LONG, GEMMA_DECODE_LONG):
+            r = attention_case(torch, F, shape, DECODE_LONG_LENGTHS,
+                               dtype_name, gen, copies=3)
+            results[("decode_attention", shape, dtype_name)] = r
     return results
 
 
@@ -688,6 +766,15 @@ def replayed_routes(log: list, agree: list):
         yield agree
 
 
+def decode_launches_per_step(cfg):
+    """(rmsnorm, decode_attention, flash_attention, ssd_scan) launches of
+    one ``decode_step``: two RMSNorms a layer (norm1 and norm2 of a
+    decoder layer, norm1 and the gated norm of a Mamba2 mixer) and the
+    final norm; one decode attention an attention layer."""
+    attn = sum(s.kind == "attn" for s in cfg.block_pattern)
+    return (2 * cfg.n_layers + 1, attn * cfg.block_repeat, 0, 0)
+
+
 def model_check(torch, dtype_name: str, seed: int = 0,
                 profile: bool = False, reduced: bool = False,
                 arch: str = "qwen2-0.5b", depth=None, max_len: int = 512,
@@ -708,8 +795,7 @@ def model_check(torch, dtype_name: str, seed: int = 0,
     cfg = (C.get_reduced if reduced else C.get_config)(arch)
     cfg = dataclasses.replace(cfg, dtype=dtype_name,
                               block_repeat=depth or cfg.block_repeat)
-    R = cfg.block_repeat
-    per_step = (2 * R + 1, R, 0, 0)
+    per_step = decode_launches_per_step(cfg)
     B = len(start_lens)
     start_lens = list(start_lens)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -781,23 +867,30 @@ def model_readings(r: dict, dtype_name: str) -> str:
 
 
 def model_phase(torch, reduced: bool = False, phase: str = "model",
-                arch: str = "qwen2-0.5b", depths=None, **shape) -> None:
-    """``model_check`` in fp32 and bf16 (at ``depths[dtype]`` blocks where
-    given), held to LOGIT_TOL and ARGMAX_FLOOR; the bf16 FULL run also
-    profiles its decode steps unless ``shape`` (``model_check``'s
-    ``max_len``, ``start_lens``, ``steps``) is given."""
-    for dtype_name in ("float32", "bfloat16"):
+                arch: str = "qwen2-0.5b", depths=None,
+                dtypes=("float32", "bfloat16"), hold_logits: bool = True,
+                profile=None, **shape) -> None:
+    """``model_check`` in each of ``dtypes`` (at ``depths[dtype]`` blocks
+    where given), held to LOGIT_TOL and ARGMAX_FLOOR, or to ARGMAX_FLOOR
+    alone with ``hold_logits=False`` (the logits difference is then
+    printed, not held); the bf16 FULL run also profiles its decode steps
+    unless ``shape`` (``model_check``'s ``max_len``, ``start_lens``,
+    ``steps``) is given, or as ``profile`` says."""
+    for dtype_name in dtypes:
         r = model_check(torch, dtype_name, reduced=reduced, arch=arch,
                         depth=(depths or {}).get(dtype_name),
-                        profile=dtype_name == "bfloat16" and not reduced
-                        and not shape, **shape)
+                        profile=(dtype_name == "bfloat16" and not reduced
+                                 and not shape) if profile is None
+                        else profile, **shape)
         readings = model_readings(r, dtype_name)
-        if r["worst"] > LOGIT_TOL[dtype_name] or \
+        if (hold_logits and r["worst"] > LOGIT_TOL[dtype_name]) or \
                 r["agree"] < ARGMAX_FLOOR[dtype_name] * r["rows"]:
             fail(f"{phase} {dtype_name}: {readings}")
+        if not hold_logits:
+            readings += " (the logits difference not held at this depth)"
         cfg = r["cfg"]
         say(phase, f"{arch} {'REDUCED' if reduced else 'FULL width'} "
-            f"({cfg.block_repeat} layers, d {cfg.d_model}, head dim "
+            f"({cfg.n_layers} layers, d {cfg.d_model}, head dim "
             f"{cfg.head_dim}, vocab {cfg.vocab_size}) {dtype_name} batch "
             f"{r['batch']} max_len {r['max_len']} ({r['smax']} slots) lens "
             f"{r['start_lens']}+{r['steps']} steps: "
@@ -836,24 +929,56 @@ def broken_decode(torch, kind: str):
     return mock.patch.object(da, "decode_attention", faulty)
 
 
+@contextlib.contextmanager
+def one_kernel(keep: str):
+    """Run only the ``keep`` kernel ("rmsnorm" or "decode_attention"); the
+    other wrapper runs its plain version, still counting its launches so
+    that ``model_check``'s launch check holds.  Shows which kernel's
+    rounding flips a bf16 logits reading comes from."""
+    rmsnorm, da, _, _ = kernel_modules()
+    mod, plain = ((da, da.decode_attention_plain) if keep == "rmsnorm"
+                  else (rmsnorm, rmsnorm.rms_norm_plain))
+    name = "decode_attention" if keep == "rmsnorm" else "rms_norm"
+
+    def counted(*args, **kwargs):
+        mod.launches += 1
+        return plain(*args, **kwargs)
+
+    with mock.patch.object(mod, name, counted):
+        yield
+
+
 def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
                  seeds=range(6)) -> None:
     """The readings that show the model phase's limits fit ``arch``:
     ``model_check`` over ``seeds`` with the sound kernels, and at seed 0
-    under each broken kernel of CONTROLS, fp32 and bf16.  Prints them
-    and checks nothing (``python3 chip_smoke.py --limits``)."""
-    depths = MIXTRAL_DEPTHS if depths is None else depths
-    runs = [(seed, None) for seed in seeds] + [(0, k) for k in CONTROLS]
-    for dtype_name in ("float32", "bfloat16"):
-        for seed, kind in runs:
-            with (broken_decode(torch, kind) if kind
-                  else contextlib.nullcontext()):
-                r = model_check(torch, dtype_name, seed=seed, arch=arch,
-                                depth=depths.get(dtype_name))
-            say("limits", f"{arch} {dtype_name} depth "
-                f"{r['cfg'].block_repeat} "
-                f"{f'control {kind}' if kind else f'seed {seed}'}: "
-                + model_readings(r, dtype_name))
+    under each broken kernel of CONTROLS and with one of the two kernels
+    at a time (``one_kernel``), for each dtype of ``depths`` (in blocks;
+    by default the arch's smoke depths and, for gemma3-12b, bf16 also at
+    all 48 layers).  Prints them and checks nothing (``python3
+    chip_smoke.py --limits [arch]``)."""
+    if depths is None:
+        ats = {"mixtral-8x7b": (MIXTRAL_DEPTHS,),
+               "gemma3-12b": (GEMMA_DEPTHS, {"bfloat16": None})}[arch]
+    else:
+        ats = (depths,)
+    runs = ([(seed, None) for seed in seeds] + [(0, k) for k in CONTROLS]
+            + [(0, k) for k in ("rmsnorm", "decode_attention")])
+    for at in ats:
+        for dtype_name, depth in at.items():
+            for seed, kind in runs:
+                if kind in CONTROLS:
+                    patch = broken_decode(torch, kind)
+                    what = f"control {kind}"
+                elif kind:
+                    patch, what = one_kernel(kind), f"only the {kind} kernel"
+                else:
+                    patch, what = contextlib.nullcontext(), f"seed {seed}"
+                with patch:
+                    r = model_check(torch, dtype_name, seed=seed, arch=arch,
+                                    depth=depth)
+                say("limits", f"{arch} {dtype_name} {r['cfg'].n_layers} "
+                    f"layers {what}: " + model_readings(r, dtype_name))
 
 
 def profile_steps(torch, T, params, cfg, cache, toks) -> None:
@@ -906,7 +1031,7 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
         say("profile", f"decode_step wall {wall * 1e3:.2f} ms; device time "
             f"not measured (the profiler saw no device kernels)")
         return
-    say("profile", f"{cfg.name} FULL width, {cfg.block_repeat} layers, bf16 "
+    say("profile", f"{cfg.name} FULL width, {cfg.n_layers} layers, bf16 "
         f"decode_step, batch 4: wall "
         f"{wall * 1e3:.2f} ms/step ({wall_prof * 1e3:.2f} ms under the "
         f"profiler), device kernels {busy:.3f} ms/step "
@@ -924,10 +1049,11 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
 # -- 5. serve -----------------------------------------------------------------
 
 def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
-                arch: str = "qwen2-0.5b", depth=None):
+                arch: str = "qwen2-0.5b", depth=None, max_len: int = 512):
     """8 chat-trace requests served through ``launch.serve.serve`` in
-    bf16 (at ``depth`` blocks if given); every request must finish with
-    its token count, and every step must launch its kernels."""
+    bf16 (at ``depth`` blocks if given) with caches of ``max_len``
+    slots; every request must finish with its token count, and every
+    step must launch exactly its kernels."""
     import dataclasses
 
     from repro_torch.launch.serve import serve
@@ -938,7 +1064,7 @@ def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
     torch.cuda.empty_cache()
     reset_counts()
     report, reqs = serve(arch=arch, size=size, requests=8,
-                         max_batch=4, max_len=512, prompt_cap=128,
+                         max_batch=4, max_len=max_len, prompt_cap=128,
                          gen_cap=64, seed=0, device=DEVICE,
                          log=lambda s: None, depth=depth)
     launched = counts()
@@ -953,15 +1079,16 @@ def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
         if not all(0 <= t < vocab for t in res.tokens):
             fail(f"{phase}: rid {res.rid} has a token outside the vocab")
     steps = report.iterations + sum(len(r["prompt"]) for r in reqs)
-    R = cfg.block_repeat
-    if report.preemptions == 0 and launched != ((2 * R + 1) * steps,
-                                                R * steps, 0, 0):
+    per_step = decode_launches_per_step(cfg)
+    want = tuple(n * steps for n in per_step)
+    if report.preemptions == 0 and launched != want:
         fail(f"{phase}: launches {launched} for {steps} decode steps, "
-             f"expected {((2 * R + 1) * steps, R * steps, 0, 0)}")
+             f"expected {want} ({per_step} a step)")
     if min(launched[:2]) <= 0:
         fail(f"{phase}: a kernel was never launched: {launched}")
-    say(phase, f"{arch} {size.upper()} ({cfg.block_repeat} layers, head "
-        f"dim {cfg.head_dim}) bf16 on {smi}: {len(report.results)} "
+    say(phase, f"{arch} {size.upper()} ({cfg.n_layers} layers, head "
+        f"dim {cfg.head_dim}, max_len {max_len}) bf16 on {smi}: "
+        f"{len(report.results)} "
         f"requests (prompts {[len(r['prompt']) for r in reqs]}, gen "
         f"{[r['gen_len'] for r in reqs]}) in {report.total_time:.3f} s, "
         f"{report.iterations} iterations + "
@@ -970,7 +1097,8 @@ def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
         f"{report.ttft_mean * 1e3:.1f} ms TPOT mean "
         f"{report.tpot_mean * 1e3:.2f} ms throughput "
         f"{report.throughput:.1f} tok/s | launches rmsnorm {launched[0]} "
-        f"decode_attention {launched[1]}")
+        f"decode_attention {launched[1]} ({per_step[0]} and {per_step[1]} "
+        f"a step)")
     return launched
 
 
@@ -1080,12 +1208,17 @@ def profile_phase(torch, F):
 
 # (B, Sq, Skv, Hq, Hkv, D, window, q_offset)
 FLASH_MAIN = (4, 1024, 1024, 14, 2, 64, None, 0)   # qwen2-0.5b training
+# gemma3-12b's training microbatch (4 x 2048): its local layers (window
+# 1024) and its global one
+GEMMA_FLASH = ((4, 2048, 2048, 16, 8, 256, 1024, 0),
+               (4, 2048, 2048, 16, 8, 256, None, 0))
 FLASH_CASES = (
     FLASH_MAIN,
     (2, 1024, 1024, 16, 8, 128, None, 0),          # internlm2-1.8b heads
     (1, 257, 257, 2, 1, 16, None, 0),              # ragged length
     (2, 300, 300, 8, 2, 32, 37, 0),                # sliding window 37
     (2, 100, 357, 14, 2, 64, None, 257),           # prefix: Sq < Skv
+    *GEMMA_FLASH,                                  # gemma3-12b training
 )
 
 
@@ -1160,8 +1293,8 @@ def flash_phase(torch, F) -> dict:
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     for dtype_name in ("float32", "bfloat16"):
-        for D in (16, 32, 64, 128):
-            for group in (1, 3, 8):
+        for D in (16, 32, 64, 128, 256):
+            for group in (1, 2, 3, 8):
                 for window, q_offset in ((None, 0), (19, 5)):
                     case = (2, 77, 77 + q_offset, 2 * group, 2, D, window,
                             q_offset)
@@ -1170,10 +1303,10 @@ def flash_phase(torch, F) -> dict:
                     worst[dtype_name] = max(worst[dtype_name],
                                             r["max_abs_err"])
                     n += 1
-    say("flash", f"sweep: {n} cases (D 16/32/64/128, group 1/3/8, Sq 77, "
-        f"causal and window 19 with q_offset 5, fp32 and bf16) all within "
-        f"tolerance, worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
-        f"{worst['bfloat16']:.3e}")
+    say("flash", f"sweep: {n} cases (D 16/32/64/128/256, group 1/2/3/8, "
+        f"Sq 77, causal and window 19 with q_offset 5, fp32 and bf16) all "
+        f"within tolerance, worst max_abs_err fp32 {worst['float32']:.3e} "
+        f"bf16 {worst['bfloat16']:.3e}")
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     for dtype_name in ("float32", "bfloat16"):
@@ -1188,9 +1321,9 @@ def flash_phase(torch, F) -> dict:
                                             r["max_abs_err"])
                     n += 1
     say("flash", f"padded head dims: {n} cases (D "
-        f"{'/'.join(map(str, PADDED_FLASH_DIMS))} zero-padded to 16, 32 "
-        f"and 128, group 1/7, Sq 77, causal and window 19 with q_offset 5, "
-        f"fp32 and bf16; out and lse) all within tolerance, worst "
+        f"{'/'.join(map(str, PADDED_FLASH_DIMS))} zero-padded to 16, 32, "
+        f"128 and 256, group 1/7, Sq 77, causal and window 19 with q_offset "
+        f"5, fp32 and bf16; out and lse) all within tolerance, worst "
         f"max_abs_err fp32 {worst['float32']:.3e} bf16 "
         f"{worst['bfloat16']:.3e}")
     return results
@@ -1202,20 +1335,31 @@ TRAIN = dict(arch="qwen2-0.5b", steps=5, batch=8, seq=1024, microbatches=2)
 KERNEL_NAMES = ("rmsnorm", "decode_attention", "flash_attention", "ssd_scan")
 
 
+def layer_runs(cfg):
+    """How often one train step with remat runs each layer slot of a
+    block, per block and microbatch: once forward, and in the backward
+    again for the block's checkpoint and, in a block of several layers,
+    for the layer's own (``models.transformer.forward``'s nested remat).
+    The block's recomputation stops once it has what the block's
+    backward needs, the last layer's input (torch.utils.checkpoint's
+    early stop), so the last slot runs twice and the others three times:
+    3n - 1 layer runs a block of n > 1 layers, 2 a block of one."""
+    n = len(cfg.block_pattern)
+    return [3 if i < n - 1 else 2 for i in range(n)]
+
+
 def train_launches_per_step(cfg, microbatches: int):
     """(rmsnorm, decode_attention, flash_attention, ssd_scan) launches of
-    one train step with remat.  Per microbatch the forward runs 2R + 1
-    RMSNorms (two per layer: norm1 and norm2 of a decoder layer, norm1
-    and the gated norm of a Mamba2 mixer; and the final norm) and R
-    flash attentions or R SSD scans; the backward re-runs each block's
-    forward (2R RMSNorms, R flash attentions or scans); the backward
-    passes are plain PyTorch and launch nothing."""
-    R = cfg.block_repeat
-    (spec,) = cfg.block_pattern
-    mixers = 2 * R * microbatches
-    return ((4 * R + 1) * microbatches, 0,
-            mixers if spec.kind == "attn" else 0,
-            mixers if spec.kind == "ssm" else 0)
+    one train step with remat: per microbatch, for every layer run
+    (``layer_runs``) two RMSNorms (norm1 and norm2 of a decoder layer,
+    norm1 and the gated norm of a Mamba2 mixer) and one flash attention
+    or SSD scan, and the final norm; the backward passes are plain
+    PyTorch and launch nothing."""
+    runs = {"attn": 0, "ssm": 0}           # per microbatch
+    for spec, n in zip(cfg.block_pattern, layer_runs(cfg)):
+        runs[spec.kind] += n * cfg.block_repeat
+    return ((2 * sum(runs.values()) + 1) * microbatches, 0,
+            runs["attn"] * microbatches, runs["ssm"] * microbatches)
 
 
 def launch_text(per_step) -> str:
@@ -1224,9 +1368,13 @@ def launch_text(per_step) -> str:
 
 
 def train_phase(torch, smi: str, spec: dict = TRAIN, phase: str = "train"):
+    import dataclasses
+
     from repro_torch import configs as C
     from repro_torch.launch.train import train
     cfg = C.get_config(spec["arch"])
+    cfg = dataclasses.replace(cfg, block_repeat=spec.get("depth")
+                              or cfg.block_repeat)
     per_step = train_launches_per_step(cfg, spec["microbatches"])
     history = []
     torch.cuda.empty_cache()
@@ -1247,7 +1395,7 @@ def train_phase(torch, smi: str, spec: dict = TRAIN, phase: str = "train"):
         fail(f"{phase}: {len(history)} steps ran")
     step_s = statistics.mean(h["seconds"] for h in history[1:])
     tokens = spec["batch"] * spec["seq"]
-    say(phase, f"{spec['arch']} FULL ({cfg.block_repeat} layers, d "
+    say(phase, f"{spec['arch']} FULL ({cfg.n_layers} layers, d "
         f"{cfg.d_model}, vocab {cfg.vocab_size}) bf16 on {smi}: "
         f"{spec['steps']} steps of {spec['batch']}x{spec['seq']} tokens, "
         f"{spec['microbatches']} microbatches, remat | loss "
@@ -1269,7 +1417,10 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
     kernels and through the plain versions; returns |loss difference|,
     relative grad-norm difference, and the L2 norm of the difference of
     the updated fp32 masters relative to the L2 norm of the plain run's
-    update (both over every leaf)."""
+    update (both over every leaf).  The starting weights and the kernel
+    run's masters wait in host memory, so the card holds one run's
+    weights and optimizer state at a time (gemma3-12b's block: 2.35 B
+    parameters)."""
     import dataclasses
 
     from repro_torch import configs as C
@@ -1282,7 +1433,8 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
                               block_repeat=depth or cfg.block_repeat)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = T.init_params(gen, cfg, device=DEVICE)
-    start = {n: p.detach().clone() for n, p in params.named_parameters()}
+    start = {n: p.detach().to("cpu", copy=True)
+             for n, p in params.named_parameters()}
     batch = {k: t.to(DEVICE) for k, t in TokenPipeline(
         cfg.vocab_size, spec["seq"], spec["batch"],
         seed=seed).global_batch_at(0).items()}
@@ -1293,6 +1445,7 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
         with torch.no_grad():
             for n, p in params.named_parameters():
                 p.copy_(start[n])
+        opt = None
         opt = adamw_init(params)
         reset_counts()
         with plain_kernels() if plain else contextlib.nullcontext():
@@ -1303,19 +1456,25 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
         if not plain:
             launched = counts()
         runs.append((float(metrics["loss"]), float(metrics["grad_norm"]),
-                     opt.master))
+                     opt.master if plain else
+                     {n: t.cpu() for n, t in opt.master.items()}))
+        del metrics
     (loss_k, gnorm_k, master_k), (loss_p, gnorm_p, master_p) = runs
     diff_sq = upd_sq = 0.0
     for n in master_k:
-        diff_sq += float((master_k[n] - master_p[n]).square().sum())
-        upd_sq += float((master_p[n] - start[n].float()).square().sum())
+        diff_sq += float((master_k[n].to(DEVICE) - master_p[n]).square()
+                         .sum())
+        upd_sq += float((master_p[n] - start[n].to(DEVICE).float())
+                        .square().sum())
+    del opt, runs, master_k, master_p
+    torch.cuda.empty_cache()
     if profile:
         profile_train_step(torch, step, params, adamw_init(params), batch,
-                           f"{spec['arch']} FULL width, {cfg.block_repeat} "
+                           f"{spec['arch']} FULL width, {cfg.n_layers} "
                            f"layers, bf16 train step ({spec['batch']}x"
                            f"{spec['seq']} tokens, {spec['microbatches']} "
                            f"microbatches, remat)")
-    del params, start, runs, master_k, master_p
+    del params, start
     torch.cuda.empty_cache()
     master = math.sqrt(diff_sq / upd_sq)
     for v in (loss_k, loss_p, gnorm_k, gnorm_p, master):
@@ -1564,21 +1723,25 @@ RING = dict(depth=2, max_len=4608, smax=4112,
             lengths=[100, 4111, 4112, 9000])
 
 
-def ring_phase(torch) -> None:
-    """mixtral-8x7b at full width and depth 2, ``max_len`` 4608, so its
-    sliding-window layers keep rings of 4112 slots: a cache of seeded
-    random K/V at ``RING["lengths"]``, two ``decode_step`` calls through
-    the kernels and through the plain versions, held as in the model
-    phase."""
+def ring_phase(torch, arch: str = "mixtral-8x7b", ring=None,
+               phase: str = "mixtral") -> None:
+    """``arch`` at full width and depth ``ring["depth"]``, ``max_len``
+    ``ring["max_len"]``, so its sliding-window layers keep rings of
+    ``ring["smax"]`` slots (default RING, mixtral-8x7b's: 4112 slots at
+    max_len 4608):
+    a cache of seeded random K/V at ``ring["lengths"]``, two
+    ``decode_step`` calls through the kernels and through the plain
+    versions, held as in the model phase."""
     from repro_torch import configs as C
     from repro_torch.models import transformer as T
-    window = C.get_config("mixtral-8x7b").windows[0]
-    if min(RING["max_len"], T.ring_size(window)) != RING["smax"]:
-        fail(f"ring: max_len {RING['max_len']} gives no ring of "
-             f"{RING['smax']} slots")
-    model_phase(torch, phase="mixtral", arch="mixtral-8x7b",
-                depths=dict.fromkeys(("float32", "bfloat16"), RING["depth"]),
-                max_len=RING["max_len"], start_lens=RING["lengths"],
+    ring = RING if ring is None else ring
+    window = next(w for w in C.get_config(arch).windows if w is not None)
+    if min(ring["max_len"], T.ring_size(window)) != ring["smax"]:
+        fail(f"{phase} ring: max_len {ring['max_len']} gives no ring of "
+             f"{ring['smax']} slots")
+    model_phase(torch, phase=phase, arch=arch,
+                depths=dict.fromkeys(("float32", "bfloat16"), ring["depth"]),
+                max_len=ring["max_len"], start_lens=ring["lengths"],
                 steps=2)
 
 
@@ -1741,6 +1904,55 @@ def ssm_serve_phase(torch, smi: str):
     return launched
 
 
+# -- 12. gemma3 -----------------------------------------------------------
+
+# gemma3-12b at full width, held to LOGIT_TOL and ARGMAX_FLOOR: fp32 at 2
+# blocks (12 layers, 14.8 GB of fp32 weights), bf16 at 4 blocks (24
+# layers, qwen2-0.5b's depth, at which LOGIT_TOL was read).  At all 48
+# layers (23.5 GB) bf16 is held to ARGMAX_FLOOR only: with sound kernels
+# the logits there read 0.246 to 0.266 over seeds 0-5 on an H100, above
+# LOGIT_TOL's 0.25, all of it from the decode kernel's bf16 rounding flips
+# grown over twice the depth (PERF.md; ``--limits gemma3-12b``)
+GEMMA_DEPTHS = {"float32": 2, "bfloat16": 4}
+# the ring check at depth one block: at max_len 4096 the five local
+# layers keep rings of ring_size(1024) = 1040 slots and the global one
+# 4096; lengths inside the ring, one short of it, on it, and wrapped
+GEMMA_RING = dict(depth=1, max_len=4096, smax=1040,
+                  lengths=[100, 1039, 1040, 3000])
+# one block (five local layers and the global one) at full width: the 48
+# layers' AdamW state alone passes 80 GB.  2048 tokens a row, so the
+# window of 1024 masks.  Parity at half the batch: two fp32 runs' weights
+# and optimizer state of 2.35 B parameters take 56 GB of the card
+GEMMA_TRAIN = dict(arch="gemma3-12b", steps=5, batch=8, seq=2048,
+                   microbatches=2, depth=1)
+GEMMA_PARITY = dict(GEMMA_TRAIN, batch=4)
+
+
+def gemma3_phase(torch, smi: str):
+    """gemma3-12b (blocks of five sliding-window layers and one global
+    layer, head dim 256) at full width: (a) ``decode_step`` logits,
+    kernels vs plain, at GEMMA_DEPTHS held to LOGIT_TOL and ARGMAX_FLOOR,
+    and in bf16 at all 48 layers held to ARGMAX_FLOOR, with a profiled
+    bf16 step (device ms by family beside the 7.02 ms it takes to read
+    the weights once); (b)
+    the ring check at depth one block; (c) 8 chat requests served at all
+    48 layers with caches of GEMMA_SERVE_MAX_LEN slots; (d) one block
+    trained for 5 steps through ``launch.train.train`` and one step
+    kernels vs plain.  Returns the serve and train runs' launches."""
+    torch.cuda.empty_cache()
+    model_phase(torch, phase="gemma3", arch="gemma3-12b",
+                depths=GEMMA_DEPTHS, profile=False)
+    model_phase(torch, phase="gemma3", arch="gemma3-12b",
+                dtypes=("bfloat16",), hold_logits=False, profile=True)
+    ring_phase(torch, "gemma3-12b", GEMMA_RING, "gemma3")
+    served = serve_phase(torch, smi, phase="gemma3", arch="gemma3-12b",
+                         max_len=GEMMA_SERVE_MAX_LEN)
+    trained = train_phase(torch, smi, GEMMA_TRAIN, "gemma3")
+    train_parity_phase(torch, GEMMA_PARITY, depth=GEMMA_TRAIN["depth"],
+                       phase="gemma3")
+    return served, trained
+
+
 def main() -> int:
     try:
         import torch
@@ -1764,8 +1976,8 @@ def main() -> int:
 
     smi = probe(torch)
     build_phase()
-    if sys.argv[1:] == ["--limits"]:
-        limits_phase(torch)
+    if sys.argv[1:2] == ["--limits"]:
+        limits_phase(torch, *sys.argv[2:3])
         return 0
     results = kernels_phase(torch, F)
     model_phase(torch)
@@ -1786,6 +1998,7 @@ def main() -> int:
                        MAMBA_PARITY_DEPTH, "mamba2")
     mixtral = mixtral_phase(torch, smi)
     ssm_served = ssm_serve_phase(torch, smi)
+    gemma_served, gemma_trained = gemma3_phase(torch, smi)
 
     # one entry per kernel and path: the path's launches, read right after
     # its run, beside the kernel's numbers at that path's bf16 shape
@@ -1793,7 +2006,7 @@ def main() -> int:
         "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                     "src/repro/kernels/rmsnorm/rmsnorm.py:26"),
         "decode_attention": (
-            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro_torch/kernels/csrc/decode_attention.cuh",
             "src/repro/kernels/decode_attention/decode_attention.py:76"),
         "flash_attention": (
             "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1805,6 +2018,21 @@ def main() -> int:
     results[("rmsnorm", SSM_SERVE_NORMS, "bfloat16")] = launch_mix(
         results, [(("rmsnorm", shape, "bfloat16"), n)
                   for shape, n in SSM_SERVE_NORMS])
+    # gemma3's decode attention runs over rings (local layers) and full
+    # caches (global), its flash attention with the window and without:
+    # weighted by the launches of each kind of slot
+    from repro_torch import configs as C
+    gemma = C.get_config("gemma3-12b")
+    local = [s.window is not None for s in gemma.block_pattern]
+    runs = layer_runs(gemma)
+    results[("decode_attention", GEMMA_DECODE, "bfloat16")] = launch_mix(
+        results, [(("decode_attention", shape, "bfloat16"),
+                   sum(x == want for x in local) * gemma.block_repeat)
+                  for shape, want in zip(GEMMA_DECODE, (True, False))])
+    results[(GEMMA_FLASH, "bfloat16")] = launch_mix(
+        results, [((case, "bfloat16"),
+                   sum(n for x, n in zip(local, runs) if x == want))
+                  for case, want in zip(GEMMA_FLASH, (True, False))])
     paths = (
         ("rmsnorm", "serve", ("rmsnorm", (4, 1, 896)), served[0]),
         ("decode_attention", "serve",
@@ -1822,6 +2050,14 @@ def main() -> int:
          ("decode_attention", MIXTRAL_DECODE), mixtral[1]),
         ("rmsnorm", "ssm-serve", ("rmsnorm", SSM_SERVE_NORMS),
          ssm_served[0]),
+        ("rmsnorm", "gemma3-serve", ("rmsnorm", GEMMA_NORM_SERVE),
+         gemma_served[0]),
+        ("decode_attention", "gemma3-serve",
+         ("decode_attention", GEMMA_DECODE), gemma_served[1]),
+        ("rmsnorm", "gemma3-train", ("rmsnorm", GEMMA_NORM_TRAIN),
+         gemma_trained[0]),
+        ("flash_attention", "gemma3-train", (GEMMA_FLASH,),
+         gemma_trained[2]),
     )
     kernels = []
     for name, path, key, n in paths:

@@ -8,7 +8,14 @@ serves synthetic requests of the same trace on one card (CUDA unless
 ``device="cpu"``).  An arch the port has no config for raises
 (``KeyError``) before the search.  ``depth`` serves the first blocks of
 the model at full width: mixtral-8x7b FULL is 93.4 GB in bf16, and one
-80 GB H100 holds 16 of its 32 layers (``--depth 16``).
+80 GB H100 holds 16 of its 32 layers (``--depth 16``); gemma3-12b FULL
+(23.5 GB) serves all 48 layers.
+
+The search covers every plan, cell-level data parallelism included, as
+``repro/launch/serve.py`` does, where there are at most
+``MAX_SEARCH_PLANS``; a block of many cells has more (gemma3-12b's 12
+cells: over 100,000 on h100x8, hours of simulation), and is searched
+over the plans current systems run (``feasible_only``: 10 for gemma3).
 
     PYTHONPATH=src python -m apex_bridge.serve --arch qwen2-0.5b \\
         --trace chat --requests 8
@@ -19,6 +26,7 @@ from __future__ import annotations
 import argparse
 
 from repro.core import ApexSearch, get_cluster, get_trace
+from repro.core.planner import generate_schemes
 
 from repro_torch import configs as C
 from repro_torch.launch import serve as port_serve
@@ -28,6 +36,7 @@ from .ir import model_ir
 # the simulator's trace for the plan search (as in repro/launch/serve.py)
 SEARCH_RATE = 0.5
 SEARCH_REQUESTS = 64
+MAX_SEARCH_PLANS = 1000
 
 
 def serve(arch: str = "qwen2-0.5b", trace: str = "chat", requests: int = 8,
@@ -44,12 +53,16 @@ def serve(arch: str = "qwen2-0.5b", trace: str = "chat", requests: int = 8,
                      num_requests=SEARCH_REQUESTS)
     search = ApexSearch(model, clu)
     base = search.evaluate_baseline(reqs)
-    best = search.search(reqs, feasible_only=False)
+    feasible_only = len(generate_schemes(
+        model, clu.num_devices,
+        max_schemes=MAX_SEARCH_PLANS + 1)) > MAX_SEARCH_PLANS
+    best = search.search(reqs, feasible_only=feasible_only)
     log(f"APEX: baseline {base.plan_label} e2e={base.e2e_latency:.1f}s")
     log(f"APEX: optimal  {best.best.plan_label} "
         f"e2e={best.best.e2e_latency:.1f}s "
         f"({base.e2e_latency / best.best.e2e_latency:.2f}x) "
-        f"[{best.num_schemes} plans in {best.search_seconds:.1f}s]")
+        f"[{best.num_schemes} plans in {best.search_seconds:.1f}s"
+        f"{', the plans current systems run' if feasible_only else ''}]")
     report, _ = port_serve.serve(arch, size, trace, requests,
                                  device=device, log=log, depth=depth)
     return base, best, report

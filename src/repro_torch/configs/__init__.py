@@ -2,9 +2,11 @@
 exporting ``FULL`` (the published dims) and ``REDUCED`` (a same-family
 miniature for CPU tests), copied from ``repro/configs``.
 
-The port carries the dense GQA decoders, the attention-free Mamba2
-model and the MoE decoder mixtral-8x7b; the other architectures of the
-JAX registry arrive with the slices that port their layers.
+The port carries the dense GQA decoders (gemma3-12b among them, with
+its blocks of five sliding-window layers and one global layer), the
+attention-free Mamba2 model and the MoE decoder mixtral-8x7b; the other
+architectures of the JAX registry arrive with the slices that port
+their layers.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ ARCHS: List[str] = [
     "qwen1_5_32b",
     "mamba2_2_7b",
     "mixtral_8x7b",
+    "gemma3_12b",
 ]
 
 # canonical ids as given in the assignment -> module names
@@ -29,6 +32,7 @@ ALIASES = {
     "qwen1.5-32b": "qwen1_5_32b",
     "mamba2-2.7b": "mamba2_2_7b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "gemma3-12b": "gemma3_12b",
 }
 
 

@@ -1,0 +1,13 @@
+// Decode attention at head dim 256 in fp32, a translation unit of its own
+// so that nvcc builds it beside the others (decode_attention.cuh).
+#include "decode_attention.cuh"
+
+void apex::launch_decode_d256_f32(const void* q, const void* k,
+                                  const void* v, const void* lengths,
+                                  void* out, void* ws, void* tickets,
+                                  int batch, int hkv, int group, int smax,
+                                  int span, int splits, float scale,
+                                  cudaStream_t stream) {
+  launch<float, 256>(q, k, v, lengths, out, ws, tickets, batch, hkv, group,
+                     smax, span, splits, scale, stream);
+}

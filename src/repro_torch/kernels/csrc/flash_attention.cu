@@ -27,8 +27,13 @@
 // B), so the ragged end of a sequence reads zeros, not the next batch's
 // rows), each stage guarded by a full and an empty mbarrier, so the loads
 // of the next tiles overlap the math on tile j.  Shared memory is swizzled
-// by D: 32, 64 or 128 B for rows of 16, 32 or 64 bf16; D = 128 is two
-// 128 B atoms side by side.  Per tile each consumer warpgroup issues
+// by D: 32, 64 or 128 B for rows of 16, 32 or 64 bf16; D = 128 and 256
+// are two and four 128 B atoms side by side.  At D = 256 three stages
+// would take 64 KB of Q and 192 KB of K/V, more than the 227 KB a CTA
+// may have, so the ring has two stages there (193 KB), and P V runs as
+// two m64n128k16 products on the halves of O and V (wgmma's N stops at
+// 256, and the halves reuse the D = 128 instruction); O is 128 fp32
+// registers a thread.  Per tile each consumer warpgroup issues
 // S = Q K^T as D / 16 wgmma m64n64k16 with both operands K-major in
 // shared memory (bf16 x bf16 products are exact in fp32, so S matches
 // the reference's fp32 dot up to summation order), runs the online
@@ -326,7 +331,6 @@ using namespace apex::hopper;
 
 constexpr int kBQ = 128;         // query rows per CTA: two warpgroups of 64
 constexpr int kBK = 64;          // keys per K/V tile
-constexpr int kStages = 3;       // K/V ring depth
 constexpr int kConsumers = 256;  // two consumer warpgroups
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
 
@@ -339,13 +343,17 @@ struct Cfg : SwizzleAtom<D> {
   static constexpr int kKVAtom = kBK * kRowBytes;  // bytes of one K/V atom
   static constexpr int kQBytes = kBQ * D * 2;
   static constexpr int kKVBytes = kBK * D * 2;     // one K or V tile
+  static constexpr int kStages = D > 128 ? 2 : 3;  // K/V ring depth
+  // P V: one m64nDk16 product up to D = 128, else kPvParts of N = 128
+  static constexpr int kPvN = D < 128 ? D : 128;
+  static constexpr int kPvParts = D / kPvN;
   // Q, then K[stage], then V[stage]; + 1 KB to align the base to the
   // 1024-byte period of the 128 B swizzle
   static constexpr int kSmem = kQBytes + 2 * kStages * kKVBytes + 1024;
 };
 
 // Two CTAs per SM for D <= 64 (registers capped near 112 a thread), one
-// for D = 128.
+// for D = 128 and 256.
 template <int D>
 __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
     flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
@@ -356,6 +364,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
                                  int hq, int group, int q_offset, int causal,
                                  int window, float scale) {
   using C = Cfg<D>;
+  constexpr int kStages = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t bar_q;
   __shared__ __align__(8) uint64_t bar_full[kStages];
@@ -434,9 +443,13 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
   const uint32_t q_addr = smem_u32(s_q) + wg * 64 * C::kRowBytes;
   constexpr uint32_t kSbo = 8 * C::kRowBytes;  // next group of 8 rows
 
-  float o[D / 2];
+  // the m64nDk16 accumulator fragment, by P V part: element e of the
+  // whole is o[e / kPart][e % kPart], the part's own fragment element
+  constexpr int kPart = C::kPvN / 2;
+  float o[C::kPvParts][kPart];
+  auto o_at = [&](int e) -> float& { return o[e / kPart][e % kPart]; };
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int e = 0; e < D / 2; ++e) o_at(e) = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
 
@@ -535,7 +548,7 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
         softmax(std::false_type{});
       }
 #pragma unroll
-      for (int e = 0; e < D / 2; ++e) o[e] *= corr[(e >> 1) & 1];
+      for (int e = 0; e < D / 2; ++e) o_at(e) *= corr[(e >> 1) & 1];
 
       // P as the A fragments of 4 k16 steps, split into bf16 hi + lo
       uint32_t p_hi[4][4], p_lo[4][4];
@@ -554,15 +567,22 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        // keys 16 kk .. 16 kk + 15 are rows of V; N = D spans the atoms
-        const uint64_t dv = make_desc(v_addr + kk * 16 * C::kRowBytes,
-                                      C::kKVAtom, kSbo, C::kLayout);
-        wgmma_rs(o, p_hi[kk], dv);
-        wgmma_rs(o, p_lo[kk], dv);
+#pragma unroll
+        for (int part = 0; part < C::kPvParts; ++part) {
+          // keys 16 kk .. 16 kk + 15 are rows of V; N = kPvN columns of
+          // it, from atom part * kPvN / kAtomCols, span the atoms
+          const uint64_t dv = make_desc(
+              v_addr + (part * C::kPvN / C::kAtomCols) * C::kKVAtom +
+                  kk * 16 * C::kRowBytes,
+              C::kKVAtom, kSbo, C::kLayout);
+          wgmma_rs(o[part], p_hi[kk], dv);
+          wgmma_rs(o[part], p_lo[kk], dv);
+        }
       }
       wgmma_commit();
       wgmma_wait_all();
-      fence_regs(o);
+#pragma unroll
+      for (int part = 0; part < C::kPvParts; ++part) fence_regs(o[part]);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         fence_regs(p_hi[kk]);
@@ -585,8 +605,8 @@ __global__ void __launch_bounds__(kThreads, D <= 64 ? 2 : 1)
       for (int c = 0; c < D / 8; ++c) {
         *reinterpret_cast<__nv_bfloat162*>(
             ob + static_cast<size_t>(row) * q_pitch + 8 * c + cq) =
-            __floats2bfloat162_rn(o[4 * c + 2 * hh] * inv,
-                                  o[4 * c + 2 * hh + 1] * inv);
+            __floats2bfloat162_rn(o_at(4 * c + 2 * hh) * inv,
+                                  o_at(4 * c + 2 * hh + 1) * inv);
       }
       if ((t & 3) == 0) lb[row] = m[hh] + logf(l_safe);
     }
@@ -648,6 +668,9 @@ int launch_dim(int head_dim, int dtype, const void* q, const void* k,
     case 128:
       return launch_dtype<128>(dtype, q, k, v, out, lse, batch, sq, skv, hq,
                                hkv, q_offset, causal, window, scale, stream);
+    case 256:
+      return launch_dtype<256>(dtype, q, k, v, out, lse, batch, sq, skv, hq,
+                               hkv, q_offset, causal, window, scale, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -657,8 +680,8 @@ int launch_dim(int head_dim, int dtype, const void* q, const void* k,
 
 // q, out: (batch, sq, hq, D); k, v: (batch, skv, hkv, D); lse: (batch, hq,
 // sq) fp32.  All contiguous; q/k/v/out of one dtype, fp32 (CUDA cores) or
-// bf16 (wgmma + TMA: q, k and v 16-byte aligned).  D is 16, 32, 64 or
-// 128; hq is a multiple of hkv with hq / hkv in 1..8; sq, skv >= 1;
+// bf16 (wgmma + TMA: q, k and v 16-byte aligned).  D is 16, 32, 64, 128
+// or 256; hq is a multiple of hkv with hq / hkv in 1..8; sq, skv >= 1;
 // batch * hq <= 65535 and, for bf16, ceil(sq / 128) <= 65535; window <= 0
 // means none.  Returns cudaGetLastError()
 // after the launch, or tc::kTensorMapError + the CUresult of a failed

@@ -22,11 +22,12 @@ constexpr int kTensorMapError = 100000;
 
 // The swizzle atom of a bf16 tile whose rows hold D values: a row of an
 // atom holds min(D, 64) bf16 (32, 64 or 128 bytes, the swizzle width); a
-// row of D = 128 is two atoms side by side, each a tile of its own.
+// row of D = 128 or 256 is two or four atoms side by side, each a tile of
+// its own.
 template <int D>
 struct SwizzleAtom {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
-                "tiles of 16, 32, 64 or 128 bf16 columns");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "tiles of 16, 32, 64, 128 or 256 bf16 columns");
   static constexpr int kAtomCols = D < 64 ? D : 64;
   static constexpr int kRowBytes = kAtomCols * 2;
   static constexpr int kAtoms = D / kAtomCols;

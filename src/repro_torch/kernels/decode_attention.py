@@ -6,8 +6,9 @@ One new query token per sequence, ``q (B, Hq, D)``, against caches
 ``Hq // Hkv`` query heads of a kv head share its K/V (GQA).
 
 ``decode_attention`` launches the CUDA kernel of
-``csrc/decode_attention.cu`` on CUDA tensors and runs the plain PyTorch
-version ``decode_attention_plain`` on CPU tensors.  There is no fallback:
+``csrc/decode_attention.cuh`` (instances in ``decode_attention*.cu``) on
+CUDA tensors and runs the plain PyTorch version
+``decode_attention_plain`` on CPU tensors.  There is no fallback:
 CUDA inputs the kernel does not take raise.  ``launches`` counts kernel
 launches in this process, one per call: the kernel splits the cache into
 spans over a (splits, Hkv, B) grid (``split_plan``, ``grid``) and merges
@@ -19,8 +20,8 @@ A head dim the kernel is not built for (the REDUCED configs' 8, 16 and
 the true D and the output sliced back: zero columns add nothing to
 ``q . k`` and give zero output columns.  Cost: the padding copies the
 whole K/V cache on every call, 64 / D times its bytes, so it is for the
-REDUCED configs; the FULL configs' head dims (64, 128) copy nothing.  A
-head dim above 128 raises.
+REDUCED configs; the FULL configs' head dims (64, 128, gemma3's 256)
+copy nothing.  A head dim above 256 raises.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from . import build
 launches = 0
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (
@@ -117,7 +118,8 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
 
 def padded_head_dim(d: int) -> int:
     """The head dim a call of head dim ``d`` runs at: the least of
-    ``HEAD_DIMS`` that is ``>= d`` (8, 16, 24, 32 -> 64; 112 -> 128).
+    ``HEAD_DIMS`` that is ``>= d`` (8, 16, 24, 32 -> 64; 112 -> 128;
+    129 .. 256 -> 256).
     Raises ``ValueError`` above the largest."""
     for dim in HEAD_DIMS:
         if d <= dim:

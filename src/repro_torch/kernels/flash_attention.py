@@ -43,7 +43,7 @@ from . import build
 launches = 0
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GROUP = 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 10 + (
@@ -101,7 +101,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def padded_head_dim(d: int) -> int:
     """The head dim a call of head dim ``d`` runs at: the least of
-    ``HEAD_DIMS`` that is ``>= d`` (8 -> 16, 24 -> 32, 112 -> 128).
+    ``HEAD_DIMS`` that is ``>= d`` (8 -> 16, 24 -> 32, 112 -> 128,
+    129 .. 256 -> 256).
     Raises ``ValueError`` above the largest."""
     for dim in HEAD_DIMS:
         if d <= dim:

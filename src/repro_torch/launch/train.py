@@ -9,6 +9,12 @@ checkpoints -> resume.
         --full --steps 5
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
         --full --steps 5 --seq 1024 --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-12b \\
+        --full --depth 1 --steps 5 --seq 2048 --microbatches 2
+
+``--depth`` keeps that many blocks at full width: gemma3-12b trains one
+block (six layers) on one H100, as its 48 layers' AdamW state alone
+passes 80 GB.
 
 Without ``--device cpu`` it needs a CUDA card; ``--device cpu`` runs the
 plain PyTorch versions of the kernels (sensible with the reduced configs).
@@ -17,6 +23,7 @@ plain PyTorch versions of the kernels (sensible with the reduced configs).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import List, Optional
 
@@ -59,9 +66,11 @@ def train(arch: str = "internlm2-1.8b", steps: int = 20, batch: int = 8,
           seq: int = 64, microbatches: int = 1,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 10,
           reduced: bool = True, seed: int = 0, device=None, log=print,
-          history: Optional[List[dict]] = None):
+          history: Optional[List[dict]] = None,
+          depth: Optional[int] = None):
     """Train ``arch`` for ``steps`` steps from random weights drawn from
-    ``seed``, resuming from the newest checkpoint in ``ckpt_dir``.
+    ``seed``, resuming from the newest checkpoint in ``ckpt_dir``;
+    ``depth`` cuts the model to that many blocks.
     Returns ``(params, opt, losses)``.  Each step's ``{"step", "loss",
     "grad_norm", "seconds"}`` is appended to ``history`` when given; the
     seconds are read after ``torch.cuda.synchronize()`` on a card.
@@ -69,6 +78,8 @@ def train(arch: str = "internlm2-1.8b", steps: int = 20, batch: int = 8,
     inputs) raise ``NotImplementedError``."""
     dev = resolve_device(device)
     cfg = C.get_reduced(arch) if reduced else C.get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, block_repeat=depth)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = T.init_params(gen, cfg, device=dev)
     opt = adamw_init(params)
@@ -124,10 +135,12 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="default: cuda (raises without a card)")
+    ap.add_argument("--depth", type=int, default=None,
+                    help="blocks kept (default: all)")
     args = ap.parse_args(argv)
     train(args.arch, args.steps, args.batch, args.seq, args.microbatches,
           args.ckpt_dir, reduced=not args.full, seed=args.seed,
-          device=args.device)
+          device=args.device, depth=args.depth)
 
 
 if __name__ == "__main__":

@@ -25,8 +25,10 @@ K/V rows and the new SSM state and windows into it in place.
 Sliding-window layers keep ring caches of ``min(max_len,
 ring_size(window))`` slots (``init_cache``, ``gqa_decode_step``).
 
-Ported: GQA decoders with a dense or MoE FFN (mixtral), and all-SSM
-stacks without an FFN (mamba2).  MLA, attention without an FFN,
+Ported: GQA decoders with a dense or MoE FFN (mixtral), blocks of
+several attention layers with their own windows (gemma3: five
+sliding-window layers and one global layer), and all-SSM stacks without
+an FFN (mamba2).  MLA, attention without an FFN,
 attention and SSM layers in one block, SSM layers with MoE,
 cross-attention, shared attention (zamba2), several SSM groups,
 first-k-dense prefixes and embedding inputs raise
@@ -227,9 +229,14 @@ def _layer_apply(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
 
 
 def _block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, nest_remat: bool = False
+                 ) -> torch.Tensor:
     for i, spec in enumerate(cfg.block_pattern):
-        x = _layer_apply(cfg, spec, blk[f"l{i}"], x, positions)
+        if nest_remat:
+            x = checkpoint(_layer_apply, cfg, spec, blk[f"l{i}"], x,
+                           positions, use_reentrant=False)
+        else:
+            x = _layer_apply(cfg, spec, blk[f"l{i}"], x, positions)
     return x
 
 
@@ -242,7 +249,11 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     ``remat`` checkpoints each block (``torch.utils.checkpoint``,
     non-reentrant) where the reference wraps the scanned block in
     ``jax.checkpoint``: the backward pass runs the block's forward again,
-    kernels included, and the numbers do not change.  ``return_hidden``
+    kernels included, and the numbers do not change.  A block of several
+    layers (gemma3's six) also checkpoints each of its layers inside the
+    block's checkpoint, as the reference's ``nest_remat`` does; a block
+    of one layer does not, where the reference says that re-running the
+    same region a third time only costs.  ``return_hidden``
     returns the final-norm hidden states (B, S, d_model) instead of
     logits."""
     check_supported(cfg)
@@ -250,9 +261,10 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    nest_remat = remat and len(cfg.block_pattern) > 1
     for blk in params.blocks:
         if remat:
-            x = checkpoint(_block_apply, cfg, blk, x, positions,
+            x = checkpoint(_block_apply, cfg, blk, x, positions, nest_remat,
                            use_reentrant=False)
         else:
             x = _block_apply(cfg, blk, x, positions)

@@ -133,10 +133,12 @@ def test_serve_runs_the_search_then_the_engine_on_the_cpu():
     assert len(report.results) == 3
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "mixtral-8x7b",
+                                  "gemma3-12b"])
 def test_serve_runs_the_ssm_and_moe_archs_on_the_cpu(arch):
-    """The engine serves every port config, SSM and MoE included: the
-    search on the FULL arch, then the engine at REDUCED size."""
+    """The engine serves every port config, SSM, MoE and gemma3's blocks
+    of mixed windows included: the search on the FULL arch, then the
+    engine at REDUCED size."""
     lines = []
     _, _, report = serve.serve(arch=arch, size="reduced", requests=3,
                                device="cpu", log=lines.append)
@@ -161,8 +163,8 @@ def test_serve_passes_depth_to_the_engine(monkeypatch):
 
 def test_serve_raises_for_an_arch_without_a_port_config():
     with pytest.raises(KeyError, match="not yet ported"):
-        serve.serve(arch="gemma3-12b", size="reduced", device="cpu",
-                    log=lambda s: None)
+        serve.serve(arch="deepseek-v2-lite-16b", size="reduced",
+                    device="cpu", log=lambda s: None)
 
 
 def test_importing_the_bridge_loads_no_jax_and_only_repro_core():

@@ -80,6 +80,9 @@ def _lse_numpy(q, k, causal, window, q_offset):
     (1, 257, 257, 2, 1, 16, None, 0),      # odd lengths force padding
     (1, 130, 130, 14, 2, 64, None, 0),     # qwen2-0.5b heads: group 7
     (2, 40, 100, 4, 2, 32, None, 60),      # prefix cache: Sq < Skv
+    (1, 70, 70, 2, 2, 256, None, 0),       # head dim 256 (gemma3): MHA
+    (2, 70, 70, 4, 2, 256, 19, 0),         # group 2, window
+    (1, 40, 77, 16, 2, 256, 23, 37),       # group 8, window and offset
 ])
 def test_flash_plain_matches_pallas_and_ref(shape, dtype):
     B, Sq, Skv, Hq, Hkv, D, window, q_offset = shape
@@ -221,10 +224,11 @@ def test_flash_kernel_checks_refuse_bad_args():
 
     FA.check_kernel_args(*args(), None, 0)                  # qwen2-0.5b
     FA.check_kernel_args(*args(Hq=16, Hkv=8, D=128), 37, 5)  # internlm2
-    for D in (16, 32):
+    FA.check_kernel_args(*args(Hq=16, Hkv=8, D=256), 1024, 0)  # gemma3
+    for D in (16, 32, 256):
         FA.check_kernel_args(*args(Hq=8, Hkv=8, D=D,
                                    dtype=torch.float32), None, 0)
-    for bad in (args(D=24), args(D=256),                     # head dim
+    for bad in (args(D=24), args(D=512),                     # head dim
                 args(Hq=18, Hkv=2), args(Hq=14, Hkv=4),      # group
                 args(dtype=torch.float16),                   # dtype
                 args(B=5000, Hq=16, Hkv=2)):                 # grid

@@ -90,16 +90,36 @@ def _same(got, want, dtype):
 
 @pytest.mark.parametrize("d,flash,decode", [
     (1, 16, 64), (8, 16, 64), (16, 16, 64), (24, 32, 64), (32, 32, 64),
-    (33, 64, 64), (64, 64, 64), (112, 128, 128), (128, 128, 128)])
+    (33, 64, 64), (64, 64, 64), (112, 128, 128), (128, 128, 128),
+    (129, 256, 256), (200, 256, 256), (256, 256, 256)])
 def test_padded_head_dim_is_the_next_kernel_dim(d, flash, decode):
     assert FA.padded_head_dim(d) == flash
     assert DA.padded_head_dim(d) == decode
 
 
+@pytest.mark.parametrize("mangled,label", [
+    ("_ZN52_GLOBAL__N__408c5d7c_19_decode_attention_cu_9c8bed8023decode_"
+     "attention_kernelIfLi256ELi8EEEvPKT_S3_S3_PKiPS1_PfPiiiif",
+     "decode_attention_kernel<fp32, 256, 8>"),
+    ("_ZN52_GLOBAL__N__408c5d7c_19_decode_attention_cu_9c8bed8023decode_"
+     "attention_kernelI13__nv_bfloat16Li64ELi7EEEvPKT_S4_S4_PKiPS2_PfPiiiif",
+     "decode_attention_kernel<bf16, 64, 7>"),
+    ("_ZN51_GLOBAL__N__e7510225_18_flash_attention_cu_f02156b52tc28flash_"
+     "attention_wgmma_kernelILi256EEEv14CUtensorMap_stS2_S2_P13__nv_"
+     "bfloat16Pfiiiiiiif", "flash_attention_wgmma_kernel<256>"),
+    ("_Z10not_a_kernelv", "_Z10not_a_kernelv"),
+])
+def test_smoke_names_the_kernel_instances_it_reports(mangled, label):
+    """The build phase prints each instance's registers and spills under
+    a name that says its dtype, head dim and group."""
+    assert _smoke().kernel_label(mangled) == label
+
+
 def test_head_dims_above_the_kernels_raise():
     for mod in (FA, DA):
-        with pytest.raises(ValueError, match="above"):
-            mod.padded_head_dim(256)                        # gemma3
+        for d in (257, 512):           # gemma3's 256 is the largest kernel
+            with pytest.raises(ValueError, match="above"):
+                mod.padded_head_dim(d)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

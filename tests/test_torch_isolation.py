@@ -32,7 +32,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.kernels.ssd_scan",
                  "repro_torch.configs.mamba2_2_7b",
                  "repro_torch.layers.moe",
-                 "repro_torch.configs.mixtral_8x7b"):
+                 "repro_torch.configs.mixtral_8x7b",
+                 "repro_torch.configs.gemma3_12b"):
         assert name in mods
     code = (
         "import importlib, sys\n"

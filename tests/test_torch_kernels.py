@@ -75,6 +75,9 @@ def _lengths(B, smax):
     (3, 8, 8, 32, 300),                # MHA, non-multiple length
     (1, 16, 2, 64, 1024),
     (2, 14, 2, 64, 300),               # qwen2-0.5b: group 7, D 64
+    (2, 2, 2, 256, 70),                # head dim 256 (gemma3): MHA
+    (3, 16, 8, 256, 100),              # gemma3-12b heads: group 2
+    (1, 16, 2, 256, 130),              # group 8
 ])
 def test_decode_attention_plain_matches_pallas_and_ref(shape, dtype):
     B, Hq, Hkv, D, smax = shape
@@ -148,6 +151,7 @@ def test_decode_attention_kernel_checks_refuse_bad_args():
 
     DA.check_kernel_args(*args())                       # qwen2-0.5b
     DA.check_kernel_args(*args(Hq=16, Hkv=8, D=128))    # internlm2-1.8b
+    DA.check_kernel_args(*args(Hq=16, Hkv=8, D=256))    # gemma3-12b
     DA.check_kernel_args(*args(Hq=8, Hkv=8, dtype=torch.float32))
     for bad in (args(D=16), args(Hq=18, Hkv=2), args(Hq=14, Hkv=4),
                 args(dtype=torch.float16), args(ldtype=torch.int64)):
@@ -335,5 +339,6 @@ def test_source_hash_tracks_sources(tmp_path):
     assert build.source_hash(tmp_path, link_flags=(
         *build.LINK_FLAGS, "-lcuda")) != build.source_hash(tmp_path)
     assert {p.name for p in build.sources()} == {
-        "decode_attention.cu", "errors.cu", "flash_attention.cu",
+        "decode_attention.cu", "decode_attention_d256_bf16.cu",
+        "decode_attention_d256_f32.cu", "errors.cu", "flash_attention.cu",
         "rmsnorm.cu", "ssd_scan.cu"}

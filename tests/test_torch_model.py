@@ -1,7 +1,9 @@
 """The port's GQA decoders against the JAX reference on the REDUCED
-qwen2-0.5b, internlm2-1.8b, qwen1.5-32b and mixtral-8x7b configs (the
-last with a MoE FFN and sliding-window ring caches: window 16, a ring of
-32 slots), on the CPU, with the reference's weights carried across by
+qwen2-0.5b, internlm2-1.8b, qwen1.5-32b, mixtral-8x7b (a MoE FFN and
+sliding-window ring caches: window 16, a ring of 32 slots) and
+gemma3-12b configs (blocks of two window-16 layers and one global layer:
+rings of 32 slots beside full caches, tied embeddings, head dim 24), on
+the CPU, with the reference's weights carried across by
 ``convert.params_from_jax``.
 
 Tolerances on logits after several decode steps (2 layers each):
@@ -41,11 +43,18 @@ from repro_torch.convert import (cache_from_jax, params_from_jax,  # noqa
                                  params_to_numpy)
 from repro_torch.models import transformer as TT  # noqa: E402
 
-ARCHS = ["qwen2-0.5b", "internlm2-1.8b", "qwen1.5-32b", "mixtral-8x7b"]
+ARCHS = ["qwen2-0.5b", "internlm2-1.8b", "qwen1.5-32b", "mixtral-8x7b",
+         "gemma3-12b"]
 DTYPES = ["float32", "bfloat16"]
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 1e-1}
 CACHE_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 FORWARD_TOL = {"float32": 1e-4, "bfloat16": 0.15}
+# gemma3 REDUCED's caches after a 40-token bf16 prefill, every slot of
+# both blocks (six layers where the others have two): read on the CPU
+# over seeds 0-2, at most 6.3e-2 / 8.1e-2 / 5.5e-2 in the first block's
+# first layer (CACHE_TOL's 5e-2 covers two layers) and 0.111 in the
+# second block; logits at most 5.1e-2, within LOGIT_TOL.
+DEEP_CACHE_TOL = {"float32": 1e-4, "bfloat16": 0.15}
 
 
 def _configs(arch, dtype):
@@ -173,6 +182,75 @@ def test_prefill_past_the_ring_matches_reference(dtype):
                                    rtol=0, atol=CACHE_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_gemma3_prefill_past_the_rings_matches_reference(dtype):
+    """gemma3 REDUCED: 40 prompt tokens into the rings of 32 slots of its
+    window-16 layers (``max_len`` 64) beside the global layers' full
+    caches of 64, so the rings wrap during the replay."""
+    jcfg, tcfg, jparams, tparams = _models("gemma3-12b", dtype)
+    rng = np.random.default_rng(12)
+    toks = rng.integers(0, jcfg.vocab_size, size=(2, 40)).astype(np.int32)
+    lens = np.array([40, 35], np.int32)
+    jl, jc = JT.prefill(jparams, jcfg, jnp.asarray(toks), 64,
+                        lengths=jnp.asarray(lens))
+    tl, tc = TT.prefill(tparams, tcfg, torch.from_numpy(toks), 64,
+                        lengths=torch.from_numpy(lens))
+    assert [tc["blocks"][f"l{i}"]["k"].shape[2] for i in range(3)] == \
+        [32, 32, 64]
+    np.testing.assert_allclose(_np(tl), _np(jl), rtol=0,
+                               atol=LOGIT_TOL[dtype])
+    ported = cache_from_jax(jax.device_get(jc))
+    for slot in ("l0", "l1", "l2"):
+        for name in ("k", "v"):
+            np.testing.assert_allclose(_np(tc["blocks"][slot][name]),
+                                       _np(ported["blocks"][slot][name]),
+                                       rtol=0, atol=DEEP_CACHE_TOL[dtype])
+
+
+def test_gemma3_block_of_mixed_windows_is_supported():
+    """A block of attention layers with their own windows passes
+    ``check_supported``, and ``init_cache`` gives each slot its own cache:
+    a ring of ``ring_size(window)`` slots for a windowed layer (up to
+    ``max_len``), ``max_len`` slots for a global one (FULL: 1040 and
+    4096 slots at ``max_len`` 4096)."""
+    full = TC.get_config("gemma3-12b")
+    TT.check_supported(full)
+    assert [s.window for s in full.block_pattern] == [1024] * 5 + [None]
+    assert TT.ring_size(1024) == 1040
+    small = dataclasses.replace(full, d_model=32, vocab_size=16,
+                                n_heads=2, n_kv_heads=1, head_dim=4,
+                                d_ff=8, block_repeat=2)
+    for max_len, want in ((4096, [1040] * 5 + [4096]),
+                          (512, [512] * 6)):
+        cache = TT.init_cache(small, 3, max_len, device="cpu")
+        assert list(cache["blocks"]) == [f"l{i}" for i in range(6)]
+        for i, n in enumerate(want):
+            for name in ("k", "v"):
+                assert tuple(cache["blocks"][f"l{i}"][name].shape) == \
+                    (2, 3, n, 1, 4)
+
+
+def test_gemma3_params_from_jax_are_bit_exact_and_tied():
+    """The reference's gemma3 tree (tied embeddings: no ``head``; six
+    layers a block) reaches the port bit for bit in bf16."""
+    jcfg, tcfg, jparams, tparams = _models("gemma3-12b", "bfloat16")
+    tree = jax.device_get(jparams)
+    assert "head" not in tree and tparams.head is None
+    np.testing.assert_array_equal(tparams.embed.view(torch.int16).numpy(),
+                                  np.asarray(tree["embed"]).view(np.int16))
+    for r, blk in enumerate(tparams.blocks):
+        assert list(blk) == [f"l{i}" for i in range(3)]
+        for i in range(3):
+            lt = tree["blocks"][f"l{i}"]
+            for got, want in ((blk[f"l{i}"].attn["wk"], lt["attn"]["wk"]),
+                              (blk[f"l{i}"].ffn["w_down"],
+                               lt["ffn"]["w_down"]),
+                              (blk[f"l{i}"].norm2, lt["norm2"])):
+                np.testing.assert_array_equal(
+                    got.view(torch.int16).numpy(),
+                    np.asarray(want)[r].view(np.int16))
+
+
 def test_moe_gqa_decoders_are_supported():
     """A MoE FFN under GQA attention is ported (mixtral, and a dense
     config given a MoE FFN); MoE beside MLA, first-k-dense prefixes or
@@ -268,3 +346,54 @@ def test_params_to_numpy_round_trips_bit_for_bit(arch, dtype):
         assert got.dtype == want.dtype and got.shape == want.shape
         np.testing.assert_array_equal(got.view(np.uint8),
                                       want.view(np.uint8))
+
+
+def _loss_and_grads(tparams, tcfg, toks, remat):
+    tparams.zero_grad(set_to_none=True)
+    logits = TT.forward(tparams, tcfg, toks, remat=remat)
+    loss = logits.float().logsumexp(-1).mean()
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.clone()
+                         for n, p in tparams.named_parameters()}
+
+
+def test_nested_remat_keeps_loss_and_grads_of_gemma3():
+    """gemma3 REDUCED in fp32: ``remat=True`` (a checkpoint per block and
+    one per layer inside it) gives the loss and every gradient of
+    ``remat=False`` (the recomputation runs the same kernels on the same
+    inputs)."""
+    _, tcfg, _, tparams = _models("gemma3-12b", "float32")
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, tcfg.vocab_size, size=(2, 37)).astype(np.int32))
+    loss0, grads0 = _loss_and_grads(tparams, tcfg, toks, remat=False)
+    loss1, grads1 = _loss_and_grads(tparams, tcfg, toks, remat=True)
+    assert loss0 == loss1
+    assert set(grads0) == set(grads1)
+    for name, g in grads0.items():
+        torch.testing.assert_close(grads1[name], g, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("arch,per_block", [("gemma3-12b", 3 + 1),
+                                            ("qwen2-0.5b", 1)])
+def test_remat_checkpoints_each_layer_of_a_multi_layer_block(
+        arch, per_block, monkeypatch):
+    """Under ``remat`` a block of several layers takes one checkpoint per
+    layer plus one for the block, as the reference's ``nest_remat``; a
+    single-layer block takes one checkpoint.  Without ``remat`` none."""
+    _, tcfg, _, tparams = _models(arch, "float32")
+    seen = []
+    real = TT.checkpoint
+
+    def counting(fn, *args, **kw):
+        seen.append(fn.__name__)
+        return real(fn, *args, **kw)
+
+    monkeypatch.setattr(TT, "checkpoint", counting)
+    toks = torch.zeros(1, 5, dtype=torch.int32)
+    TT.forward(tparams, tcfg, toks, remat=False)
+    assert seen == []
+    TT.forward(tparams, tcfg, toks, remat=True)
+    R, n = tcfg.block_repeat, len(tcfg.block_pattern)
+    assert len(seen) == R * per_block
+    assert seen.count("_block_apply") == R
+    assert seen.count("_layer_apply") == (R * n if n > 1 else 0)

@@ -21,6 +21,8 @@ Tolerances:
 """
 
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import pytest
 
@@ -175,6 +177,8 @@ TRAIN_TOL = {
     ("qwen2-0.5b", "bfloat16", 2, True),
     ("mixtral-8x7b", "float32", 1, False),
     ("mixtral-8x7b", "float32", 2, True),
+    ("gemma3-12b", "float32", 2, True),
+    ("gemma3-12b", "bfloat16", 2, True),
 ])
 def test_train_step_matches_reference(arch, dtype, microbatches, remat):
     tol = TRAIN_TOL[dtype]
@@ -228,6 +232,40 @@ def test_kernel_calls_per_train_step(remat, monkeypatch):
     again = 1 if remat else 0
     assert calls["flash"] == R * mb * (1 + again)
     assert calls["rms"] == (2 * R + 1) * mb + 2 * R * mb * again
+
+
+@pytest.mark.parametrize("arch,R", [("gemma3-12b", 1), ("gemma3-12b", 2),
+                                    ("qwen2-0.5b", 2)])
+def test_launches_per_train_step_equal_the_smokes_count(arch, R,
+                                                         monkeypatch):
+    """chip_smoke.py asserts ``train_launches_per_step`` on the card; here
+    it must equal the calls into the two kernel wrappers of one step with
+    remat, for gemma3's blocks of three layers (each also checkpointed
+    inside the block's checkpoint) and qwen2's single-layer blocks."""
+    calls = {"flash": 0, "rms": 0}
+    flash, rms = FA.flash_attention, RN.rms_norm
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(FA, "flash_attention", count("flash", flash))
+    monkeypatch.setattr(RN, "rms_norm", count("rms", rms))
+    cfg = dataclasses.replace(TC.get_reduced(arch), block_repeat=R)
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    batch = TokenPipeline(cfg.vocab_size, 24, 4).global_batch_at(0)
+    TS.make_train_step(cfg, microbatches=2, remat=True)(
+        params, TO.adamw_init(params), batch)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    want = smoke.train_launches_per_step(cfg, 2)
+    assert (calls["rms"], calls["flash"]) == (want[0], want[2])
+    assert want[1] == want[3] == 0
 
 
 # -- data -------------------------------------------------------------------------
