@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # the smoke
     python3 chip_smoke.py --limits   # readings behind LOGIT_TOL for mixtral
     python3 chip_smoke.py --limits gemma3-12b   # and for gemma3-12b
+    python3 chip_smoke.py --limits deepseek-v2-lite-16b   # and deepseek
 
 Phases, one line each (the kernels phases print one line per case):
 
@@ -41,7 +42,9 @@ Phases, one line each (the kernels phases print one line per case):
                window 16: rings of 32 slots, which the served prompts
                wrap): ``decode_step`` logits kernels vs plain, 8 requests
                served in bf16 as in phase 5, and one train step kernels
-               vs plain (fp32 and bf16) held to TRAIN_TOL.
+               vs plain (fp32 and bf16) held to TRAIN_TOL; deepseek
+               REDUCED (MLA, q/k 24 and v 16 padded to 64): logits and
+               serve.
      profile -- the port's op profiler (``repro_torch.core.profiles``,
                which times the tables of the simulator's measured
                backends) over every (op, axes) table the simulator prices
@@ -132,6 +135,22 @@ Phases, one line each (the kernels phases print one line per case):
                2048 tokens, 2 microbatches, remat nested per layer) with
                exactly the flash and RMSNorm launches that implies, and
                one step kernels vs plain held to TRAIN_TOL.
+ 13. deepseek -- deepseek-v2-lite-16b (MLA over latent caches, q/k 192
+               and v 128 wide; a dense first layer, then 26 MoE layers of
+               64 experts, top-6, 2 shared) at full width on seeded random
+               weights: decode attention and flash at MLA's head dims
+               (the wrappers pad v to the width of q and k) against the
+               plain versions, decode at the serve shape timed with the
+               padding copies apart; ``decode_step`` logits kernels vs
+               plain in fp32 at 4 layers and bf16 at all 27, held to
+               LOGIT_TOL and ARGMAX_FLOOR (MoE routes replayed); a
+               profiled bf16 step (device ms by family, the MoE FFNs'
+               products and the padding copies apart, beside the weights'
+               read-once bound); ``forward`` in bf16 at 2 layers, B 2 x S
+               256, kernels vs plain; 4 chat requests (prompts cut to 64,
+               outputs to 16) served at all 27 layers in 4 slots of 512,
+               with 55 RMSNorms and 27 decode attentions a step, all on
+               the D 256, group 1 instance.
 
 Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
 entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
@@ -141,7 +160,8 @@ entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 ``rmsnorm/mixtral-serve``, ``decode_attention/mixtral-serve``,
 ``rmsnorm/ssm-serve``, ``rmsnorm/gemma3-serve``,
 ``decode_attention/gemma3-serve``, ``rmsnorm/gemma3-train``,
-``flash_attention/gemma3-train``, each with that path's
+``flash_attention/gemma3-train``, ``rmsnorm/deepseek-serve``,
+``decode_attention/deepseek-serve``, each with that path's
 launches and the kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -491,10 +511,11 @@ def tol_text(dtype_name: str) -> str:
     return f"rtol {TOL[dtype_name]['rtol']:.3g} atol {TOL[dtype_name]['atol']}"
 
 
-def attention_inputs(torch, B, Hq, Hkv, D, smax, lengths, dt, gen):
+def attention_inputs(torch, B, Hq, Hkv, D, smax, lengths, dt, gen, dv=None):
     q = torch.randn(B, Hq, D, generator=gen, device="cuda").to(dt)
     k = torch.randn(B, smax, Hkv, D, generator=gen, device="cuda").to(dt)
-    v = torch.randn(B, smax, Hkv, D, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, smax, Hkv, dv or D, generator=gen,
+                    device="cuda").to(dt)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     return q, k, v, lens
 
@@ -506,18 +527,23 @@ def in_turn(fn, arg_sets):
 
 
 def attention_case(torch, F, shape, lengths, dtype_name, gen,
-                   timed: bool = True, copies: int = 1) -> dict:
+                   timed: bool = True, copies: int = 1, dv=None) -> dict:
     """One decode-attention case; ``copies`` > 1 times the calls over that
     many caches in turn, so a cache that fits the 50 MB L2 is read cold
-    as a serving step reads it."""
+    as a serving step reads it.  ``dv``: v's head dim where it is not D
+    (MLA); the wrapper then pads q, k and v to one width, its time
+    includes those copies, and the kernel alone is timed on inputs padded
+    beforehand.  The bound counts the unpadded bytes."""
     from repro_torch.kernels import decode_attention as da
     B, Hq, Hkv, D, smax = shape
+    dv = dv or D
     dt = getattr(torch, dtype_name)
     q, k, v, lens = attention_inputs(torch, B, Hq, Hkv, D, smax, lengths,
-                                     dt, gen)
+                                     dt, gen, dv)
     got = da.decode_attention(q, k, v, lens)
     torch.cuda.synchronize()
-    what = f"decode_attention {shape} lengths {lengths} {dtype_name}"
+    what = (f"decode_attention {shape}{f' Dv {dv}' if dv != D else ''} "
+            f"lengths {lengths} {dtype_name}")
     err, differ = compare(torch, got,
                           da.decode_attention_plain(q, k, v, lens),
                           dtype_name, what)
@@ -542,17 +568,30 @@ def attention_case(torch, F, shape, lengths, dtype_name, gen,
         lambda ks, vs: F.scaled_dot_product_attention(
             q[:, :, None, :], ks, vs, attn_mask=mask), sdpa_kvs))
     del kvs, sdpa_kvs
+    alone = ""
+    if dv != D:
+        width = da.padded_head_dim(max(D, dv))
+        qp, kp, vp = (F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
+        kernel_ms = time_ms(torch, lambda: da._launch(
+            qp, kp, vp, lens, scale=1.0 / math.sqrt(D)))
+        alone = (f" (q/k {D} and v {dv} padded to {width} in the wrapper; "
+                 f"the kernel alone on inputs padded beforehand "
+                 f"{kernel_ms:.4f} ms, so the padding copies "
+                 f"{ms - kernel_ms:.4f} ms)")
+        del qp, kp, vp
     es = q.element_size()
     n_kv = sum(min(max(n, 0), smax) for n in lengths)
-    nbytes = n_kv * Hkv * 2 * D * es + 2 * q.numel() * es + 4 * B
-    flops = n_kv * Hq * 4.0 * D
+    nbytes = (n_kv * Hkv * (D + dv) * es + q.numel() * es
+              + B * Hq * dv * es + 4 * B)
+    flops = n_kv * Hq * 2.0 * (D + dv)
     bound_ms, bound_by = bound(nbytes, flops)
     cold = f"; {copies} caches in turn, read cold" if copies > 1 else ""
     say("kernels", f"decode_attention q {(B, Hq, D)} k/v "
-        f"{(B, smax, Hkv, D)} lengths {lengths} {dtype_name}: max_abs_err "
+        f"{(B, smax, Hkv, D)}{f' v Dv {dv}' if dv != D else ''} lengths "
+        f"{lengths} {dtype_name}: max_abs_err "
         f"{err:.3e} ({tol_text(dtype_name)}), not bit-equal {differ:.2e} "
         f"| kernel "
-        f"{ms:.4f} ms plain {plain_ms:.4f} ms library(SDPA) "
+        f"{ms:.4f} ms{alone} plain {plain_ms:.4f} ms library(SDPA) "
         f"{library_ms:.4f} ms bound {bound_ms:.5f} ms ({bound_by}, "
         f"{nbytes} B{cold}) | {grid_text}")
     return dict(max_abs_err=err, differ=differ, ms=ms, plain_ms=plain_ms,
@@ -724,6 +763,13 @@ def counts():
     return tuple(mod.launches for mod in kernel_modules())
 
 
+def decode_instances() -> dict:
+    """Decode-attention launches since ``reset_counts`` by the kernel
+    instance they took: (head dim as launched, group)."""
+    from repro_torch.kernels import decode_attention as da
+    return {k: n for k, n in da.variant_launches.items() if n}
+
+
 @contextlib.contextmanager
 def recorded_routes(log: list):
     """Append the experts every MoE layer picks (``layers.moe.route``,
@@ -766,6 +812,24 @@ def replayed_routes(log: list, agree: list):
         yield agree
 
 
+def cache_leaves(cache: dict) -> list:
+    """The K/V (latent, state) tensors of a ``decode_step`` cache: those
+    of the scanned blocks and of the prefix blocks (deepseek's first)."""
+    layers = list(cache["blocks"].values()) + [
+        lc for pc in cache.get("prefix", ()) for lc in pc.values()]
+    return [t for lc in layers for t in lc.values()]
+
+
+def clone_cache(cache: dict) -> dict:
+    def block(b):
+        return {s: {n: t.clone() for n, t in lc.items()}
+                for s, lc in b.items()}
+    out = {"blocks": block(cache["blocks"]), "len": cache["len"].clone()}
+    if "prefix" in cache:
+        out["prefix"] = [block(pc) for pc in cache["prefix"]]
+    return out
+
+
 def decode_launches_per_step(cfg):
     """(rmsnorm, decode_attention, flash_attention, ssd_scan) launches of
     one ``decode_step``: two RMSNorms a layer (norm1 and norm2 of a
@@ -778,7 +842,8 @@ def decode_launches_per_step(cfg):
 def model_check(torch, dtype_name: str, seed: int = 0,
                 profile: bool = False, reduced: bool = False,
                 arch: str = "qwen2-0.5b", depth=None, max_len: int = 512,
-                start_lens=(0, 37, 200, 500), steps: int = 6) -> dict:
+                start_lens=(0, 37, 200, 500), steps: int = 6,
+                profiled_steps: int = 5) -> dict:
     """``arch`` FULL (or REDUCED; at ``depth`` blocks if given):
     ``steps`` ``decode_step`` calls through the plain versions and
     through the kernels on the same weights, cache of ``max_len`` slots
@@ -801,13 +866,10 @@ def model_check(torch, dtype_name: str, seed: int = 0,
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     params = T.init_params(gen, cfg, device=DEVICE)
     cache = T.init_cache(cfg, B, max_len, device=DEVICE)
-    for lc in cache["blocks"].values():
-        for t in lc.values():
-            t.normal_(generator=gen)
+    for t in cache_leaves(cache):
+        t.normal_(generator=gen)
     cache["len"] = torch.tensor(start_lens, dtype=torch.int32, device=DEVICE)
-    plain_cache = {"blocks": {s: {n: t.clone() for n, t in lc.items()}
-                              for s, lc in cache["blocks"].items()},
-                   "len": cache["len"].clone()}
+    plain_cache = clone_cache(cache)
     toks = torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=gen,
                          device=DEVICE, dtype=torch.int32)
     worst, scale, agree = 0.0, 0.0, 0
@@ -841,10 +903,10 @@ def model_check(torch, dtype_name: str, seed: int = 0,
         worst = max(worst, float((logits.float() - plain.float()).abs().max()))
         scale = max(scale, float(plain.float().abs().max()))
         agree += int((logits.argmax(-1) == plain.argmax(-1)).sum())
-    smax = cache["blocks"]["l0"]["k"].shape[2] if "k" in \
-        cache["blocks"]["l0"] else None
+    lc = cache["blocks"]["l0"]
+    smax = next((lc[n].shape[2] for n in ("k", "c_kv") if n in lc), None)
     if profile:
-        profile_steps(torch, T, params, cfg, cache, toks[:5])
+        profile_steps(torch, T, params, cfg, cache, toks[:profiled_steps])
     del params, cache, plain_cache
     torch.cuda.empty_cache()
     return dict(cfg=cfg, batch=B, start_lens=start_lens, steps=steps,
@@ -852,6 +914,13 @@ def model_check(torch, dtype_name: str, seed: int = 0,
                 per_step=per_step, worst=worst, scale=scale, agree=agree,
                 rows=B * steps, ms_kernels=t_kern / (steps - 1) * 1e3,
                 ms_plain=t_plain / (steps - 1) * 1e3, routes=tuple(routes))
+
+
+def head_text(cfg) -> str:
+    if cfg.attn_kind == "mla":
+        return (f"MLA q/k {cfg.qk_nope_head_dim + cfg.qk_rope_head_dim} v "
+                f"{cfg.v_head_dim}")
+    return f"head dim {cfg.head_dim}"
 
 
 def model_readings(r: dict, dtype_name: str) -> str:
@@ -869,19 +938,21 @@ def model_readings(r: dict, dtype_name: str) -> str:
 def model_phase(torch, reduced: bool = False, phase: str = "model",
                 arch: str = "qwen2-0.5b", depths=None,
                 dtypes=("float32", "bfloat16"), hold_logits: bool = True,
-                profile=None, **shape) -> None:
+                profile=None, profiled_steps: int = 5, **shape) -> None:
     """``model_check`` in each of ``dtypes`` (at ``depths[dtype]`` blocks
     where given), held to LOGIT_TOL and ARGMAX_FLOOR, or to ARGMAX_FLOOR
     alone with ``hold_logits=False`` (the logits difference is then
     printed, not held); the bf16 FULL run also profiles its decode steps
     unless ``shape`` (``model_check``'s ``max_len``, ``start_lens``,
-    ``steps``) is given, or as ``profile`` says."""
+    ``steps``) is given, or as ``profile`` says, over ``profiled_steps``
+    decode steps."""
     for dtype_name in dtypes:
         r = model_check(torch, dtype_name, reduced=reduced, arch=arch,
                         depth=(depths or {}).get(dtype_name),
                         profile=(dtype_name == "bfloat16" and not reduced
                                  and not shape) if profile is None
-                        else profile, **shape)
+                        else profile, profiled_steps=profiled_steps,
+                        **shape)
         readings = model_readings(r, dtype_name)
         if (hold_logits and r["worst"] > LOGIT_TOL[dtype_name]) or \
                 r["agree"] < ARGMAX_FLOOR[dtype_name] * r["rows"]:
@@ -890,8 +961,8 @@ def model_phase(torch, reduced: bool = False, phase: str = "model",
             readings += " (the logits difference not held at this depth)"
         cfg = r["cfg"]
         say(phase, f"{arch} {'REDUCED' if reduced else 'FULL width'} "
-            f"({cfg.n_layers} layers, d {cfg.d_model}, head dim "
-            f"{cfg.head_dim}, vocab {cfg.vocab_size}) {dtype_name} batch "
+            f"({cfg.n_layers} layers, d {cfg.d_model}, {head_text(cfg)}, "
+            f"vocab {cfg.vocab_size}) {dtype_name} batch "
             f"{r['batch']} max_len {r['max_len']} ({r['smax']} slots) lens "
             f"{r['start_lens']}+{r['steps']} steps: "
             f"{readings}, launches/step rmsnorm {r['per_step'][0]} "
@@ -955,11 +1026,12 @@ def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
     under each broken kernel of CONTROLS and with one of the two kernels
     at a time (``one_kernel``), for each dtype of ``depths`` (in blocks;
     by default the arch's smoke depths and, for gemma3-12b, bf16 also at
-    all 48 layers).  Prints them and checks nothing (``python3
-    chip_smoke.py --limits [arch]``)."""
+    all 48 layers; deepseek-v2-lite-16b's bf16 depth is all 27).  Prints
+    them and checks nothing (``python3 chip_smoke.py --limits [arch]``)."""
     if depths is None:
         ats = {"mixtral-8x7b": (MIXTRAL_DEPTHS,),
-               "gemma3-12b": (GEMMA_DEPTHS, {"bfloat16": None})}[arch]
+               "gemma3-12b": (GEMMA_DEPTHS, {"bfloat16": None}),
+               DEEPSEEK: (DEEPSEEK_DEPTHS,)}[arch]
     else:
         ats = (depths,)
     runs = ([(seed, None) for seed in seeds] + [(0, k) for k in CONTROLS]
@@ -981,10 +1053,86 @@ def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
                     f"layers {what}: " + model_readings(r, dtype_name))
 
 
+# profiler ranges around the MoE FFNs and the attention wrappers' padding
+RANGES = ("moe_forward", "attend_padded")
+
+
+@contextlib.contextmanager
+def named_ranges():
+    """Run each MoE FFN (``moe_forward``) and each attention wrapper's
+    padding (``attend_padded``, the kernel launch inside it) in a
+    ``torch.profiler.record_function`` range of that name, so that a
+    profile can tell their kernels from the rest."""
+    from torch.profiler import record_function
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+    with contextlib.ExitStack() as stack:
+        for mod, name in ((T, RANGES[0]), (da, RANGES[1]), (fa, RANGES[1])):
+            def ranged(*args, _fn=getattr(mod, name), _name=name, **kw):
+                with record_function(_name):
+                    return _fn(*args, **kw)
+            stack.enter_context(mock.patch.object(mod, name, ranged))
+        yield
+
+
+def ranged_ms(prof, steps: int) -> dict:
+    """Device ms a step of the profile's matrix products inside an MoE FFN
+    and of the kernels inside the attention wrappers' padding other than
+    the attention kernel (the padding copies and the output's slice): each
+    kernel attributed through the PyTorch op that launched it and that
+    op's enclosing ranges.  None where no kernel was attributed."""
+    expert = pad = 0.0
+    found = False
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None)
+        if not kernels:
+            continue
+        found = True
+        names, p = set(), e
+        while p is not None:
+            names.add(p.name)
+            p = p.cpu_parent
+        for k in kernels:
+            kname = k.name.lower()
+            if any(w in kname for w in ("decode_attention",
+                                        "flash_attention", "rmsnorm")):
+                continue
+            if RANGES[0] in names and any(w in kname for w in GEMM_WORDS):
+                expert += k.duration
+            elif RANGES[1] in names:
+                pad += k.duration
+    if not found:
+        return {"moe ffn gemm": None, "padding copies": None}
+    return {"moe ffn gemm": expert / 1e3 / steps,
+            "padding copies": pad / 1e3 / steps}
+
+
+def expert_bound_text(params, expert_ms) -> str:
+    """The MoE FFNs' weights (``blocks.<r>.<slot>.ffn.*``: the routed
+    experts, which dense dispatch reads whole every step, the shared
+    experts and the router) against the profile's matrix products inside
+    ``moe_forward``, which are those of the same three; empty for a model
+    without MoE FFNs."""
+    nbytes = sum(p.numel() * p.element_size()
+                 for n, p in params.named_parameters()
+                 if re.fullmatch(r"blocks\.\d+\.l\d+\.ffn\..+", n))
+    if not nbytes or not expert_ms:
+        return ""
+    ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (f"; MoE FFN weights (routed and shared experts, router) "
+            f"{nbytes / 1e9:.2f} GB: bound {ms:.3f} ms (their products "
+            f"{expert_ms / ms:.2f}x it)")
+
+
 def profile_steps(torch, T, params, cfg, cache, toks) -> None:
     """Where a decode step's time goes: wall time per step without and
     with torch.profiler, and the profiled device time by kernel family
-    (busy share = device kernel time / wall time)."""
+    (busy share = device kernel time / wall time).  The products inside
+    a MoE FFN (routed and shared experts, router), and the copies of a
+    padded attention head dim, are set apart from the matrix products and
+    "other" (``named_ranges``)."""
     from torch.profiler import ProfilerActivity, profile
     steps = toks.shape[0]
     sync(torch)
@@ -994,8 +1142,8 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
     sync(torch)
     wall = (time.perf_counter() - t0) / steps
     cache["len"] = cache["len"] - steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with named_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for s in range(steps):
             _, cache = T.decode_step(params, cfg, toks[s], cache)
@@ -1012,7 +1160,7 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
                        if n != "embed" or cfg.tie_embeddings)
     weight_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     for e in prof.key_averages():
-        if "cuda" not in str(e.device_type).lower():
+        if "cuda" not in str(e.device_type).lower() or e.key in RANGES:
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1031,6 +1179,14 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
         say("profile", f"decode_step wall {wall * 1e3:.2f} ms; device time "
             f"not measured (the profiler saw no device kernels)")
         return
+    apart = ranged_ms(prof, steps)
+    for fam, whole in (("moe ffn gemm", "gemm"), ("padding copies", "other")):
+        if apart[fam] is not None:
+            families[whole] -= apart[fam]
+        families[fam] = apart[fam]
+    if apart["moe ffn gemm"] == 0.0 and cfg.ffn_kind == "moe":
+        fail(f"profile: no matrix product attributed to {cfg.name}'s MoE "
+             f"FFNs")
     say("profile", f"{cfg.name} FULL width, {cfg.n_layers} layers, bf16 "
         f"decode_step, batch 4: wall "
         f"{wall * 1e3:.2f} ms/step ({wall_prof * 1e3:.2f} ms under the "
@@ -1038,9 +1194,11 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
         f"({n_kernels / steps:.0f} launches/step, busy share "
         f"{busy / (wall_prof * 1e3):.1%} of profiled wall, "
         f"{busy / (wall * 1e3):.1%} of unprofiled): "
-        + ", ".join(f"{k} {v:.3f} ms" for k, v in families.items())
+        + ", ".join(f"{k} {'not measured' if v is None else f'{v:.3f} ms'}"
+                    for k, v in families.items())
         + f" | weights {weight_bytes / 1e9:.2f} GB, read once a step: "
-        f"bound {weight_ms:.3f} ms (device time {busy / weight_ms:.2f}x it)")
+        f"bound {weight_ms:.3f} ms (device time {busy / weight_ms:.2f}x it)"
+        + expert_bound_text(params, families["moe ffn gemm"]))
     top = sorted(per_kernel, reverse=True)[:6]
     say("profile", "top kernels by device ms/step: " + "; ".join(
         f"{name[:60]} x{n} {ms:.3f} ms" for ms, n, name in top))
@@ -1049,11 +1207,16 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
 # -- 5. serve -----------------------------------------------------------------
 
 def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
-                arch: str = "qwen2-0.5b", depth=None, max_len: int = 512):
-    """8 chat-trace requests served through ``launch.serve.serve`` in
+                arch: str = "qwen2-0.5b", depth=None, max_len: int = 512,
+                requests: int = 8, prompt_cap: int = 128,
+                gen_cap: int = 64, instances=None):
+    """``requests`` chat-trace requests (prompts cut to ``prompt_cap``,
+    outputs to ``gen_cap``) served through ``launch.serve.serve`` in
     bf16 (at ``depth`` blocks if given) with caches of ``max_len``
     slots; every request must finish with its token count, and every
-    step must launch exactly its kernels."""
+    step must launch exactly its kernels; with ``instances`` ((head dim,
+    group) of the decode kernel), every decode attention on that
+    instance."""
     import dataclasses
 
     from repro_torch.launch.serve import serve
@@ -1063,11 +1226,12 @@ def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
     vocab = cfg.vocab_size
     torch.cuda.empty_cache()
     reset_counts()
-    report, reqs = serve(arch=arch, size=size, requests=8,
-                         max_batch=4, max_len=max_len, prompt_cap=128,
-                         gen_cap=64, seed=0, device=DEVICE,
+    report, reqs = serve(arch=arch, size=size, requests=requests,
+                         max_batch=4, max_len=max_len, prompt_cap=prompt_cap,
+                         gen_cap=gen_cap, seed=0, device=DEVICE,
                          log=lambda s: None, depth=depth)
     launched = counts()
+    seen = decode_instances()
     if len(report.results) != len(reqs):
         fail(f"{phase}: {len(report.results)} of {len(reqs)} finished")
     by_rid = {r["rid"]: r for r in reqs}
@@ -1086,8 +1250,11 @@ def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
              f"expected {want} ({per_step} a step)")
     if min(launched[:2]) <= 0:
         fail(f"{phase}: a kernel was never launched: {launched}")
-    say(phase, f"{arch} {size.upper()} ({cfg.n_layers} layers, head "
-        f"dim {cfg.head_dim}, max_len {max_len}) bf16 on {smi}: "
+    if instances is not None and set(seen) != {instances}:
+        fail(f"{phase}: decode attention launched on (head dim, group) "
+             f"{seen}, expected only {instances}")
+    say(phase, f"{arch} {size.upper()} ({cfg.n_layers} layers, "
+        f"{head_text(cfg)}, max_len {max_len}) bf16 on {smi}: "
         f"{len(report.results)} "
         f"requests (prompts {[len(r['prompt']) for r in reqs]}, gen "
         f"{[r['gen_len'] for r in reqs]}) in {report.total_time:.3f} s, "
@@ -1098,7 +1265,7 @@ def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
         f"{report.tpot_mean * 1e3:.2f} ms throughput "
         f"{report.throughput:.1f} tok/s | launches rmsnorm {launched[0]} "
         f"decode_attention {launched[1]} ({per_step[0]} and {per_step[1]} "
-        f"a step)")
+        f"a step; decode instances by (head dim, group) {seen})")
     return launched
 
 
@@ -1107,12 +1274,17 @@ def reduced_phase(torch, smi: str) -> None:
     zero-padded (decode to 64, flash to 16).  mixtral-8x7b REDUCED, head
     dim 16 (decode pads it to 64), window 16: its ring caches hold 32
     slots, so the served prompts (up to 128 tokens) wrap them, and its
-    train step runs the flash kernel with the window."""
-    for arch in ("qwen2-0.5b", "mixtral-8x7b"):
+    train step runs the flash kernel with the window.  deepseek-v2-lite-16b
+    REDUCED (MLA: q and k 24 wide, v 16, both padded to 64 by the decode
+    wrapper; a dense prefix layer): logits and serve (the port does not
+    train MLA)."""
+    from repro_torch import configs as C
+    for arch in ("qwen2-0.5b", "mixtral-8x7b", DEEPSEEK):
         model_phase(torch, reduced=True, phase="reduced", arch=arch)
         serve_phase(torch, smi, size="reduced", phase="reduced", arch=arch)
-        train_parity_phase(torch, dict(TRAIN, arch=arch), phase="reduced",
-                           reduced=True)
+        if C.get_reduced(arch).attn_kind != "mla":
+            train_parity_phase(torch, dict(TRAIN, arch=arch),
+                               phase="reduced", reduced=True)
 
 
 # -- profile ------------------------------------------------------------------
@@ -1222,27 +1394,31 @@ FLASH_CASES = (
 )
 
 
-def flash_inputs(torch, case, dt, gen):
+def flash_inputs(torch, case, dt, gen, dv=None):
     B, Sq, Skv, Hq, Hkv, D, _, _ = case
     q = torch.randn(B, Sq, Hq, D, generator=gen, device="cuda").to(dt)
     k = torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda").to(dt)
-    v = torch.randn(B, Skv, Hkv, D, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, Skv, Hkv, dv or D, generator=gen,
+                    device="cuda").to(dt)
     return q, k, v
 
 
-def flash_case(torch, F, case, dtype_name, gen, timed: bool = True) -> dict:
+def flash_case(torch, F, case, dtype_name, gen, timed: bool = True,
+               dv=None) -> dict:
+    """One flash-attention case; ``dv``: v's head dim where it is not D
+    (MLA), untimed only."""
     from repro_torch.kernels import flash_attention as fa
     B, Sq, Skv, Hq, Hkv, D, window, q_offset = case
     dt = getattr(torch, dtype_name)
-    q, k, v = flash_inputs(torch, case, dt, gen)
+    q, k, v = flash_inputs(torch, case, dt, gen, dv)
     kw = dict(causal=True, window=window, q_offset=q_offset)
     out, lse = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want_out, want_lse = fa.flash_attention_plain(q, k, v, **kw)
-    what = f"flash_attention {case} {dtype_name}"
+    what = f"flash_attention {case}{f' Dv {dv}' if dv else ''} {dtype_name}"
     err, differ = compare(torch, out, want_out, dtype_name, what)
     lse_err, _ = compare(torch, lse, want_lse, "float32", what + " lse")
-    if not timed:
+    if not timed or dv:
         return dict(max_abs_err=max(err, lse_err))
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), inner=5,
                  reps=11)
@@ -1953,6 +2129,127 @@ def gemma3_phase(torch, smi: str):
     return served, trained
 
 
+# -- 13. deepseek ---------------------------------------------------------
+
+DEEPSEEK = "deepseek-v2-lite-16b"
+# deepseek-v2-lite-16b at full width is 15.7 B parameters, 31.4 GB in
+# bf16: one H100 holds all 27 layers.  fp32 at 4 (the dense prefix layer
+# and 3 MoE layers; 7.4 GB)
+DEEPSEEK_DEPTHS = {"float32": 4, "bfloat16": None}
+# forward (the flash kernel with q/k 192 wide, v 128) at the prefix and one
+# MoE layer, bf16
+DEEPSEEK_FORWARD = dict(depth=2, batch=2, seq=256)
+DEEPSEEK_SERVE = dict(requests=4, prompt_cap=64, gen_cap=16, max_len=512)
+# decode attention at the serve run's shape: q (4, 16, 192) against the
+# expanded keys (4, 512, 16, 192) and values (4, 512, 16, 128), Hkv = H
+# (group 1); the wrapper pads all three to 256.  RMSNorm at d 2048
+DEEPSEEK_DECODE = (4, 16, 16, 192, 512)
+DEEPSEEK_DV = 128
+DEEPSEEK_INSTANCE = (256, 1)
+DEEPSEEK_NORM = (4, 1, 2048)
+
+
+def forward_check(torch, arch: str, depth: int, batch: int, seq: int,
+                  dtype_name: str = "bfloat16", seed: int = 0) -> dict:
+    """``forward`` of ``arch`` FULL at ``depth`` blocks over seeded
+    (batch, seq) tokens, without gradients, through the plain versions
+    and through the kernels (the kernel run taking the plain run's MoE
+    routes); fails on the launches, on logits that are not finite, or
+    beyond LOGIT_TOL / ARGMAX_FLOOR."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(C.get_config(arch), dtype=dtype_name,
+                              block_repeat=depth)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = T.init_params(gen, cfg, device=DEVICE)
+    toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    attn = sum(s.kind == "attn" for s in cfg.block_pattern) * depth
+    want = (2 * cfg.n_layers + 1, 0, attn, 0)
+    log, routes = [], [0, 0]
+    reset_counts()
+    with torch.no_grad():
+        with plain_kernels(), recorded_routes(log):
+            plain = T.forward(params, cfg, toks)
+        if any(counts()):
+            fail("forward: the plain run launched a kernel")
+        with replayed_routes(log, routes):
+            logits = T.forward(params, cfg, toks)
+    sync(torch)
+    if counts() != want:
+        fail(f"forward: launches {counts()}, expected {want}")
+    if not bool(torch.isfinite(logits).all()):
+        fail("forward: logits not finite")
+    worst = float((logits.float() - plain.float()).abs().max())
+    agree = int((logits.argmax(-1) == plain.argmax(-1)).sum())
+    r = dict(cfg=cfg, worst=worst, scale=float(plain.float().abs().max()),
+             agree=agree, rows=batch * seq, routes=tuple(routes),
+             launches=want)
+    del params, plain, logits
+    torch.cuda.empty_cache()
+    readings = model_readings(r, dtype_name)
+    if r["worst"] > LOGIT_TOL[dtype_name] or \
+            agree < ARGMAX_FLOOR[dtype_name] * r["rows"]:
+        fail(f"forward {arch} {dtype_name}: {readings}")
+    return dict(r, readings=readings)
+
+
+def deepseek_phase(torch, F, smi: str):
+    """deepseek-v2-lite-16b (MLA over latent caches; a dense first layer
+    before 26 MoE layers of 64 experts, top-6, 2 shared) at full width on
+    seeded random weights, after gemma3's memory is freed: (a) decode
+    attention at MLA's shapes (q/k 192 and v 128, REDUCED 24 and 16, each
+    padded by the wrapper) against the plain version, and at the serve
+    shape timed, the padding copies apart; the flash kernel at those
+    shapes; (b) ``decode_step`` logits kernels vs plain, fp32 at 4 layers
+    and bf16 at all 27, held to LOGIT_TOL and ARGMAX_FLOOR, with a
+    profiled bf16 step (device ms by family beside the 9.38 ms it takes to
+    read the 31.4 GB of weights once); (c) ``forward`` in bf16 at 2 layers,
+    B 2 x S 256, kernels vs plain; (d) 4 chat requests served at all 27
+    layers, 55 RMSNorms and 27 decode attentions a step, every one on the
+    D 256, group 1 instance.  Returns the serve run's launches and the
+    timed cases."""
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for dtype_name in ("float32", "bfloat16"):
+        for D, dv, H in ((24, 16, 4), (192, 128, 16)):
+            r = attention_case(torch, F, (3, H, H, D, 300), [1, 129, 300],
+                               dtype_name, gen, timed=False, dv=dv)
+            worst[dtype_name] = max(worst[dtype_name], r["max_abs_err"])
+            for window, q_offset in ((None, 0), (19, 5)):
+                r = flash_case(torch, F, (2, 77, 77 + q_offset, H, H, D,
+                                          window, q_offset), dtype_name,
+                               gen, timed=False, dv=dv)
+                worst[dtype_name] = max(worst[dtype_name], r["max_abs_err"])
+            n += 3
+    say("deepseek", f"MLA head dims: {n} cases (decode attention and flash, "
+        f"q/k 24 and v 16 padded to 64 (flash 32), q/k 192 and v 128 padded "
+        f"to 256, group 1, fp32 and bf16) all within tolerance, worst "
+        f"max_abs_err fp32 {worst['float32']:.3e} bf16 "
+        f"{worst['bfloat16']:.3e}")
+    for dtype_name in ("float32", "bfloat16"):
+        results[("decode_attention", DEEPSEEK_DECODE, dtype_name)] = \
+            attention_case(torch, F, DEEPSEEK_DECODE, [1, 77, 300, 512],
+                           dtype_name, gen, dv=DEEPSEEK_DV)
+    # a profiled step makes ~13k launches: the profiler's events of two
+    # steps, not five, keep its reading short
+    model_phase(torch, phase="deepseek", arch=DEEPSEEK,
+                depths=DEEPSEEK_DEPTHS, profiled_steps=2)
+    r = forward_check(torch, DEEPSEEK, **DEEPSEEK_FORWARD)
+    say("deepseek", f"forward {DEEPSEEK} FULL width ({r['cfg'].n_layers} "
+        f"layers) bf16 B {DEEPSEEK_FORWARD['batch']} x S "
+        f"{DEEPSEEK_FORWARD['seq']}: {r['readings']}, launches rmsnorm "
+        f"{r['launches'][0]} flash_attention {r['launches'][2]}")
+    served = serve_phase(torch, smi, phase="deepseek", arch=DEEPSEEK,
+                         instances=DEEPSEEK_INSTANCE, **DEEPSEEK_SERVE)
+    return served, results
+
+
 def main() -> int:
     try:
         import torch
@@ -1999,6 +2296,8 @@ def main() -> int:
     mixtral = mixtral_phase(torch, smi)
     ssm_served = ssm_serve_phase(torch, smi)
     gemma_served, gemma_trained = gemma3_phase(torch, smi)
+    deepseek_served, deepseek_results = deepseek_phase(torch, F, smi)
+    results.update(deepseek_results)
 
     # one entry per kernel and path: the path's launches, read right after
     # its run, beside the kernel's numbers at that path's bf16 shape
@@ -2058,6 +2357,10 @@ def main() -> int:
          gemma_trained[0]),
         ("flash_attention", "gemma3-train", (GEMMA_FLASH,),
          gemma_trained[2]),
+        ("rmsnorm", "deepseek-serve", ("rmsnorm", DEEPSEEK_NORM),
+         deepseek_served[0]),
+        ("decode_attention", "deepseek-serve",
+         ("decode_attention", DEEPSEEK_DECODE), deepseek_served[1]),
     )
     kernels = []
     for name, path, key, n in paths:

@@ -3,7 +3,9 @@
 ``model_ir`` is a copy of ``ModelConfig.to_ir`` in
 ``repro/models/config.py`` for the families the port has configs for:
 GQA decoders with a dense FFN (attention + MLP cells) or a MoE FFN
-(attention + MoE cells), and Mamba2 (SSM cells).  The
+(attention + MoE cells), MLA decoders (MLA + MoE cells; like the
+reference, the block repeats ``block_repeat`` times and the dense
+prefix block is not modelled), and Mamba2 (SSM cells).  The
 reference's method cannot be called here: ``repro.models`` loads JAX.
 """
 
@@ -15,10 +17,10 @@ from repro_torch.models.config import ModelConfig
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """Raise for a config outside the GQA (dense or MoE FFN) and SSM
-    families."""
+    """Raise for a config outside the GQA or MLA (dense or MoE FFN) and
+    SSM families."""
     unsupported = []
-    if cfg.attn_kind != "gqa":
+    if cfg.attn_kind not in ("gqa", "mla"):
         unsupported.append(f"attn_kind={cfg.attn_kind!r}")
     if cfg.ffn_kind not in ("dense", "moe", "none"):
         unsupported.append(f"ffn_kind={cfg.ffn_kind!r}")
@@ -29,8 +31,8 @@ def _check_family(cfg: ModelConfig) -> None:
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: no IR for {', '.join(unsupported)}; the port has "
-            f"configs for dense GQA decoders, MoE GQA decoders and Mamba2 "
-            f"only")
+            f"configs for dense GQA decoders, MoE GQA and MLA decoders and "
+            f"Mamba2 only")
 
 
 def model_ir(cfg: ModelConfig) -> IR.ModelIR:
@@ -46,11 +48,19 @@ def model_ir(cfg: ModelConfig) -> IR.ModelIR:
                 n_ssd_heads=cfg.n_ssd_heads, d_conv=cfg.d_conv,
                 n_groups=cfg.n_ssm_groups))
             continue
-        cells.append(IR.AttentionCell(
-            name=f"attn{i}", d_model=cfg.d_model,
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim,
-            qkv_bias=cfg.qkv_bias, window=spec.window, rope=cfg.rope))
+        if cfg.attn_kind == "mla":
+            cells.append(IR.MLACell(
+                name=f"mla{i}", d_model=cfg.d_model,
+                n_heads=cfg.n_heads, kv_lora_rank=cfg.kv_lora_rank,
+                qk_nope_head_dim=cfg.qk_nope_head_dim,
+                qk_rope_head_dim=cfg.qk_rope_head_dim,
+                v_head_dim=cfg.v_head_dim))
+        else:
+            cells.append(IR.AttentionCell(
+                name=f"attn{i}", d_model=cfg.d_model,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim,
+                qkv_bias=cfg.qkv_bias, window=spec.window, rope=cfg.rope))
         if cfg.ffn_kind == "moe":
             cells.append(IR.MoECell(
                 name=f"moe{i}", d_model=cfg.d_model,

@@ -4,7 +4,8 @@ miniature for CPU tests), copied from ``repro/configs``.
 
 The port carries the dense GQA decoders (gemma3-12b among them, with
 its blocks of five sliding-window layers and one global layer), the
-attention-free Mamba2 model and the MoE decoder mixtral-8x7b; the other
+attention-free Mamba2 model, the MoE decoder mixtral-8x7b and the MLA
+decoder deepseek-v2-lite-16b (64 experts, a dense first layer); the other
 architectures of the JAX registry arrive with the slices that port
 their layers.
 """
@@ -23,6 +24,7 @@ ARCHS: List[str] = [
     "mamba2_2_7b",
     "mixtral_8x7b",
     "gemma3_12b",
+    "deepseek_v2_lite_16b",
 ]
 
 # canonical ids as given in the assignment -> module names
@@ -33,6 +35,7 @@ ALIASES = {
     "mamba2-2.7b": "mamba2_2_7b",
     "mixtral-8x7b": "mixtral_8x7b",
     "gemma3-12b": "gemma3_12b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 

@@ -4,7 +4,11 @@ The reference's pytrees are nested dicts with the repeating block's
 parameters stacked on a leading R axis; the port's ``Transformer`` keeps
 one module per block, so its parameter ``blocks.<r>.l0.attn.wq`` is
 ``tree["blocks"]["l0"]["attn"]["wq"][r]`` (a Mamba2 layer's
-``blocks.<r>.l0.mixer.w_x`` likewise).  Into the port,
+``blocks.<r>.l0.mixer.w_x`` likewise).  The reference keeps a model's
+unscanned prefix blocks (deepseek's dense first layer) as the list
+``tree["prefix"]``, without an R axis: the port's
+``prefix.<i>.l0.attn.wukv`` is ``tree["prefix"][i]["l0"]["attn"]["wukv"]``,
+and a cache's ``prefix`` list is carried alike.  Into the port,
 ``params_from_jax`` and ``cache_from_jax`` take host numpy arrays
 (``jax.device_get(tree)``); the way back, ``params_to_numpy``, gives the
 same layout as host numpy.  bf16 crosses as raw bits, with no rounding
@@ -63,54 +67,72 @@ def _ffn_dict(tree: Mapping, device, r: int) -> nn.ParameterDict:
     return MoEParams(_param_dict(routed, device, r), shared)
 
 
+def _block(block_tree: Mapping, cfg: ModelConfig, device,
+           r: Optional[int]) -> nn.ModuleDict:
+    """One block's layers from the reference's tree: slice ``r`` of the
+    stacked leaves, or the leaves themselves (a prefix block) for None."""
+    def leaf(a):
+        return _param(a if r is None else np.asarray(a)[r], device)
+
+    layers = {}
+    for i, spec in enumerate(cfg.block_pattern):
+        lt = block_tree[f"l{i}"]
+        if spec.kind == "ssm":
+            layers[f"l{i}"] = SSMLayer(leaf(lt["norm1"]),
+                                       _param_dict(lt["mixer"], device, r))
+            continue
+        layers[f"l{i}"] = DecoderLayer(
+            leaf(lt["norm1"]), _param_dict(lt["attn"], device, r),
+            leaf(lt["norm2"]), _ffn_dict(lt["ffn"], device, r))
+    return nn.ModuleDict(layers)
+
+
 def params_from_jax(tree: Mapping, cfg: ModelConfig,
                     device=None) -> Transformer:
     """The port's ``Transformer`` holding the reference's weights.
 
     ``tree`` is ``jax.device_get(repro.models.transformer.init_params(
-    key, cfg))`` for a config the port carries (GQA with a dense or MoE
-    FFN, or Mamba2)."""
+    key, cfg))`` for a config the port carries (GQA or MLA with a dense
+    or MoE FFN and prefix blocks, or Mamba2)."""
     check_supported(cfg)
-    blocks = nn.ModuleList()
-    for r in range(cfg.block_repeat):
-        layers = {}
-        for i, spec in enumerate(cfg.block_pattern):
-            lt = tree["blocks"][f"l{i}"]
-            if spec.kind == "ssm":
-                layers[f"l{i}"] = SSMLayer(
-                    _param(np.asarray(lt["norm1"])[r], device),
-                    _param_dict(lt["mixer"], device, r))
-                continue
-            layers[f"l{i}"] = DecoderLayer(
-                _param(np.asarray(lt["norm1"])[r], device),
-                _param_dict(lt["attn"], device, r),
-                _param(np.asarray(lt["norm2"])[r], device),
-                _ffn_dict(lt["ffn"], device, r))
-        blocks.append(nn.ModuleDict(layers))
+    blocks = nn.ModuleList(
+        _block(tree["blocks"], cfg, device, r)
+        for r in range(cfg.block_repeat - cfg.first_k_dense))
+    prefix = (nn.ModuleList(_block(b, cfg, device, None)
+                            for b in tree["prefix"])
+              if "prefix" in tree else None)
     head = _param(tree["head"], device) if "head" in tree else None
     return Transformer(_param(tree["embed"], device),
-                       _param(tree["final_norm"], device), blocks, head)
+                       _param(tree["final_norm"], device), blocks, head,
+                       prefix)
 
 
 def cache_from_jax(tree: Mapping, device=None) -> dict:
     """The port's cache from the reference's ``init_cache``/``prefill``
-    cache pytree (attention and SSM layers): same keys, shapes and
-    dtypes."""
-    return {
-        "blocks": {slot: {name: to_torch(a, device)
-                          for name, a in lc.items()}
-                   for slot, lc in tree["blocks"].items()},
-        "len": to_torch(tree["len"], device).to(torch.int32),
-    }
+    cache pytree (attention, MLA and SSM layers, and the prefix blocks'
+    list): same keys, shapes and dtypes."""
+    def block(b: Mapping) -> dict:
+        return {slot: {name: to_torch(a, device) for name, a in lc.items()}
+                for slot, lc in b.items()}
+
+    cache = {"blocks": block(tree["blocks"]),
+             "len": to_torch(tree["len"], device).to(torch.int32)}
+    if "prefix" in tree:
+        cache["prefix"] = [block(b) for b in tree["prefix"]]
+    return cache
 
 
-def jax_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+def jax_path(name: str) -> Tuple[Tuple, Optional[int]]:
     """A port parameter name -> (its path in the JAX pytree, its block
     index or None): ``blocks.3.l0.attn.wq`` -> ``(("blocks", "l0",
-    "attn", "wq"), 3)``, ``embed`` -> ``(("embed",), None)``."""
+    "attn", "wq"), 3)``, ``prefix.0.l0.attn.wukv`` -> ``(("prefix", 0,
+    "l0", "attn", "wukv"), None)`` (a list index), ``embed`` ->
+    ``(("embed",), None)``."""
     parts = name.split(".")
     if parts[0] == "blocks":
         return ("blocks", *parts[2:]), int(parts[1])
+    if parts[0] == "prefix":
+        return ("prefix", int(parts[1]), *parts[2:]), None
     return tuple(parts), None
 
 
@@ -120,7 +142,7 @@ def _lookup(tree: Mapping, path: Tuple[str, ...]):
     return tree
 
 
-def _insert(tree: dict, path: Tuple[str, ...], leaf) -> None:
+def _insert(tree: dict, path: Tuple, leaf) -> None:
     for key in path[:-1]:
         tree = tree.setdefault(key, {})
     tree[path[-1]] = leaf
@@ -129,7 +151,8 @@ def _insert(tree: dict, path: Tuple[str, ...], leaf) -> None:
 def to_jax_layout(named: Mapping[str, torch.Tensor]) -> dict:
     """Tensors keyed by port parameter name (``named_parameters()``) ->
     the JAX pytree layout: nested dicts, each block tensor stacked over
-    the blocks on a leading R axis.  Leaves are detached torch tensors."""
+    the blocks on a leading R axis, and the prefix blocks a list.  Leaves
+    are detached torch tensors."""
     tree: dict = {}
     stacks: dict = {}
     for name, t in named.items():
@@ -140,6 +163,9 @@ def to_jax_layout(named: Mapping[str, torch.Tensor]) -> dict:
             stacks.setdefault(path, {})[r] = t.detach()
     for path, by_r in stacks.items():
         _insert(tree, path, torch.stack([by_r[r] for r in range(len(by_r))]))
+    if "prefix" in tree:       # {0: block, 1: ...} -> [block, ...]
+        tree["prefix"] = [tree["prefix"][i]
+                          for i in range(len(tree["prefix"]))]
     return tree
 
 
@@ -155,9 +181,11 @@ def from_jax_layout(tree: Mapping, names: Iterable[str]) -> dict:
 
 
 def map_tree(fn: Callable, tree):
-    """``fn`` applied to every leaf of a tree of nested dicts."""
+    """``fn`` applied to every leaf of a tree of nested dicts and lists."""
     if isinstance(tree, Mapping):
         return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -174,9 +202,10 @@ def params_to_numpy(params: Transformer, cfg: ModelConfig) -> dict:
     numpy arrays (bf16 leaves as raw ``uint16`` bits): the tree that
     ``params_from_jax`` takes, so the two round-trip bit for bit."""
     check_supported(cfg)
-    if len(params.blocks) != cfg.block_repeat:
+    if len(params.blocks) != cfg.block_repeat - cfg.first_k_dense:
         raise ValueError(f"{len(params.blocks)} blocks, config has "
-                         f"{cfg.block_repeat}")
+                         f"{cfg.block_repeat - cfg.first_k_dense} after "
+                         f"{cfg.first_k_dense} prefix blocks")
     return map_tree(to_numpy, to_jax_layout(dict(params.named_parameters())))
 
 

@@ -18,10 +18,13 @@ A head dim the kernel is not built for (the REDUCED configs' 8, 16 and
 24; 32; zamba2's 112) runs zero-padded to the next one it is
 (``padded_head_dim``; ``attend_padded``), with the scale ``1/sqrt(D)`` of
 the true D and the output sliced back: zero columns add nothing to
-``q . k`` and give zero output columns.  Cost: the padding copies the
-whole K/V cache on every call, 64 / D times its bytes, so it is for the
-REDUCED configs; the FULL configs' head dims (64, 128, gemma3's 256)
-copy nothing.  A head dim above 256 raises.
+``q . k`` and give zero output columns.  The kernel takes one head dim
+for q, k and v, so a value head dim Dv below D (MLA: q and k 192 wide, v
+128) pads v to the same width as q and k and slices the output back to
+Dv.  Cost: the padding copies the whole K/V cache on every call, 64 / D
+times its bytes, so it is for the REDUCED configs and MLA (192 and 128
+to 256); the other FULL configs' head dims (64, 128, gemma3's 256) copy
+nothing.  A head dim above 256 raises.
 """
 
 from __future__ import annotations
@@ -37,6 +40,9 @@ import torch.nn.functional as F
 from . import build
 
 launches = 0
+# launches by the kernel instance they took, (head dim as launched,
+# group), so a run can show which one its path took
+variant_launches: Dict[Tuple[int, int], int] = {}
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128, 256)
@@ -130,15 +136,18 @@ def padded_head_dim(d: int) -> int:
 
 def attend_padded(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   lengths: torch.Tensor) -> torch.Tensor:
-    """``fn(q, k, v, lengths, scale=1/sqrt(D))`` on q, k and v zero-padded
-    along D to ``padded_head_dim(D)``, the output sliced back to D.  No
-    copy where D is the kernel's own."""
-    D = q.shape[-1]
-    pad = padded_head_dim(D) - D
-    if pad:
-        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    """``fn(q, k, v, lengths, scale=1/sqrt(D))`` on q and k zero-padded
+    along D, and v along its own head dim Dv, to one width,
+    ``padded_head_dim(max(D, Dv))``; the output sliced back to Dv.  No
+    copy where D == Dv is the kernel's own."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    width = padded_head_dim(max(D, Dv))
+    if width != D:
+        q, k = (F.pad(t, (0, width - D)) for t in (q, k))
+    if width != Dv:
+        v = F.pad(v, (0, width - Dv))
     out = fn(q, k, v, lengths, scale=1.0 / math.sqrt(D))
-    return out[..., :D].contiguous() if pad else out
+    return out[..., :Dv].contiguous() if width != Dv else out
 
 
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -190,7 +199,8 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """Attention of q (B, Hq, D) over the first lengths[b] slots of
-    k/v (B, Smax, Hkv, D).  Returns (B, Hq, D) in q's dtype."""
+    k (B, Smax, Hkv, D) and v (B, Smax, Hkv, Dv).  Returns (B, Hq, Dv) in
+    q's dtype."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)
     if q.device.type != "cuda":
@@ -220,4 +230,5 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              Smax, D, span, splits, _DTYPE_CODES[q.dtype], scale, stream)
     build.check(err, "apex_decode_attention")
     launches += 1
+    variant_launches[D, group] = variant_launches.get((D, group), 0) + 1
     return out

@@ -24,9 +24,11 @@ zamba2's 112) runs zero-padded to the next one they are
 (``padded_head_dim``; ``attend_padded``): q, k and v get zero columns,
 the scale stays ``1/sqrt(D)`` of the true D, and ``out`` is sliced back.
 Zero columns add nothing to ``q . k`` and give zero output columns, so
-``out`` and ``lse`` are those of the unpadded call.  The padding copies
-q, k and v once per call, and only for such head dims.  A head dim above
-the largest kernel's raises.
+``out`` and ``lse`` are those of the unpadded call.  A value head dim Dv
+below D (MLA: q and k 192 wide, v 128) pads v to the width of q and k
+and slices ``out`` back to Dv.  The padding copies q, k and v once per
+call, and only for such head dims.  A head dim above the largest
+kernel's raises.
 """
 
 from __future__ import annotations
@@ -113,16 +115,19 @@ def padded_head_dim(d: int) -> int:
 
 def attend_padded(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   **kw) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``fn(q, k, v, scale=1/sqrt(D), **kw)`` on q, k and v zero-padded
-    along D to ``padded_head_dim(D)``, with ``out`` sliced back to D;
+    """``fn(q, k, v, scale=1/sqrt(D), **kw)`` on q and k zero-padded along
+    D, and v along its own head dim Dv, to one width,
+    ``padded_head_dim(max(D, Dv))``, with ``out`` sliced back to Dv;
     ``fn`` returns ``(out, lse)`` as ``flash_attention_plain`` does.  No
-    copy where D is a kernel's own."""
-    D = q.shape[-1]
-    pad = padded_head_dim(D) - D
-    if pad:
-        q, k, v = (F.pad(t, (0, pad)) for t in (q, k, v))
+    copy where D == Dv is a kernel's own."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    width = padded_head_dim(max(D, Dv))
+    if width != D:
+        q, k = (F.pad(t, (0, width - D)) for t in (q, k))
+    if width != Dv:
+        v = F.pad(v, (0, width - Dv))
     out, lse = fn(q, k, v, scale=1.0 / math.sqrt(D), **kw)
-    return (out[..., :D].contiguous() if pad else out), lse
+    return (out[..., :Dv].contiguous() if width != Dv else out), lse
 
 
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -197,8 +202,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     q_offset: int = 0
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention of q (B, Sq, Hq, D) over k/v (B, Skv, Hkv, D).  Returns
-    ``(out (B, Sq, Hq, D) in q's dtype, lse (B, Hq, Sq) fp32)``."""
+    """Attention of q (B, Sq, Hq, D) over k (B, Skv, Hkv, D) and v (B,
+    Skv, Hkv, Dv).  Returns ``(out (B, Sq, Hq, Dv) in q's dtype, lse (B,
+    Hq, Sq) fp32)``."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)

@@ -1,7 +1,8 @@
 """Serving entry point of the port: run the real engine on one card.
 
 Builds a config (default qwen2-0.5b at its FULL published size, or at
-the first ``depth`` blocks of it, as mixtral-8x7b needs on one H100),
+the first ``depth`` blocks of it, as mixtral-8x7b needs on one H100;
+deepseek-v2-lite-16b fits whole, 31.4 GB in bf16),
 draws random weights from a seeded ``torch.Generator``, serves
 chat-trace requests through ``ServingEngine`` and prints TTFT, TPOT and
 throughput.
@@ -37,12 +38,18 @@ def serve(arch: str = "qwen2-0.5b", size: str = "full",
     """Serve ``requests`` synthetic requests, all arriving at t=0; returns
     the engine's report and the requests as served (prompts cut to
     ``prompt_cap`` tokens, ``gen_len`` to ``gen_cap``).  ``depth`` cuts
-    the model to that many blocks at full width."""
+    the model to that many blocks at full width, prefix blocks
+    (deepseek's dense first layer) included, so it must exceed their
+    number."""
     if size not in ("full", "reduced"):
         raise ValueError(f"size must be 'full' or 'reduced', got {size!r}")
     dev = resolve_device(device)
     cfg = C.get_config(arch) if size == "full" else C.get_reduced(arch)
     if depth is not None:
+        if depth <= cfg.first_k_dense:
+            raise ValueError(f"depth {depth} keeps no block after "
+                             f"{cfg.name}'s {cfg.first_k_dense} prefix "
+                             f"block(s)")
         cfg = dataclasses.replace(cfg, block_repeat=depth)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = T.init_params(gen, cfg, device=dev)

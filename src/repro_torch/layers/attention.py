@@ -1,5 +1,5 @@
-"""GQA attention (``repro/layers/attention.py``): the full-sequence path
-for training and the decode step for serving.
+"""GQA and MLA attention (``repro/layers/attention.py``): the
+full-sequence path for training and the decode step for serving.
 
   * ``gqa_attention`` (training) projects, rotates and attends through
     ``blockwise_attention``, whose forward is
@@ -8,8 +8,14 @@ for training and the decode step for serving.
     is plain PyTorch, as the reference's custom VJP is XLA code.
   * ``gqa_decode_step`` (serving) writes the new token's K/V into the
     cache, then attends through ``repro_torch.kernels.decode_attention``.
+  * ``mla_attention`` and ``mla_decode_step`` are DeepSeek-V2's
+    multi-head latent attention over a cache of one latent ``c_kv`` and
+    one rotated RoPE key ``k_pe`` per token, which the step expands to
+    per-head keys (192 wide) and values (128) through ``wukv``, as the
+    reference does, and attends through the same two kernels (their
+    wrappers pad v to the width of q and k).
 
-MLA and M-RoPE come in later slices.
+M-RoPE comes in a later slice.
 """
 
 from __future__ import annotations
@@ -216,3 +222,119 @@ def gqa_decode_step(params: nn.ParameterDict, x: torch.Tensor,
                                         cache_v, n_valid)
     y = out.reshape(B, 1, n_heads * head_dim) @ params["wo"]
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, d_model: int, n_heads: int,
+             kv_lora_rank: int, qk_nope_head_dim: int = 128,
+             qk_rope_head_dim: int = 64, v_head_dim: int = 128,
+             dtype: torch.dtype = torch.bfloat16,
+             device=None) -> nn.ParameterDict:
+    """MLA weights with the reference's shapes and scales: ``wq`` (d, H
+    (dn + dr)), ``wdkv`` (d, r + dr), ``wukv`` (r, H (dn + dv)), ``wo``
+    (H dv, d)."""
+    qk_head = qk_nope_head_dim + qk_rope_head_dim
+    s = 1.0 / math.sqrt(d_model)
+    return nn.ParameterDict({
+        "wq": normal_param(gen, (d_model, n_heads * qk_head), s, dtype,
+                           device),
+        "wdkv": normal_param(gen, (d_model, kv_lora_rank + qk_rope_head_dim),
+                             s, dtype, device),
+        "wukv": normal_param(
+            gen, (kv_lora_rank, n_heads * (qk_nope_head_dim + v_head_dim)),
+            1.0 / math.sqrt(kv_lora_rank), dtype, device),
+        "wo": normal_param(gen, (n_heads * v_head_dim, d_model),
+                           1.0 / math.sqrt(n_heads * v_head_dim), dtype,
+                           device),
+    })
+
+
+def _mla_expand(params: nn.ParameterDict, c_kv: torch.Tensor, n_heads: int,
+                qk_nope: int, v_dim: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Latents (B, S, r) -> per-head ``k_nope`` (B, S, H, dn) and ``v``
+    (B, S, H, dv): one product with ``wukv``, then views of it."""
+    B, S, _ = c_kv.shape
+    u = (c_kv @ params["wukv"]).reshape(B, S, n_heads, qk_nope + v_dim)
+    return u[..., :qk_nope], u[..., qk_nope:]
+
+
+def _mla_keys(k_nope: torch.Tensor, k_pe: torch.Tensor) -> torch.Tensor:
+    """``cat(k_nope, k_pe)``: every head's key, with the one RoPE key
+    ``k_pe`` (B, S, dr) shared by the heads."""
+    B, S, H, _ = k_nope.shape
+    return torch.cat([k_nope, k_pe[:, :, None, :].expand(
+        B, S, H, k_pe.shape[-1])], dim=-1)
+
+
+def mla_attention(params: nn.ParameterDict, x: torch.Tensor,
+                  positions: torch.Tensor, *, n_heads: int,
+                  kv_lora_rank: int, qk_nope_head_dim: int = 128,
+                  qk_rope_head_dim: int = 64, v_head_dim: int = 128,
+                  rope_theta: float = 10000.0) -> torch.Tensor:
+    """Full-sequence MLA.  x: (B, S, d_model); positions: (B, S).  The
+    latents expand to per-head keys ``cat(k_nope, k_pe)`` and values;
+    ``blockwise_attention`` then runs with D = dn + dr, Dv = dv and the
+    scale ``1/sqrt(dn + dr)``."""
+    B, S, _ = x.shape
+    qk_head = qk_nope_head_dim + qk_rope_head_dim
+    q = (x @ params["wq"]).reshape(B, S, n_heads, qk_head)
+    q_nope, q_pe = q[..., :qk_nope_head_dim], q[..., qk_nope_head_dim:]
+    dkv = x @ params["wdkv"]                               # (B, S, r + dr)
+    c_kv, k_pe = dkv[..., :kv_lora_rank], dkv[..., kv_lora_rank:]
+    q_pe, k_pe = apply_rope(q_pe, k_pe[:, :, None, :], positions, rope_theta)
+    k_nope, v = _mla_expand(params, c_kv, n_heads, qk_nope_head_dim,
+                            v_head_dim)
+    k = _mla_keys(k_nope, k_pe[:, :, 0])
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    out = blockwise_attention(q, k, v, causal=True, window=None)
+    return out.reshape(B, S, n_heads * v_head_dim) @ params["wo"]
+
+
+def mla_decode_step(params: nn.ParameterDict, x: torch.Tensor,
+                    cache_c: torch.Tensor, cache_kpe: torch.Tensor,
+                    cache_len: torch.Tensor, *, n_heads: int,
+                    kv_lora_rank: int, qk_nope_head_dim: int = 128,
+                    qk_rope_head_dim: int = 64, v_head_dim: int = 128,
+                    rope_theta: float = 10000.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step over the compressed cache.  x: (B, 1, d_model);
+    cache_c: (B, Smax, r) latents; cache_kpe: (B, Smax, dr) rotated RoPE
+    keys; cache_len: (B,) absolute lengths so far.
+
+    The new latent and rotated RoPE key are written IN PLACE at
+    ``cache_len``, clamped to the last slot as ``dynamic_update_slice``
+    clamps.  Then, as the reference does, the whole latent cache expands
+    through ``wukv`` to per-head ``k_nope`` and ``v``, and the query
+    ``cat(q_nope, q_pe)`` (B, H, dn + dr) attends to the keys
+    ``cat(k_nope, k_pe)`` (B, Smax, H, dn + dr) and values (B, Smax, H,
+    dv) over the first ``min(cache_len + 1, Smax)`` slots through
+    ``kernels.decode_attention`` (Hkv = H, group 1; scale
+    ``1/sqrt(dn + dr)``): the reference's two score einsums summed, in
+    fp32.  ``v`` is a strided view of the expansion; the wrapper's padding
+    of v to the width of q and k copies it into a contiguous tensor.
+    Returns (y, cache_c, cache_kpe)."""
+    B = x.shape[0]
+    Smax = cache_c.shape[1]
+    qk_head = qk_nope_head_dim + qk_rope_head_dim
+    q = (x @ params["wq"]).reshape(B, 1, n_heads, qk_head)
+    q_nope, q_pe = q[..., :qk_nope_head_dim], q[..., qk_nope_head_dim:]
+    dkv = x @ params["wdkv"]
+    c_new, kpe_new = dkv[..., :kv_lora_rank], dkv[..., kv_lora_rank:]
+    q_pe, kpe_rot = apply_rope(q_pe, kpe_new[:, :, None, :],
+                               cache_len[:, None], rope_theta)
+    idx = cache_len.clamp(0, Smax - 1)
+    rows = torch.arange(B, device=x.device)
+    cache_c[rows, idx] = c_new[:, 0].to(cache_c.dtype)
+    cache_kpe[rows, idx] = kpe_rot[:, 0, 0].to(cache_kpe.dtype)
+    k_nope, v = _mla_expand(params, cache_c.to(x.dtype), n_heads,
+                            qk_nope_head_dim, v_head_dim)
+    k = _mla_keys(k_nope, cache_kpe.to(x.dtype))
+    q = torch.cat([q_nope, q_pe], dim=-1)[:, 0]
+    n_valid = torch.clamp(cache_len + 1, max=Smax).to(torch.int32)
+    out = _attn_kernel.decode_attention(q, k, v, n_valid)
+    y = out.reshape(B, 1, n_heads * v_head_dim) @ params["wo"]
+    return y, cache_c, cache_kpe

@@ -1,15 +1,19 @@
-"""Decoder of the port (``repro/models/transformer.py``): GQA decoders
-with a dense or MoE FFN, and attention-free Mamba2 stacks.
+"""Decoder of the port (``repro/models/transformer.py``): GQA and MLA
+decoders with a dense or MoE FFN, and attention-free Mamba2 stacks.
 
 Parameters are an ``nn.Module`` tree that mirrors the reference's pytree:
 ``embed``, ``final_norm``, optional ``head``, and ``blocks``, a
-``ModuleList`` of ``block_repeat`` blocks, each a ``ModuleDict`` of
-layers keyed ``l0``, ``l1``, ... by block-pattern slot: a
-``DecoderLayer`` (``norm1``, ``attn``, ``norm2``, ``ffn``) for an
-attention slot (``ffn`` a ``MoEParams`` in a MoE model), an
-``SSMLayer`` (``norm1``, ``mixer``) for an SSM slot.
+``ModuleList`` of ``block_repeat - first_k_dense`` blocks, each a
+``ModuleDict`` of layers keyed ``l0``, ``l1``, ... by block-pattern
+slot: a ``DecoderLayer`` (``norm1``, ``attn``, ``norm2``, ``ffn``) for
+an attention slot (``ffn`` a ``MoEParams`` in a MoE model), an
+``SSMLayer`` (``norm1``, ``mixer``) for an SSM slot.  A model with
+``first_k_dense`` prefix blocks (deepseek: one) also has ``prefix``, a
+``ModuleList`` of that many blocks laid out alike, whose FFN is a dense
+MLP of ``d_ff_dense_first``; they run before ``blocks``.
 The reference stacks block parameters on a leading R axis for
-``lax.scan``; here the scan is a loop over the R block modules.
+``lax.scan`` and keeps its unscanned prefix blocks as a list; here the
+scan is a loop over the R block modules.
 
 ``forward`` (training) runs the whole sequence through the flash kernel
 or the SSD-scan kernel; ``decode_step`` and the token-replay ``prefill``
@@ -17,21 +21,24 @@ or the SSD-scan kernel; ``decode_step`` and the token-replay ``prefill``
 kernel or the one-step Mamba2 recurrence.
 
 The cache keeps the reference's layout, per pattern slot: ``k``/``v``
-(R, B, Smax, Hkv, D) for attention; ``ssm`` (R, B, H, P, N) fp32 and the
-conv windows ``conv_x`` (R, B, K-1, d_inner) and ``conv_bc`` (R, B, K-1,
-2 N) for SSM; plus ``len`` (B,) int32.  ``decode_step`` writes the new
-K/V rows and the new SSM state and windows into it in place.
+(R, B, Smax, Hkv, D) for GQA; the latents ``c_kv`` (R, B, Smax, r) and
+rotated RoPE keys ``k_pe`` (R, B, Smax, dr) for MLA; ``ssm`` (R, B, H,
+P, N) fp32 and the conv windows ``conv_x`` (R, B, K-1, d_inner) and
+``conv_bc`` (R, B, K-1, 2 N) for SSM; plus ``len`` (B,) int32.  The
+prefix blocks' caches are the list ``prefix``, the same leaves without
+the R axis.  ``decode_step`` writes the new K/V rows (latents) and the
+new SSM state and windows into it in place.
 
 Sliding-window layers keep ring caches of ``min(max_len,
 ring_size(window))`` slots (``init_cache``, ``gqa_decode_step``).
 
-Ported: GQA decoders with a dense or MoE FFN (mixtral), blocks of
-several attention layers with their own windows (gemma3: five
-sliding-window layers and one global layer), and all-SSM stacks without
-an FFN (mamba2).  MLA, attention without an FFN,
-attention and SSM layers in one block, SSM layers with MoE,
-cross-attention, shared attention (zamba2), several SSM groups,
-first-k-dense prefixes and embedding inputs raise
+Ported: GQA and MLA decoders with a dense or MoE FFN (mixtral;
+deepseek, with its first-k-dense prefix), blocks of several attention
+layers with their own windows (gemma3: five sliding-window layers and
+one global layer), and all-SSM stacks without an FFN (mamba2).
+Attention without an FFN, attention and SSM layers in one block, SSM
+layers with MoE or a prefix, cross-attention, shared attention (zamba2),
+several SSM groups, M-RoPE and embedding inputs raise
 ``NotImplementedError``.
 """
 
@@ -46,9 +53,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import torch_dtype
 from repro_torch.layers import (gqa_attention, gqa_decode_step,
-                                init_attention, init_mamba2, init_mlp,
-                                init_moe, mamba2_decode_step,
-                                mamba2_forward, mlp_forward, moe_forward,
+                                init_attention, init_mamba2, init_mla,
+                                init_mlp, init_moe, mamba2_decode_step,
+                                mamba2_forward, mla_attention,
+                                mla_decode_step, mlp_forward, moe_forward,
                                 rms_norm)
 from repro_torch.layers.mlp import normal_param
 from .config import LayerSpec, ModelConfig
@@ -65,7 +73,7 @@ def check_supported(cfg: ModelConfig) -> None:
     ssm = any(s.kind == "ssm" for s in cfg.block_pattern)
     if ssm and any(s.kind == "attn" for s in cfg.block_pattern):
         missing.append("attention and SSM layers in one block")
-    if cfg.attn_kind != "gqa":
+    if cfg.attn_kind not in ("gqa", "mla"):
         missing.append(f"attn_kind={cfg.attn_kind!r}")
     if cfg.ffn_kind not in (("none",) if ssm else ("dense", "moe")):
         missing.append(f"ffn_kind={cfg.ffn_kind!r}")
@@ -75,8 +83,8 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("cross-attention / encoder")
     if cfg.shared_attn:
         missing.append("shared attention")
-    if cfg.first_k_dense:
-        missing.append("first_k_dense prefix blocks")
+    if ssm and cfg.first_k_dense:
+        missing.append("first_k_dense prefix blocks of SSM layers")
     if cfg.embeds_input:
         missing.append("embedding inputs")
     if cfg.rope not in ("rope", "none"):
@@ -116,12 +124,14 @@ class Transformer(nn.Module):
 
     def __init__(self, embed: nn.Parameter, final_norm: nn.Parameter,
                  blocks: nn.ModuleList,
-                 head: Optional[nn.Parameter] = None):
+                 head: Optional[nn.Parameter] = None,
+                 prefix: Optional[nn.ModuleList] = None):
         super().__init__()
         self.embed = embed
         self.final_norm = final_norm
         self.blocks = blocks
         self.head = head
+        self.prefix = prefix
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
@@ -142,72 +152,100 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         head = normal_param(gen, (d, cfg.vocab_size), 1.0 / math.sqrt(d),
                             dt, device)
 
-    def layer(spec: LayerSpec) -> nn.Module:
+    def layer(spec: LayerSpec, dense_ffn: bool) -> nn.Module:
         if spec.kind == "ssm":
             return SSMLayer(_ones(d, dt, device), init_mamba2(
                 gen, d, cfg.d_inner, cfg.d_state, cfg.n_ssd_heads,
                 cfg.d_conv, cfg.n_ssm_groups, dtype=dt, device=device))
-        attn = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                              cfg.resolved_head_dim, cfg.qkv_bias, dtype=dt,
-                              device=device)
-        if cfg.ffn_kind == "moe":
+        if cfg.attn_kind == "mla":
+            attn = init_mla(gen, d, cfg.n_heads, cfg.kv_lora_rank,
+                            cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                            cfg.v_head_dim, dtype=dt, device=device)
+        else:
+            attn = init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                  cfg.resolved_head_dim, cfg.qkv_bias,
+                                  dtype=dt, device=device)
+        if cfg.ffn_kind == "moe" and not dense_ffn:
             ffn = init_moe(gen, d, cfg.d_ff_expert, cfg.n_routed, cfg.top_k,
                            cfg.n_shared, cfg.ffn_gated, dtype=dt,
                            device=device)
         else:
-            ffn = init_mlp(gen, d, cfg.d_ff, cfg.ffn_gated, dtype=dt,
+            d_ff = cfg.d_ff_dense_first if dense_ffn and \
+                cfg.d_ff_dense_first else cfg.d_ff
+            ffn = init_mlp(gen, d, d_ff, cfg.ffn_gated, dtype=dt,
                            device=device)
         return DecoderLayer(_ones(d, dt, device), attn,
                             _ones(d, dt, device), ffn)
 
-    blocks = nn.ModuleList(
-        nn.ModuleDict({f"l{i}": layer(spec)
-                       for i, spec in enumerate(cfg.block_pattern)})
-        for _ in range(cfg.block_repeat))
-    return Transformer(embed, _ones(d, dt, device), blocks, head)
+    def block_list(n: int, dense_ffn: bool = False) -> nn.ModuleList:
+        return nn.ModuleList(
+            nn.ModuleDict({f"l{i}": layer(spec, dense_ffn)
+                           for i, spec in enumerate(cfg.block_pattern)})
+            for _ in range(n))
+
+    n_scan = cfg.block_repeat - cfg.first_k_dense
+    if n_scan <= 0:
+        raise ValueError("first_k_dense must be < block_repeat")
+    prefix = block_list(cfg.first_k_dense, dense_ffn=True) \
+        if cfg.first_k_dense else None
+    return Transformer(embed, _ones(d, dt, device), block_list(n_scan),
+                       head, prefix)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None, cache_dtype=None) -> dict:
-    """All-zero cache: per attention slot ``k``/``v`` (R, B, Smax, Hkv,
-    D), ``Smax = max_len`` for full attention and ``min(max_len,
-    ring_size(window))`` for sliding-window layers; per SSM slot ``ssm``
-    (R, B, H, P, N) fp32, ``conv_x`` (R, B, K-1, d_inner) and ``conv_bc``
-    (R, B, K-1, 2 G N); ``len`` (B,) int32."""
+    """All-zero cache: per GQA slot ``k``/``v`` (R, B, Smax, Hkv, D),
+    ``Smax = max_len`` for full attention and ``min(max_len,
+    ring_size(window))`` for sliding-window layers; per MLA slot ``c_kv``
+    (R, B, max_len, r) and ``k_pe`` (R, B, max_len, dr); per SSM slot
+    ``ssm`` (R, B, H, P, N) fp32, ``conv_x`` (R, B, K-1, d_inner) and
+    ``conv_bc`` (R, B, K-1, 2 G N); ``len`` (B,) int32.  R is
+    ``block_repeat - first_k_dense``; a model with prefix blocks also has
+    ``prefix``, a list of their caches, the same leaves without R."""
     check_supported(cfg)
     dt = torch_dtype(cache_dtype if cache_dtype is not None else cfg.dtype)
-    R = cfg.block_repeat
+    R = cfg.block_repeat - cfg.first_k_dense
     hd = cfg.resolved_head_dim
 
-    def layer_cache(spec: LayerSpec) -> dict:
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def layer_cache(spec: LayerSpec, lead=(R,)) -> dict:
         if spec.kind == "ssm":
             P = cfg.d_inner // cfg.n_ssd_heads
             gn = cfg.n_ssm_groups * cfg.d_state
             return {
-                "ssm": torch.zeros(R, batch, cfg.n_ssd_heads, P,
-                                   cfg.d_state, dtype=torch.float32,
-                                   device=device),
-                "conv_x": torch.zeros(R, batch, cfg.d_conv - 1, cfg.d_inner,
-                                      dtype=dt, device=device),
-                "conv_bc": torch.zeros(R, batch, cfg.d_conv - 1, 2 * gn,
-                                       dtype=dt, device=device),
+                "ssm": zeros(*lead, batch, cfg.n_ssd_heads, P, cfg.d_state,
+                             dtype=torch.float32),
+                "conv_x": zeros(*lead, batch, cfg.d_conv - 1, cfg.d_inner),
+                "conv_bc": zeros(*lead, batch, cfg.d_conv - 1, 2 * gn),
             }
+        if cfg.attn_kind == "mla":
+            return {"c_kv": zeros(*lead, batch, max_len, cfg.kv_lora_rank),
+                    "k_pe": zeros(*lead, batch, max_len,
+                                  cfg.qk_rope_head_dim)}
         kv_len = max_len if spec.window is None \
             else min(max_len, ring_size(spec.window))
-        shape = (R, batch, kv_len, cfg.n_kv_heads, hd)
-        return {"k": torch.zeros(shape, dtype=dt, device=device),
-                "v": torch.zeros(shape, dtype=dt, device=device)}
+        return {"k": zeros(*lead, batch, kv_len, cfg.n_kv_heads, hd),
+                "v": zeros(*lead, batch, kv_len, cfg.n_kv_heads, hd)}
 
-    return {
+    cache = {
         "blocks": {f"l{i}": layer_cache(spec)
                    for i, spec in enumerate(cfg.block_pattern)},
         "len": torch.zeros(batch, dtype=torch.int32, device=device),
     }
+    if cfg.first_k_dense:
+        cache["prefix"] = [{f"l{i}": layer_cache(spec, lead=())
+                            for i, spec in enumerate(cfg.block_pattern)}
+                           for _ in range(cfg.first_k_dense)]
+    return cache
 
 
 def _ffn_apply(cfg: ModelConfig, p: nn.ParameterDict,
                x: torch.Tensor) -> torch.Tensor:
-    if cfg.ffn_kind == "moe":
+    """A MoE FFN (it has a router), or a dense MLP: a MoE model's prefix
+    blocks have MLPs."""
+    if "router" in p:
         return moe_forward(p, x, cfg.top_k)
     return mlp_forward(p, x)
 
@@ -220,11 +258,19 @@ def _layer_apply(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
                                   n_heads=cfg.n_ssd_heads,
                                   n_groups=cfg.n_ssm_groups)
     h = rms_norm(x, p.norm1)
-    x = x + gqa_attention(p.attn, h, positions, n_heads=cfg.n_heads,
-                          n_kv_heads=cfg.n_kv_heads,
-                          head_dim=cfg.resolved_head_dim,
-                          window=spec.window, rope=cfg.rope,
-                          rope_theta=cfg.rope_theta)
+    if cfg.attn_kind == "mla":
+        x = x + mla_attention(p.attn, h, positions, n_heads=cfg.n_heads,
+                              kv_lora_rank=cfg.kv_lora_rank,
+                              qk_nope_head_dim=cfg.qk_nope_head_dim,
+                              qk_rope_head_dim=cfg.qk_rope_head_dim,
+                              v_head_dim=cfg.v_head_dim,
+                              rope_theta=cfg.rope_theta)
+    else:
+        x = x + gqa_attention(p.attn, h, positions, n_heads=cfg.n_heads,
+                              n_kv_heads=cfg.n_kv_heads,
+                              head_dim=cfg.resolved_head_dim,
+                              window=spec.window, rope=cfg.rope,
+                              rope_theta=cfg.rope_theta)
     return x + _ffn_apply(cfg, p.ffn, rms_norm(x, p.norm2))
 
 
@@ -238,6 +284,16 @@ def _block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
         else:
             x = _layer_apply(cfg, spec, blk[f"l{i}"], x, positions)
     return x
+
+
+def _prefix_blocks(params: Transformer, cfg: ModelConfig) -> list:
+    """``params.prefix`` as a list, which must hold ``first_k_dense``
+    blocks."""
+    blocks = list(params.prefix or ())
+    if len(blocks) != cfg.first_k_dense:
+        raise ValueError(f"{len(blocks)} prefix blocks for first_k_dense "
+                         f"{cfg.first_k_dense}")
+    return blocks
 
 
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
@@ -255,12 +311,15 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     of one layer does not, where the reference says that re-running the
     same region a third time only costs.  ``return_hidden``
     returns the final-norm hidden states (B, S, d_model) instead of
-    logits."""
+    logits.  Prefix blocks run first, never checkpointed, as in the
+    reference."""
     check_supported(cfg)
     x = params.embed[tokens]
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    for blk in _prefix_blocks(params, cfg):
+        x = _block_apply(cfg, blk, x, positions)
     nest_remat = remat and len(cfg.block_pattern) > 1
     for blk in params.blocks:
         if remat:
@@ -291,11 +350,19 @@ def _layer_decode(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
         lc["conv_x"][r].copy_(conv["x"])
         lc["conv_bc"][r].copy_(conv["bc"])
         return x + y
-    y, _, _ = gqa_decode_step(
-        p.attn, h, lc["k"][r], lc["v"][r], cache_len,
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-        head_dim=cfg.resolved_head_dim, window=spec.window,
-        rope=cfg.rope, rope_theta=cfg.rope_theta)
+    if cfg.attn_kind == "mla":
+        y, _, _ = mla_decode_step(
+            p.attn, h, lc["c_kv"][r], lc["k_pe"][r], cache_len,
+            n_heads=cfg.n_heads, kv_lora_rank=cfg.kv_lora_rank,
+            qk_nope_head_dim=cfg.qk_nope_head_dim,
+            qk_rope_head_dim=cfg.qk_rope_head_dim,
+            v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta)
+    else:
+        y, _, _ = gqa_decode_step(
+            p.attn, h, lc["k"][r], lc["v"][r], cache_len,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, window=spec.window,
+            rope=cfg.rope, rope_theta=cfg.rope_theta)
     x = x + y
     return x + _ffn_apply(cfg, p.ffn, rms_norm(x, p.norm2))
 
@@ -313,14 +380,24 @@ def decode_step(params: Transformer, cfg: ModelConfig,
     """One serving step: (B, 1) token ids + cache -> logits (B, vocab) and
     the cache with ``len`` advanced by one.
 
-    The K/V (or SSM state and conv window) tensors of ``cache`` are
-    updated in place and shared by the returned cache; only ``len`` is a
-    new tensor.
+    The K/V (latent, or SSM state and conv window) tensors of ``cache``
+    are updated in place and shared by the returned cache; only ``len``
+    is a new tensor.  Prefix blocks run first, on the ``prefix`` caches.
     """
     check_supported(cfg)
     _no_embeds(embeds)
     x = params.embed[tokens]
     cache_len = cache["len"]
+    prefix_caches = cache.get("prefix", [])
+    if len(prefix_caches) != cfg.first_k_dense:
+        raise ValueError(f"decode_step: {len(prefix_caches)} prefix block "
+                         f"caches for first_k_dense {cfg.first_k_dense}")
+    for blk, pc in zip(_prefix_blocks(params, cfg), prefix_caches):
+        for i, spec in enumerate(cfg.block_pattern):
+            # a leading axis of one, so that the prefix caches read like
+            # block 0 of the scanned ones (views: writes reach ``pc``)
+            lc = {name: t[None] for name, t in pc[f"l{i}"].items()}
+            x = _layer_decode(cfg, spec, blk[f"l{i}"], x, lc, 0, cache_len)
     for r, blk in enumerate(params.blocks):
         for i, spec in enumerate(cfg.block_pattern):
             x = _layer_decode(cfg, spec, blk[f"l{i}"], x,

@@ -26,6 +26,7 @@ from apex_bridge import fig6, serve  # noqa: E402
 from apex_bridge.ir import model_ir  # noqa: E402
 from apex_bridge.profiles import TorchMeasuredBackend  # noqa: E402
 from repro_torch import configs as C  # noqa: E402
+from repro_torch.models.config import EncoderConfig  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -54,7 +55,8 @@ def test_model_ir_takes_a_moe_ffn(change):
 
 
 @pytest.mark.parametrize("change", [
-    dict(attn_kind="mla"), dict(shared_attn=True), dict(cross_attn=True)])
+    dict(encoder=EncoderConfig(n_layers=1, d_model=56, n_heads=7, d_ff=64)),
+    dict(shared_attn=True), dict(cross_attn=True)])
 def test_model_ir_raises_for_families_without_a_port_config(change):
     cfg = dataclasses.replace(C.get_reduced("qwen2-0.5b"), **change)
     with pytest.raises(NotImplementedError, match="dense GQA"):
@@ -163,7 +165,7 @@ def test_serve_passes_depth_to_the_engine(monkeypatch):
 
 def test_serve_raises_for_an_arch_without_a_port_config():
     with pytest.raises(KeyError, match="not yet ported"):
-        serve.serve(arch="deepseek-v2-lite-16b", size="reduced",
+        serve.serve(arch="qwen2-vl-7b", size="reduced",
                     device="cpu", log=lambda s: None)
 
 

@@ -217,13 +217,15 @@ def test_requests_equal_reference(trace, rate, n, max_len, seed):
 @pytest.mark.parametrize("budget", [None, 40])
 @pytest.mark.parametrize("arch,ctx", [("qwen2-0.5b", 14),
                                       ("mixtral-8x7b", 30),
-                                      ("gemma3-12b", 30)])
+                                      ("gemma3-12b", 30),
+                                      ("deepseek-v2-lite-16b", 14)])
 def test_engine_matches_jax_engine_fp32(arch, ctx, budget):
     """Same requests, same (converted) fp32 weights: same tokens per rid,
     iterations and preemptions as the reference engine.  mixtral's and
     gemma3's prompts of up to 30 tokens and 7 more generated run past
     their rings of 32 slots (gemma3: beside its global layers' full
-    caches)."""
+    caches); deepseek serves from latent caches, its prefix block's
+    beside the scanned blocks'."""
     jcfg = dataclasses.replace(JC.get_reduced(arch), dtype="float32")
     tcfg = dataclasses.replace(TC.get_reduced(arch), dtype="float32")
     jparams = JT.init_params(jax.random.PRNGKey(1), jcfg)
