@@ -5,6 +5,8 @@
     python3 chip_smoke.py --limits   # readings behind LOGIT_TOL for mixtral
     python3 chip_smoke.py --limits gemma3-12b   # and for gemma3-12b
     python3 chip_smoke.py --limits deepseek-v2-lite-16b   # and deepseek
+    python3 chip_smoke.py --limits qwen2-vl-7b   # and the two
+    python3 chip_smoke.py --limits seamless-m4t-large-v2   # stub frontends
 
 Phases, one line each (the kernels phases print one line per case):
 
@@ -24,7 +26,8 @@ Phases, one line each (the kernels phases print one line per case):
                attention a long cache (qwen2-0.5b heads at Smax 32768,
                and gemma3-12b heads (D 256) at Smax 32768, lengths 1 /
                4096 / 16384 / 32768, read cold), an untimed sweep of
-               groups 1-8, head dims 64 / 128 / 256 and lengths on, one
+               groups 1-8 at head dims 64 / 128 / 256 (group 1 at 512)
+               and lengths on, one
                past and between span boundaries, and the head dims the
                wrapper zero-pads (8, 16, 24, 32, 112, 200): max error against
                tolerance, kernel / plain / library ms, and the launch
@@ -51,14 +54,16 @@ Phases, one line each (the kernels phases print one line per case):
                qwen2-0.5b FULL with, at x = 1, 2, 4 ... 4096: the GEMMs
                (n, k) (1152, 896), (896, 896), (9728, 896), (896, 4864)
                and the LM head (151936, 896); decode attention (2, 64);
-               prefill attention (14, 64); and mamba2-2.7b's SSD scan
-               (5120, 128) at x 128, 1024 and 4096.  One line per table:
-               wall and device ms of each sample beside the bound of the
-               work the simulator charges it.  Fails on a time that is
-               not finite or below its bound, or unless the decode, flash
-               and SSD kernels launched exactly once per profiled call.
-               Then those three kernels against their plain versions at
-               the profile's largest shapes.
+               prefill attention (14, 64); mamba2-2.7b's SSD scan
+               (5120, 128) and deepseek-v2-lite-16b's MLA decode (16,
+               512, on the decode kernel's D 512 instance) at x 128, 1024
+               and 4096.  One line per table: wall and device ms of each
+               sample beside the bound of the work the simulator charges
+               it.  Fails on a time that is not finite or below its
+               bound, or unless the decode, flash and SSD kernels
+               launched exactly once per profiled call.  Then those
+               three kernels against their plain versions at the
+               profile's largest shapes (decode also at (16, 512)).
   6. flash   -- the flash-attention kernel's ``out`` and ``lse`` against
                ``flash_attention_plain`` on the card, fp32 and bf16: the
                training shape of qwen2-0.5b, internlm2-1.8b's heads, a
@@ -151,6 +156,21 @@ Phases, one line each (the kernels phases print one line per case):
                outputs to 16) served at all 27 layers in 4 slots of 512,
                with 55 RMSNorms and 27 decode attentions a step, all on
                the D 256, group 1 instance.
+  14. qwen2-vl -- qwen2-vl-7b (M-RoPE, fed patch embeddings) at full
+               width: logits kernels vs plain through an embeddings
+               prefill and decode steps, fp32 at 4 layers and bf16 at all
+               28, with 57 RMSNorms and 28 decode attentions a step on
+               the D 128, group 7 instance; ``forward`` at (t, h, w) ids
+               through the flash kernel at 2 layers; 4 layers trained 5
+               steps and one step kernels vs plain.
+  15. seamless -- seamless-m4t-large-v2 at full width and all 24 + 24
+               layers: 4 requests of 1024 frames encoded through the
+               flash kernel without the causal mask (24 launches, 49
+               RMSNorms), then 16 greedy decode steps with self- and
+               cross-attention through the decode kernel (48 a step, 73
+               RMSNorms), logits kernels vs plain in fp32 and bf16; 5
+               train steps on the frames batch and one step kernels vs
+               plain.
 
 Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
 entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
@@ -161,7 +181,12 @@ entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 ``rmsnorm/ssm-serve``, ``rmsnorm/gemma3-serve``,
 ``decode_attention/gemma3-serve``, ``rmsnorm/gemma3-train``,
 ``flash_attention/gemma3-train``, ``rmsnorm/deepseek-serve``,
-``decode_attention/deepseek-serve``, each with that path's
+``decode_attention/deepseek-serve``, ``decode_attention/profile-mla``,
+``rmsnorm/qwen2-vl-7b``, ``decode_attention/qwen2-vl-7b``,
+``rmsnorm/qwen2-vl-train``, ``flash_attention/qwen2-vl-train``,
+``flash_attention/seamless-encode``, ``rmsnorm/seamless-serve``,
+``decode_attention/seamless-serve``, ``rmsnorm/seamless-train``,
+``flash_attention/seamless-train``, each with that path's
 launches and the kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -634,7 +659,10 @@ def kernels_phase(torch, F) -> dict:
                       (4, 1024, 2560),  # mamba2-2.7b: norm1, final norm
                       (4, 1024, 5120),  # mamba2-2.7b: the gated norm
                       GEMMA_NORM_SERVE,  # gemma3-12b serving
-                      GEMMA_NORM_TRAIN):  # gemma3-12b training microbatch
+                      GEMMA_NORM_TRAIN,  # gemma3-12b training microbatch
+                      QWEN_VL_NORM_SERVE, QWEN_VL_NORM_TRAIN,  # qwen2-vl
+                      SEAMLESS_NORM_SERVE,   # seamless decode steps
+                      SEAMLESS_NORM_TRAIN):  # its encoder, its training
             r = rmsnorm_case(torch, F, shape, dtype_name, gen)
             results[("rmsnorm", shape, dtype_name)] = r
     # both kernels: REDUCED widths (qwen2 56, mamba2 64 and 128), widths
@@ -659,22 +687,28 @@ def kernels_phase(torch, F) -> dict:
         for shape in ((4, 14, 2, 64, 512),      # qwen2-0.5b, group 7
                       (4, 16, 8, 128, 512),     # internlm2-1.8b, group 2
                       MIXTRAL_DECODE,           # mixtral-8x7b, group 4
-                      *GEMMA_DECODE):           # gemma3-12b, group 2
+                      *GEMMA_DECODE,            # gemma3-12b, group 2
+                      QWEN_VL_DECODE):          # qwen2-vl-7b, group 7
             r = attention_case(torch, F, shape, lengths, dtype_name, gen)
+            results[("decode_attention", shape, dtype_name)] = r
+        # seamless's self-attention and cross-attention (group 1)
+        for shape, lens in zip(SEAMLESS_DECODE, SEAMLESS_DECODE_LENS):
+            r = attention_case(torch, F, shape, lens, dtype_name, gen)
             results[("decode_attention", shape, dtype_name)] = r
     # every group the kernel takes, every head dim, ragged Smax
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     for dtype_name in ("float32", "bfloat16"):
         for D in da.HEAD_DIMS:
-            for group in range(1, 9):
+            for group in range(1, da.max_group(D) + 1):
                 r = attention_case(torch, F, (3, 2 * group, 2, D, 70),
                                    [1, 33, 70], dtype_name, gen,
                                    timed=False)
                 worst[dtype_name] = max(worst[dtype_name], r["max_abs_err"])
                 n += 1
     say("kernels", f"decode_attention sweep: {n} cases (group 1-8, D "
-        f"{'/'.join(map(str, da.HEAD_DIMS))}, Smax 70, lengths 1/33/70, "
+        f"{'/'.join(map(str, da.HEAD_DIMS[:-1]))}; group 1, D "
+        f"{da.HEAD_DIMS[-1]}; Smax 70, lengths 1/33/70, "
         f"fp32 and bf16) all within tolerance, worst max_abs_err fp32 "
         f"{worst['float32']:.3e} bf16 {worst['bfloat16']:.3e}")
     # the split grid's edges: lengths on a span boundary, one past it, and
@@ -684,7 +718,7 @@ def kernels_phase(torch, F) -> dict:
     grids = set()
     for dtype_name in ("float32", "bfloat16"):
         for D in da.HEAD_DIMS:
-            for group in (1, 2, 7, 8):
+            for group in (g for g in (1, 2, 7, 8) if g <= da.max_group(D)):
                 shape = (4, 2 * group, 2, D, DECODE_EDGE_SMAX)
                 span, splits = da.split_plan(DECODE_EDGE_SMAX, 8, sms)
                 if DECODE_EDGE_SMAX % span == 0 or splits < 4:
@@ -698,7 +732,8 @@ def kernels_phase(torch, F) -> dict:
                 grids.add(r["grid"])
                 n += 1
     say("kernels", f"decode_attention split edges: {n} cases (group "
-        f"1/2/7/8, D {'/'.join(map(str, da.HEAD_DIMS))}, Smax "
+        f"1/2/7/8, D {'/'.join(map(str, da.HEAD_DIMS[:-1]))}; group 1, D "
+        f"{da.HEAD_DIMS[-1]}; Smax "
         f"{DECODE_EDGE_SMAX}, lengths span, "
         f"span + 1, 3 span, Smax; fp32 and bf16) all within tolerance, "
         f"worst max_abs_err fp32 {worst['float32']:.3e} bf16 "
@@ -834,25 +869,43 @@ def decode_launches_per_step(cfg):
     """(rmsnorm, decode_attention, flash_attention, ssd_scan) launches of
     one ``decode_step``: two RMSNorms a layer (norm1 and norm2 of a
     decoder layer, norm1 and the gated norm of a Mamba2 mixer) and the
-    final norm; one decode attention an attention layer."""
-    attn = sum(s.kind == "attn" for s in cfg.block_pattern)
-    return (2 * cfg.n_layers + 1, attn * cfg.block_repeat, 0, 0)
+    final norm; one decode attention an attention layer; with
+    cross-attention (over a filled cross cache) a third RMSNorm
+    (``norm_x``) and a second decode attention an attention layer."""
+    attn = sum(s.kind == "attn" for s in cfg.block_pattern) * \
+        cfg.block_repeat
+    x = attn if cfg.cross_attn else 0
+    return (2 * cfg.n_layers + 1 + x, attn + x, 0, 0)
+
+
+def encode_launches(cfg):
+    """(rmsnorm, flash_attention) launches of one ``encdec.encode``: two
+    RMSNorms and one flash attention (``causal=False``) an encoder layer,
+    and the encoder's final norm."""
+    n = cfg.encoder.n_layers
+    return (2 * n + 1, n)
 
 
 def model_check(torch, dtype_name: str, seed: int = 0,
                 profile: bool = False, reduced: bool = False,
                 arch: str = "qwen2-0.5b", depth=None, max_len: int = 512,
                 start_lens=(0, 37, 200, 500), steps: int = 6,
-                profiled_steps: int = 5) -> dict:
+                profiled_steps: int = 5, instance=None) -> dict:
     """``arch`` FULL (or REDUCED; at ``depth`` blocks if given):
     ``steps`` ``decode_step`` calls through the plain versions and
     through the kernels on the same weights, cache of ``max_len`` slots
     filled with seeded random K/V at ``start_lens``, and tokens from
     ``seed``; a MoE model's kernel run takes the plain run's routes
-    (``replayed_routes``).  Checks launches and logits' shape and
-    finiteness; returns the logits' max abs difference, max |logit|,
-    argmax agreement, the routes the kernel run would have picked alike
-    and wall ms per step (the comparison limits are the caller's)."""
+    (``replayed_routes``).  An arch fed embeddings (qwen2-vl) takes
+    seeded patch embeddings at every step instead, and first prefills
+    ``len(start_lens)`` prompts of up to VL_PREFILL embeddings (lengths
+    VL_PREFILL_LENS) through ``prefill(..., embeds=)`` both ways, its
+    last logits held with the steps'.  Checks launches and logits' shape
+    and finiteness, and with ``instance`` ((head dim, group)) that every
+    decode attention took that kernel instance; returns the logits' max
+    abs difference, max |logit|, argmax agreement, the routes the kernel
+    run would have picked alike, the kernel runs' launches and wall ms
+    per step (the comparison limits are the caller's)."""
     import dataclasses
 
     from repro_torch import configs as C
@@ -875,6 +928,16 @@ def model_check(torch, dtype_name: str, seed: int = 0,
     worst, scale, agree = 0.0, 0.0, 0
     routes = [0, 0]
     t_kern = t_plain = 0.0
+    embeds = [None] * steps
+    rows = B * steps
+    launched = (0, 0, 0, 0)
+    if cfg.embeds_input:
+        embeds = torch.randn(steps, B, 1, cfg.d_model, generator=gen,
+                             device=DEVICE)
+        r = vl_prefill_check(torch, T, params, cfg, B, max_len, gen)
+        worst, scale, agree = r["worst"], r["scale"], r["agree"]
+        rows += B
+        launched = counts()
     for s in range(steps):
         reset_counts()
         step_routes = []
@@ -882,7 +945,7 @@ def model_check(torch, dtype_name: str, seed: int = 0,
             sync(torch)
             t0 = time.perf_counter()
             plain, plain_cache = T.decode_step(params, cfg, toks[s],
-                                               plain_cache)
+                                               plain_cache, embeds[s])
             sync(torch)
             if s:                        # step 0 pays one-time set-up
                 t_plain += time.perf_counter() - t0
@@ -890,13 +953,18 @@ def model_check(torch, dtype_name: str, seed: int = 0,
             fail("model: the plain run launched a kernel")
         t0 = time.perf_counter()
         with replayed_routes(step_routes, routes):
-            logits, cache = T.decode_step(params, cfg, toks[s], cache)
+            logits, cache = T.decode_step(params, cfg, toks[s], cache,
+                                          embeds[s])
         sync(torch)
         if s:
             t_kern += time.perf_counter() - t0
         if counts() != per_step:
             fail(f"model {dtype_name}: launches {counts()} in one "
                  f"decode_step, expected {per_step}")
+        if instance is not None and set(decode_instances()) != {instance}:
+            fail(f"model {dtype_name}: decode attention on (head dim, "
+                 f"group) {decode_instances()}, expected only {instance}")
+        launched = tuple(a + b for a, b in zip(launched, counts()))
         if tuple(logits.shape) != (B, cfg.vocab_size) or not bool(
                 torch.isfinite(logits).all()):
             fail(f"model {dtype_name}: bad logits {logits.shape}")
@@ -912,8 +980,50 @@ def model_check(torch, dtype_name: str, seed: int = 0,
     return dict(cfg=cfg, batch=B, start_lens=start_lens, steps=steps,
                 max_len=max_len, smax=smax,
                 per_step=per_step, worst=worst, scale=scale, agree=agree,
-                rows=B * steps, ms_kernels=t_kern / (steps - 1) * 1e3,
-                ms_plain=t_plain / (steps - 1) * 1e3, routes=tuple(routes))
+                rows=rows, ms_kernels=t_kern / (steps - 1) * 1e3,
+                ms_plain=t_plain / (steps - 1) * 1e3, routes=tuple(routes),
+                launched=launched)
+
+
+# qwen2-vl's prefill in model_check: prompts of patch embeddings, ragged
+VL_PREFILL = 32
+VL_PREFILL_LENS = (32, 17, 5, 32)
+
+
+def vl_prefill_check(torch, T, params, cfg, batch: int, max_len: int,
+                     gen) -> dict:
+    """``prefill(..., embeds=)`` of ``batch`` prompts of seeded patch
+    embeddings (lengths VL_PREFILL_LENS) through the plain versions and
+    through the kernels: each replay step launches what a decode step
+    does.  Returns the last logits' max abs difference, max |logit| and
+    argmax agreement."""
+    emb = torch.randn(batch, VL_PREFILL, cfg.d_model, generator=gen,
+                      device=DEVICE)
+    toks = torch.zeros(batch, VL_PREFILL, dtype=torch.int32, device=DEVICE)
+    lens = torch.tensor(VL_PREFILL_LENS[:batch], dtype=torch.int32,
+                        device=DEVICE)
+    reset_counts()
+    with plain_kernels():
+        plain, pc = T.prefill(params, cfg, toks, max_len, embeds=emb,
+                              lengths=lens)
+    if any(counts()):
+        fail("prefill: the plain run launched a kernel")
+    del pc
+    logits, kc = T.prefill(params, cfg, toks, max_len, embeds=emb,
+                           lengths=lens)
+    sync(torch)
+    want = tuple(n * VL_PREFILL for n in decode_launches_per_step(cfg))
+    if counts() != want:
+        fail(f"prefill {cfg.name}: launches {counts()} in {VL_PREFILL} "
+             f"replay steps, expected {want}")
+    if kc["len"].tolist() != list(VL_PREFILL_LENS[:batch]) or not bool(
+            torch.isfinite(logits).all()):
+        fail(f"prefill {cfg.name}: lengths {kc['len'].tolist()} or "
+             f"non-finite logits")
+    del kc
+    return dict(worst=float((logits.float() - plain.float()).abs().max()),
+                scale=float(plain.float().abs().max()),
+                agree=int((logits.argmax(-1) == plain.argmax(-1)).sum()))
 
 
 def head_text(cfg) -> str:
@@ -938,21 +1048,24 @@ def model_readings(r: dict, dtype_name: str) -> str:
 def model_phase(torch, reduced: bool = False, phase: str = "model",
                 arch: str = "qwen2-0.5b", depths=None,
                 dtypes=("float32", "bfloat16"), hold_logits: bool = True,
-                profile=None, profiled_steps: int = 5, **shape) -> None:
+                profile=None, profiled_steps: int = 5, instance=None,
+                **shape) -> dict:
     """``model_check`` in each of ``dtypes`` (at ``depths[dtype]`` blocks
     where given), held to LOGIT_TOL and ARGMAX_FLOOR, or to ARGMAX_FLOOR
     alone with ``hold_logits=False`` (the logits difference is then
     printed, not held); the bf16 FULL run also profiles its decode steps
     unless ``shape`` (``model_check``'s ``max_len``, ``start_lens``,
     ``steps``) is given, or as ``profile`` says, over ``profiled_steps``
-    decode steps."""
+    decode steps.  Returns ``model_check``'s readings by dtype."""
+    out = {}
     for dtype_name in dtypes:
         r = model_check(torch, dtype_name, reduced=reduced, arch=arch,
                         depth=(depths or {}).get(dtype_name),
                         profile=(dtype_name == "bfloat16" and not reduced
                                  and not shape) if profile is None
                         else profile, profiled_steps=profiled_steps,
-                        **shape)
+                        instance=instance, **shape)
+        out[dtype_name] = r
         readings = model_readings(r, dtype_name)
         if (hold_logits and r["worst"] > LOGIT_TOL[dtype_name]) or \
                 r["agree"] < ARGMAX_FLOOR[dtype_name] * r["rows"]:
@@ -964,11 +1077,15 @@ def model_phase(torch, reduced: bool = False, phase: str = "model",
             f"({cfg.n_layers} layers, d {cfg.d_model}, {head_text(cfg)}, "
             f"vocab {cfg.vocab_size}) {dtype_name} batch "
             f"{r['batch']} max_len {r['max_len']} ({r['smax']} slots) lens "
-            f"{r['start_lens']}+{r['steps']} steps: "
+            f"{r['start_lens']}+{r['steps']} steps"
+            + (f" after a prefill of patch embeddings (lengths "
+               f"{list(VL_PREFILL_LENS)})" if cfg.embeds_input else "")
+            + ": "
             f"{readings}, launches/step rmsnorm {r['per_step'][0]} "
             f"decode_attention {r['per_step'][1]}, wall per step after the "
             f"first {r['ms_kernels']:.2f} ms kernels / {r['ms_plain']:.2f} "
             f"ms plain")
+    return out
 
 
 # broken decode-attention kernels, made by a wrapper around the sound one,
@@ -1002,20 +1119,27 @@ def broken_decode(torch, kind: str):
 
 @contextlib.contextmanager
 def one_kernel(keep: str):
-    """Run only the ``keep`` kernel ("rmsnorm" or "decode_attention"); the
-    other wrapper runs its plain version, still counting its launches so
-    that ``model_check``'s launch check holds.  Shows which kernel's
-    rounding flips a bf16 logits reading comes from."""
-    rmsnorm, da, _, _ = kernel_modules()
-    mod, plain = ((da, da.decode_attention_plain) if keep == "rmsnorm"
-                  else (rmsnorm, rmsnorm.rms_norm_plain))
-    name = "decode_attention" if keep == "rmsnorm" else "rms_norm"
+    """Run only the ``keep`` kernel ("rmsnorm", "decode_attention" or
+    "flash_attention"); the other attention and norm wrappers run their
+    plain versions, still counting their launches so that the launch
+    checks hold.  Shows which kernel's rounding flips a bf16 logits
+    reading comes from."""
+    rmsnorm, da, fa, _ = kernel_modules()
+    wrappers = {"rmsnorm": (rmsnorm, "rms_norm", rmsnorm.rms_norm_plain),
+                "decode_attention": (da, "decode_attention",
+                                     da.decode_attention_plain),
+                "flash_attention": (fa, "flash_attention",
+                                    fa.flash_attention_plain)}
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr, plain) in wrappers.items():
+            if name == keep:
+                continue
 
-    def counted(*args, **kwargs):
-        mod.launches += 1
-        return plain(*args, **kwargs)
+            def counted(*args, _mod=mod, _plain=plain, **kwargs):
+                _mod.launches += 1
+                return _plain(*args, **kwargs)
 
-    with mock.patch.object(mod, name, counted):
+            stack.enter_context(mock.patch.object(mod, attr, counted))
         yield
 
 
@@ -1026,16 +1150,23 @@ def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
     under each broken kernel of CONTROLS and with one of the two kernels
     at a time (``one_kernel``), for each dtype of ``depths`` (in blocks;
     by default the arch's smoke depths and, for gemma3-12b, bf16 also at
-    all 48 layers; deepseek-v2-lite-16b's bf16 depth is all 27).  Prints
-    them and checks nothing (``python3 chip_smoke.py --limits [arch]``)."""
+    all 48 layers; deepseek-v2-lite-16b's, qwen2-vl-7b's and
+    seamless-m4t-large-v2's bf16 depth is the whole model).  seamless is
+    read through ``seamless_check`` (encode, prefill and decode steps;
+    its flash kernel also alone).  Prints them and checks nothing
+    (``python3 chip_smoke.py --limits [arch]``)."""
     if depths is None:
         ats = {"mixtral-8x7b": (MIXTRAL_DEPTHS,),
                "gemma3-12b": (GEMMA_DEPTHS, {"bfloat16": None}),
-               DEEPSEEK: (DEEPSEEK_DEPTHS,)}[arch]
+               DEEPSEEK: (DEEPSEEK_DEPTHS,), QWEN_VL: (QWEN_VL_DEPTHS,),
+               SEAMLESS: (SEAMLESS_DEPTHS,)}[arch]
     else:
         ats = (depths,)
+    check = seamless_check if arch == SEAMLESS else model_check
+    alone = ("rmsnorm", "decode_attention") + (
+        ("flash_attention",) if arch == SEAMLESS else ())
     runs = ([(seed, None) for seed in seeds] + [(0, k) for k in CONTROLS]
-            + [(0, k) for k in ("rmsnorm", "decode_attention")])
+            + [(0, k) for k in alone])
     for at in ats:
         for dtype_name, depth in at.items():
             for seed, kind in runs:
@@ -1046,9 +1177,11 @@ def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
                     patch, what = one_kernel(kind), f"only the {kind} kernel"
                 else:
                     patch, what = contextlib.nullcontext(), f"seed {seed}"
+                # a wrapper replaced by a control or its plain version
+                # takes no kernel instance
                 with patch:
-                    r = model_check(torch, dtype_name, seed=seed, arch=arch,
-                                    depth=depth)
+                    r = check(torch, dtype_name, seed=seed, arch=arch,
+                              depth=depth, instance=None)
                 say("limits", f"{arch} {dtype_name} {r['cfg'].n_layers} "
                     f"layers {what}: " + model_readings(r, dtype_name))
 
@@ -1154,10 +1287,12 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
     per_kernel = []
     n_kernels = 0
     # every weight is read once a step (a MoE FFN computes every expert),
-    # but an untied embedding table only at the batch's rows
+    # but an untied embedding table only at the batch's rows, and an
+    # encoder's not at all (its memory's K/V sit in the cross cache)
     weight_bytes = sum(p.numel() * p.element_size()
                        for n, p in params.named_parameters()
-                       if n != "embed" or cfg.tie_embeddings)
+                       if (n != "embed" or cfg.tie_embeddings)
+                       and not n.startswith("encoder."))
     weight_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
     for e in prof.key_averages():
         if "cuda" not in str(e.device_type).lower() or e.key in RANGES:
@@ -1291,12 +1426,18 @@ def reduced_phase(torch, smi: str) -> None:
 
 PROFILE_X_MAX = 4096
 SSD_PROFILE_X = (128, 1024, 4096)
+# deepseek-v2-lite-16b's attn_decode table: the simulator prices MLA's
+# decode at (n_heads, kv_lora_rank) = (16, 512), which the profiler times
+# on the decode kernel's head-dim-512, group-1 instance
+MLA_DECODE_AXES = (16, 512, "bf16")
+MLA_PROFILE_X = (128, 1024, 4096)
 # the kernel each profiled op launches: its index in counts()
 PROFILE_KERNELS = {"attn_decode": 1, "attn_prefill": 2, "ssd_scan": 3}
 # the record's cases, at the profile's largest x: decode (B, Hq, Hkv, D,
 # Smax) over 4096 KV tokens; flash causal at S 90 (area 4095); the SSD
 # scan over 4096 tokens (B, S, H, P, N, chunk)
 PROFILE_DECODE = (1, 2, 2, 64, 4096)
+PROFILE_MLA_DECODE = (1, 16, 16, 512, 4096)
 PROFILE_FLASH = (1, 90, 90, 14, 14, 64, None, 0)
 PROFILE_SSD = (1, 4096, 80, 64, 128, 128)
 
@@ -1306,7 +1447,9 @@ def profile_keys(cfg, ssm_cfg, grid):
     dense GQA decoder) with, by the arithmetic of ``repro/core/ir.py``:
     per layer the fused QKV, output, gated up and down products, the LM
     head (``ModelIR.lm_head_opcall``), decode and prefill attention, all
-    over ``grid``; then ``ssm_cfg``'s SSD scan at ``SSD_PROFILE_X``."""
+    over ``grid``; then ``ssm_cfg``'s SSD scan at ``SSD_PROFILE_X``, and
+    deepseek-v2-lite-16b's MLA decode sample (MLA_DECODE_AXES) at
+    MLA_PROFILE_X."""
     hd = cfg.head_dim or cfg.d_model // cfg.n_heads
     d, q, kv = cfg.d_model, cfg.n_heads * hd, cfg.n_kv_heads * hd
     up = (2 if cfg.ffn_gated else 1) * cfg.d_ff
@@ -1317,16 +1460,20 @@ def profile_keys(cfg, ssm_cfg, grid):
     keys.append(("attn_prefill", (cfg.n_heads, hd, "bf16"), grid))
     keys.append(("ssd_scan", (ssm_cfg.d_inner, ssm_cfg.d_state, "bf16"),
                  SSD_PROFILE_X))
+    keys.append(("attn_decode", MLA_DECODE_AXES, MLA_PROFILE_X))
     return keys
 
 
 def profile_phase(torch, F):
     """The port's op profiler (``repro_torch.core.profiles``) over every
-    table qwen2-0.5b FULL needs and mamba2-2.7b's SSD scan: wall and
-    device time of each sample, each at or above its bound (the work the
-    simulator charges the sample, ``_op_work``), and exactly one kernel
-    launch per profiled attention or scan call.  Returns the launches and
-    the kernels' cases at the profile's largest shapes."""
+    table qwen2-0.5b FULL needs, mamba2-2.7b's SSD scan and deepseek's
+    MLA decode sample: wall and device time of each sample, each at or
+    above its bound (the work the simulator charges the sample,
+    ``_op_work``), and exactly one kernel launch per profiled attention
+    or scan call, the MLA samples' on the decode kernel's D 512 instance.
+    Returns the launches (the decode launches split into the D 512
+    instance's and the others') and the kernels' cases at the profile's
+    largest shapes."""
     from repro_torch import configs as C
     from repro_torch.core.profiles import _GRID, MeasuredBackend, _op_work
     timer = MeasuredBackend(DEVICE, repeats=3)
@@ -1352,28 +1499,41 @@ def profile_phase(torch, F):
         say("profile", f"op table {op} {axes}: " + "; ".join(readings))
     secs = time.perf_counter() - t0
     launched = counts()
+    wide = decode_instances().get((MLA_DECODE_AXES[1], 1), 0)
     want = [0, 0, 0, 0]
     for op, i in PROFILE_KERNELS.items():
         want[i] = timer.calls[op]
     if launched != tuple(want):
         fail(f"profile: launches {launched}, expected {tuple(want)} from "
              f"the profiler's calls {timer.calls}")
+    mla = len(MLA_PROFILE_X) * (1 + 2 * timer.repeats)
+    if wide != mla:
+        fail(f"profile: {wide} decode launches at D "
+             f"{MLA_DECODE_AXES[1]}, expected {mla} from the MLA samples "
+             f"{MLA_DECODE_AXES}")
     say("profile", f"{sum(len(xs) for _, _, xs in keys)} samples of "
         f"{len(keys)} tables in {secs:.1f} s (each sample one warm-up and "
         f"2 x {timer.repeats} timed calls, L2 flushed before each timed "
         f"one) | calls {timer.calls} | launches decode_attention "
-        f"{launched[1]} flash_attention {launched[2]} ssd_scan "
-        f"{launched[3]} rmsnorm {launched[0]}")
+        f"{launched[1]} ({wide} on the D {MLA_DECODE_AXES[1]} instance) "
+        f"flash_attention {launched[2]} ssd_scan {launched[3]} rmsnorm "
+        f"{launched[0]}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {
         ("decode_attention", PROFILE_DECODE, "bfloat16"): attention_case(
             torch, F, PROFILE_DECODE, [PROFILE_DECODE[-1]], "bfloat16",
             gen),
+        ("decode_attention", PROFILE_MLA_DECODE, "bfloat16"):
+            attention_case(torch, F, PROFILE_MLA_DECODE,
+                           [PROFILE_MLA_DECODE[-1]], "bfloat16", gen),
         (PROFILE_FLASH, "bfloat16"): flash_case(torch, F, PROFILE_FLASH,
                                                 "bfloat16", gen),
         ("ssd_scan", PROFILE_SSD, "bfloat16"): ssd_case(
             torch, PROFILE_SSD, "bfloat16", gen)}
-    return launched, results
+    # fp32, ragged lengths over a batch of 3
+    attention_case(torch, F, (3, *PROFILE_MLA_DECODE[1:]),
+                   [1, 1000, 4096], "float32", gen, timed=False)
+    return (*launched, wide), results
 
 
 # -- 6. flash -----------------------------------------------------------------
@@ -1392,6 +1552,18 @@ FLASH_CASES = (
     (2, 100, 357, 14, 2, 64, None, 257),           # prefix: Sq < Skv
     *GEMMA_FLASH,                                  # gemma3-12b training
 )
+# without the causal mask: seamless-m4t-large-v2's encoder over 1024
+# frames (Sq = Skv), its cross-attention from 256 decoder rows to 1024
+# frames (Sq != Skv), and a source of 1000 frames, which ends inside a
+# 64-key tile; qwen2-vl-7b's causal training microbatch
+SEAMLESS_ENCODE = (4, 1024, 1024, 16, 16, 64, None, 0)
+NONCAUSAL_CASES = (SEAMLESS_ENCODE, (4, 256, 1024, 16, 16, 64, None, 0),
+                   (4, 256, 1000, 16, 16, 64, None, 0))
+# causal: qwen2-vl-7b's training microbatch, seamless's decoder
+# self-attention in training
+QWEN_VL_FLASH = (4, 1024, 1024, 28, 4, 128, None, 0)
+SEAMLESS_SELF = (4, 1024, 1024, 16, 16, 64, None, 0)
+FLASH_CASES = FLASH_CASES + (QWEN_VL_FLASH, SEAMLESS_SELF)
 
 
 def flash_inputs(torch, case, dt, gen, dv=None):
@@ -1404,18 +1576,20 @@ def flash_inputs(torch, case, dt, gen, dv=None):
 
 
 def flash_case(torch, F, case, dtype_name, gen, timed: bool = True,
-               dv=None) -> dict:
+               dv=None, causal: bool = True) -> dict:
     """One flash-attention case; ``dv``: v's head dim where it is not D
-    (MLA), untimed only."""
+    (MLA), untimed only; ``causal=False``: no causal mask (the encoder's
+    and cross-attention's call)."""
     from repro_torch.kernels import flash_attention as fa
     B, Sq, Skv, Hq, Hkv, D, window, q_offset = case
     dt = getattr(torch, dtype_name)
     q, k, v = flash_inputs(torch, case, dt, gen, dv)
-    kw = dict(causal=True, window=window, q_offset=q_offset)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
     out, lse = fa.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     want_out, want_lse = fa.flash_attention_plain(q, k, v, **kw)
-    what = f"flash_attention {case}{f' Dv {dv}' if dv else ''} {dtype_name}"
+    what = (f"flash_attention {case}{f' Dv {dv}' if dv else ''}"
+            f"{'' if causal else ' non-causal'} {dtype_name}")
     err, differ = compare(torch, out, want_out, dtype_name, what)
     lse_err, _ = compare(torch, lse, want_lse, "float32", what + " lse")
     if not timed or dv:
@@ -1427,9 +1601,11 @@ def flash_case(torch, F, case, dtype_name, gen, timed: bool = True,
                        inner=2, reps=5)
     # yardstick: SDPA in its (B, H, S, D) layout, GQA without repeat
     qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    mask = fa.attention_mask(Sq, Skv, causal=True, window=window,
+    mask = fa.attention_mask(Sq, Skv, causal=causal, window=window,
                              q_offset=q_offset, device="cuda")
-    if window is None and q_offset == 0 and Sq == Skv:
+    if not causal and window is None:
+        sdpa = {}
+    elif window is None and q_offset == 0 and Sq == Skv:
         sdpa = dict(is_causal=True)
     else:
         sdpa = dict(attn_mask=mask)
@@ -1445,7 +1621,8 @@ def flash_case(torch, F, case, dtype_name, gen, timed: bool = True,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
                           else (t_bytes, "bytes"))
-    say("flash", f"q {(B, Sq, Hq, D)} k/v {(B, Skv, Hkv, D)} window "
+    say("flash", f"q {(B, Sq, Hq, D)} k/v {(B, Skv, Hkv, D)} "
+        f"{'causal' if causal else 'non-causal'} window "
         f"{window} q_offset {q_offset} {dtype_name}: max_abs_err out "
         f"{err:.3e} ({tol_text(dtype_name)}), not bit-equal {differ:.2e}, "
         f"lse {lse_err:.3e} ({tol_text('float32')}) | kernel {ms:.4f} ms "
@@ -1466,6 +1643,9 @@ def flash_phase(torch, F) -> dict:
         for case in FLASH_CASES:
             results[(case, dtype_name)] = flash_case(torch, F, case,
                                                      dtype_name, gen)
+        for case in NONCAUSAL_CASES:
+            results[(case, "non-causal", dtype_name)] = flash_case(
+                torch, F, case, dtype_name, gen, causal=False)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     for dtype_name in ("float32", "bfloat16"):
@@ -1483,6 +1663,22 @@ def flash_phase(torch, F) -> dict:
         f"Sq 77, causal and window 19 with q_offset 5, fp32 and bf16) all "
         f"within tolerance, worst max_abs_err fp32 {worst['float32']:.3e} "
         f"bf16 {worst['bfloat16']:.3e}")
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    n = 0
+    for dtype_name in ("float32", "bfloat16"):
+        for D in (16, 32, 64, 128, 256):
+            for group in (1, 7):
+                for sq, skv in ((77, 200), (130, 64), (200, 77)):
+                    r = flash_case(torch, F, (2, sq, skv, 2 * group, 2, D,
+                                              None, 0), dtype_name, gen,
+                                   timed=False, causal=False)
+                    worst[dtype_name] = max(worst[dtype_name],
+                                            r["max_abs_err"])
+                    n += 1
+    say("flash", f"non-causal sweep: {n} cases (D 16/32/64/128/256, group "
+        f"1/7, Sq x Skv 77 x 200, 130 x 64, 200 x 77, fp32 and bf16; out "
+        f"and lse) all within tolerance, worst max_abs_err fp32 "
+        f"{worst['float32']:.3e} bf16 {worst['bfloat16']:.3e}")
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     for dtype_name in ("float32", "bfloat16"):
@@ -1529,13 +1725,22 @@ def train_launches_per_step(cfg, microbatches: int):
     one train step with remat: per microbatch, for every layer run
     (``layer_runs``) two RMSNorms (norm1 and norm2 of a decoder layer,
     norm1 and the gated norm of a Mamba2 mixer) and one flash attention
-    or SSD scan, and the final norm; the backward passes are plain
-    PyTorch and launch nothing."""
+    or SSD scan, with cross-attention a third RMSNorm (``norm_x``) and a
+    second flash attention (no mask), and the final norm; an encoder's
+    layers, each checkpointed, run twice: ``encode_launches`` plus two
+    RMSNorms and one flash attention a layer again.  The backward passes
+    are plain PyTorch and launch nothing."""
     runs = {"attn": 0, "ssm": 0}           # per microbatch
     for spec, n in zip(cfg.block_pattern, layer_runs(cfg)):
         runs[spec.kind] += n * cfg.block_repeat
-    return ((2 * sum(runs.values()) + 1) * microbatches, 0,
-            runs["attn"] * microbatches, runs["ssm"] * microbatches)
+    x = runs["attn"] if cfg.cross_attn else 0
+    rms, flash = 2 * sum(runs.values()) + 1 + x, runs["attn"] + x
+    if cfg.encoder is not None:
+        enc_rms, enc_flash = encode_launches(cfg)
+        rms += enc_rms + 2 * cfg.encoder.n_layers
+        flash += 2 * enc_flash
+    return (rms * microbatches, 0, flash * microbatches,
+            runs["ssm"] * microbatches)
 
 
 def launch_text(per_step) -> str:
@@ -1602,18 +1807,23 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
     from repro_torch import configs as C
     from repro_torch.data.pipeline import TokenPipeline
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import stub_inputs
+    from repro_torch.models import encdec as ED
     from repro_torch.models import transformer as T
     from repro_torch.training.optimizer import adamw_init
     cfg = (C.get_reduced if reduced else C.get_config)(spec["arch"])
     cfg = dataclasses.replace(cfg, dtype=dtype_name,
                               block_repeat=depth or cfg.block_repeat)
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
-    params = T.init_params(gen, cfg, device=DEVICE)
+    params = (ED.init_encdec_params if cfg.encoder is not None
+              else T.init_params)(gen, cfg, device=DEVICE)
     start = {n: p.detach().to("cpu", copy=True)
              for n, p in params.named_parameters()}
     batch = {k: t.to(DEVICE) for k, t in TokenPipeline(
         cfg.vocab_size, spec["seq"], spec["batch"],
         seed=seed).global_batch_at(0).items()}
+    batch.update(stub_inputs(cfg, spec["batch"], spec["seq"], 0, seed,
+                             DEVICE))
     step = make_train_step(cfg, microbatches=spec["microbatches"],
                            remat=True)
     runs = []
@@ -2149,13 +2359,23 @@ DEEPSEEK_INSTANCE = (256, 1)
 DEEPSEEK_NORM = (4, 1, 2048)
 
 
+def thw_positions(torch, batch: int, seq: int, side: int = 16):
+    """(batch, seq, 3) M-RoPE ids of a stub image: patch i at time i //
+    side^2, row (i // side) % side, column i % side."""
+    i = torch.arange(seq, device=DEVICE)
+    ids = torch.stack([i // side ** 2, (i // side) % side, i % side], -1)
+    return ids.to(torch.int32).expand(batch, seq, 3)
+
+
 def forward_check(torch, arch: str, depth: int, batch: int, seq: int,
                   dtype_name: str = "bfloat16", seed: int = 0) -> dict:
     """``forward`` of ``arch`` FULL at ``depth`` blocks over seeded
     (batch, seq) tokens, without gradients, through the plain versions
     and through the kernels (the kernel run taking the plain run's MoE
-    routes); fails on the launches, on logits that are not finite, or
-    beyond LOGIT_TOL / ARGMAX_FLOOR."""
+    routes); an arch fed embeddings takes seeded patch embeddings at
+    (t, h, w) ids of a 16 x 16 patch grid (``thw_positions``) instead.
+    Fails on the launches, on logits that are not finite, or beyond
+    LOGIT_TOL / ARGMAX_FLOOR."""
     import dataclasses
 
     from repro_torch import configs as C
@@ -2166,17 +2386,22 @@ def forward_check(torch, arch: str, depth: int, batch: int, seq: int,
     params = T.init_params(gen, cfg, device=DEVICE)
     toks = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
                          device=DEVICE, dtype=torch.int32)
+    inputs = dict(tokens=toks)
+    if cfg.embeds_input:
+        inputs = dict(embeds=torch.randn(batch, seq, cfg.d_model,
+                                         generator=gen, device=DEVICE),
+                      positions=thw_positions(torch, batch, seq))
     attn = sum(s.kind == "attn" for s in cfg.block_pattern) * depth
     want = (2 * cfg.n_layers + 1, 0, attn, 0)
     log, routes = [], [0, 0]
     reset_counts()
     with torch.no_grad():
         with plain_kernels(), recorded_routes(log):
-            plain = T.forward(params, cfg, toks)
+            plain = T.forward(params, cfg, **inputs)
         if any(counts()):
             fail("forward: the plain run launched a kernel")
         with replayed_routes(log, routes):
-            logits = T.forward(params, cfg, toks)
+            logits = T.forward(params, cfg, **inputs)
     sync(torch)
     if counts() != want:
         fail(f"forward: launches {counts()}, expected {want}")
@@ -2250,6 +2475,229 @@ def deepseek_phase(torch, F, smi: str):
     return served, results
 
 
+# -- 14. qwen2-vl ---------------------------------------------------------
+
+QWEN_VL = "qwen2-vl-7b"
+# qwen2-vl-7b at full width is 7.62 B parameters (its untied embedding
+# table and head 1.09 B of them), 15.2 GB in bf16: all 28 layers on one
+# card.  fp32 at 4 layers (2.02 B parameters, 8.1 GB)
+QWEN_VL_DEPTHS = {"float32": 4, "bfloat16": None}
+QWEN_VL_INSTANCE = (128, 7)
+QWEN_VL_FORWARD = dict(depth=2, batch=2, seq=256)
+# 4 of 28 layers: AdamW keeps ~18 B a parameter (bf16 weights, fp32
+# gradient accumulators, masters and both moments), 2.02 B parameters
+# at depth 4 (the embedding table and the head are 1.09 B of them) take
+# ~36 GB before activations; 28 layers (7.6 B) would take ~137 GB
+QWEN_VL_TRAIN = dict(arch=QWEN_VL, steps=5, batch=8, seq=1024,
+                     microbatches=2, depth=4)
+QWEN_VL_PARITY = dict(QWEN_VL_TRAIN, batch=4)
+QWEN_VL_NORM_SERVE = (4, 1, 3584)
+QWEN_VL_NORM_TRAIN = (4, 1024, 3584)
+QWEN_VL_DECODE = (4, 28, 4, 128, 512)
+
+
+def qwen2vl_phase(torch, smi: str):
+    """qwen2-vl-7b (M-RoPE, fed patch embeddings; GQA group 7, head dim
+    128) at full width on seeded random weights: (a) logits kernels vs
+    plain through ``prefill(..., embeds=)`` and ``decode_step(embeds=)``,
+    fp32 at 4 layers and bf16 at all 28, held to LOGIT_TOL and
+    ARGMAX_FLOOR, with 57 RMSNorms and 28 decode attentions a step, all
+    on the D 128, group 7 instance, and a profiled bf16 step; (b)
+    ``forward`` in bf16 at 2 layers, B 2 x S 256, at the (t, h, w) ids of
+    a patch grid, through the flash kernel; (c) 4 layers trained for 5
+    steps on patch embeddings (8 x 1024, 2 microbatches, remat), and one
+    step kernels vs plain held to TRAIN_TOL.  Returns the bf16 decode
+    run's and the train run's launches."""
+    torch.cuda.empty_cache()
+    runs = model_phase(torch, phase="qwen2-vl", arch=QWEN_VL,
+                       depths=QWEN_VL_DEPTHS, instance=QWEN_VL_INSTANCE)
+    r = forward_check(torch, QWEN_VL, **QWEN_VL_FORWARD)
+    say("qwen2-vl", f"forward {QWEN_VL} FULL width ({r['cfg'].n_layers} "
+        f"layers) bf16 B {QWEN_VL_FORWARD['batch']} x S "
+        f"{QWEN_VL_FORWARD['seq']}, patch embeddings at (t, h, w) ids of a "
+        f"16 x 16 grid: {r['readings']}, launches rmsnorm "
+        f"{r['launches'][0]} flash_attention {r['launches'][2]}")
+    trained = train_phase(torch, smi, QWEN_VL_TRAIN, "qwen2-vl")
+    train_parity_phase(torch, QWEN_VL_PARITY, depth=QWEN_VL_TRAIN["depth"],
+                       phase="qwen2-vl")
+    return runs["bfloat16"]["launched"], trained
+
+
+# -- 15. seamless -----------------------------------------------------------
+
+SEAMLESS = "seamless-m4t-large-v2"
+# seamless-m4t-large-v2 at full width and depth is 1.63 B parameters
+# (3.3 GB in bf16, 6.5 GB in fp32): 24 encoder and 24 decoder layers,
+# in both dtypes.  In bf16 at that depth the dropped-tile and
+# round-toward-zero controls read inside the sound kernels' range; fp32
+# at full depth is the reading that fails every control (PERF.md)
+SEAMLESS_DEPTHS = {"float32": None, "bfloat16": None}
+# 4 requests of 1024 frames each, a BOS token, 16 greedy steps in caches
+# of 64 slots
+SEAMLESS_SERVE = dict(requests=4, source=1024, steps=16, max_len=64)
+SEAMLESS_INSTANCE = (64, 1)
+# full width and depth: ~29 GB of AdamW state before activations
+SEAMLESS_TRAIN = dict(arch=SEAMLESS, steps=5, batch=8, seq=1024,
+                      microbatches=2)
+SEAMLESS_NORM_SERVE = (4, 1, 1024)
+SEAMLESS_NORM_TRAIN = (4, 1024, 1024)
+# decode attention in a serve step: self-attention over the 64-slot
+# caches (lengths after the BOS token and up to 16 steps), cross-attention
+# over the 1024 frames' K/V
+SEAMLESS_DECODE = ((4, 16, 16, 64, 64), (4, 16, 16, 64, 1024))
+SEAMLESS_DECODE_LENS = ([1, 6, 11, 17], [1024] * 4)
+
+
+def seamless_check(torch, dtype_name: str, seed: int = 0,
+                   arch: str = SEAMLESS, depth=None,
+                   instance=SEAMLESS_INSTANCE, profile: bool = False) -> dict:
+    """seamless serving at full width (``depth`` layers of encoder and
+    decoder if given) on seeded random weights: SEAMLESS_SERVE's requests
+    of seeded frames through ``encdec_prefill`` and greedy
+    ``encdec_decode_step``s, through the plain versions and through the
+    kernels, the kernel run fed the plain run's tokens.  Checks that an
+    encode launches ``encode_launches``, a prefill that and one decode
+    step, every step ``decode_launches_per_step`` (self and cross
+    attention on the kernel ``instance``, (head dim, group), unless None),
+    and the logits' shape and finiteness; with ``profile``, profiles two
+    more decode steps (``profile_steps``).  Returns the readings
+    ``model_check`` returns, the serve run's launches and encode, prefill
+    and step times."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import encdec as ED
+    cfg = dataclasses.replace(C.get_config(arch), dtype=dtype_name)
+    if depth:
+        cfg = dataclasses.replace(
+            cfg, block_repeat=depth,
+            encoder=dataclasses.replace(cfg.encoder, n_layers=depth))
+    spec = SEAMLESS_SERVE
+    B, steps = spec["requests"], spec["steps"]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = ED.init_encdec_params(gen, cfg, device=DEVICE)
+    frames = torch.randn(B, spec["source"], cfg.d_model, generator=gen,
+                         device=DEVICE)
+    bos = torch.zeros(B, 1, dtype=torch.int32, device=DEVICE)
+    enc = encode_launches(cfg)
+    per_step = decode_launches_per_step(cfg)
+    reset_counts()
+    with plain_kernels():
+        logits, cache, _ = ED.encdec_prefill(params, cfg, frames, bos,
+                                             spec["max_len"])
+        plain = [logits]
+        for _ in range(steps):
+            tok = plain[-1].argmax(-1).to(torch.int32)[:, None]
+            logits, cache = ED.encdec_decode_step(params, cfg, tok, cache)
+            plain.append(logits)
+    if any(counts()):
+        fail(f"{arch}: the plain run launched a kernel")
+    del cache
+    toks = [p.argmax(-1).to(torch.int32)[:, None] for p in plain[:-1]]
+    reset_counts()
+    sync(torch)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ED.encode(params, cfg, frames)
+    sync(torch)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    if counts() != (enc[0], 0, enc[1], 0):
+        fail(f"{arch} encode: launches {counts()}, expected "
+             f"({enc[0]}, 0, {enc[1]}, 0)")
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache, _ = ED.encdec_prefill(params, cfg, frames, bos,
+                                         spec["max_len"])
+    sync(torch)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    want = (enc[0] + per_step[0], per_step[1], enc[1], 0)
+    if counts() != want:
+        fail(f"{arch} prefill: launches {counts()}, expected {want}")
+    kern, walls = [logits], []
+    launched = counts()
+    for s in range(steps):
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = ED.encdec_decode_step(params, cfg, toks[s], cache)
+        sync(torch)
+        walls.append(time.perf_counter() - t0)
+        if counts() != per_step or (instance is not None and set(
+                decode_instances()) != {instance}):
+            fail(f"{arch} decode step: launches {counts()} on "
+                 f"{decode_instances()}, expected {per_step} on "
+                 f"{instance}")
+        launched = tuple(a + b for a, b in zip(launched, counts()))
+        kern.append(logits)
+    step_wall = statistics.mean(walls[1:])
+    # the same step again, writing the same cache slot each time
+    dev_ms = time_ms(torch, lambda: ED.encdec_decode_step(
+        params, cfg, toks[-1], cache), inner=1, reps=3)
+    if profile:
+        from repro_torch.models import transformer as T
+        profile_steps(torch, T, params, cfg, cache, torch.stack(toks[:2]))
+    worst = scale = 0.0
+    agree = 0
+    for k, p in zip(kern, plain):
+        if tuple(k.shape) != (B, cfg.vocab_size) or not bool(
+                torch.isfinite(k).all()):
+            fail(f"{arch}: bad logits {tuple(k.shape)}")
+        worst = max(worst, float((k.float() - p.float()).abs().max()))
+        scale = max(scale, float(p.float().abs().max()))
+        agree += int((k.argmax(-1) == p.argmax(-1)).sum())
+    del params, cache, kern, plain
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, worst=worst, scale=scale, agree=agree,
+                rows=B * (steps + 1), routes=(0, 0), per_step=per_step,
+                launched=launched, encode_ms=encode_ms,
+                prefill_ms=prefill_ms, step_wall_ms=step_wall * 1e3,
+                step_device_ms=dev_ms)
+
+
+def seamless_phase(torch, smi: str):
+    """seamless-m4t-large-v2 (24 encoder and 24 decoder layers, d 1024, 16
+    heads of 64, non-gated FFN, vocab 256206) at full width and depth on
+    seeded random weights: (a) 4 requests of 1024 frames served through
+    ``encdec_prefill`` (the encoder through the flash kernel without the
+    causal mask) and 16 greedy ``encdec_decode_step``s (self and cross
+    attention through the decode kernel), logits kernels vs plain in fp32
+    and bf16 at 24 + 24 layers, held to LOGIT_TOL and
+    ARGMAX_FLOOR, 24 flash launches and 49 RMSNorms an encode, 73
+    RMSNorms and 48 decode attentions a step; (b) 5 train steps at full
+    depth on the frames batch (8 x 1024 frames and tokens, 2
+    microbatches, remat) and one step kernels vs plain held to
+    TRAIN_TOL.  Returns the bf16 serve run's and the train run's
+    launches."""
+    torch.cuda.empty_cache()
+    served = None
+    for dtype_name, depth in SEAMLESS_DEPTHS.items():
+        r = seamless_check(torch, dtype_name, depth=depth,
+                           profile=dtype_name == "bfloat16")
+        readings = model_readings(r, dtype_name)
+        if r["worst"] > LOGIT_TOL[dtype_name] or \
+                r["agree"] < ARGMAX_FLOOR[dtype_name] * r["rows"]:
+            fail(f"seamless {dtype_name}: {readings}")
+        cfg = r["cfg"]
+        say("seamless", f"{SEAMLESS} FULL width ({cfg.encoder.n_layers} "
+            f"encoder + {cfg.block_repeat} decoder layers, d "
+            f"{cfg.d_model}, head dim {cfg.head_dim}, vocab "
+            f"{cfg.vocab_size}) {dtype_name} on {smi}: "
+            f"{SEAMLESS_SERVE['requests']} requests of "
+            f"{SEAMLESS_SERVE['source']} frames, BOS + "
+            f"{SEAMLESS_SERVE['steps']} greedy steps: {readings} | encode "
+            f"{r['encode_ms']:.2f} ms, prefill (encode, cross K/V, first "
+            f"step) {r['prefill_ms']:.2f} ms, decode step wall "
+            f"{r['step_wall_ms']:.2f} ms device {r['step_device_ms']:.3f} "
+            f"ms | launches an encode rmsnorm {encode_launches(cfg)[0]} "
+            f"flash_attention {encode_launches(cfg)[1]}, a step rmsnorm "
+            f"{r['per_step'][0]} decode_attention {r['per_step'][1]} (all "
+            f"on (head dim, group) {SEAMLESS_INSTANCE})")
+        if dtype_name == "bfloat16":
+            served = r["launched"]
+    trained = train_phase(torch, smi, SEAMLESS_TRAIN, "seamless")
+    train_parity_phase(torch, SEAMLESS_TRAIN, phase="seamless")
+    return served, trained
+
+
 def main() -> int:
     try:
         import torch
@@ -2298,6 +2746,8 @@ def main() -> int:
     gemma_served, gemma_trained = gemma3_phase(torch, smi)
     deepseek_served, deepseek_results = deepseek_phase(torch, F, smi)
     results.update(deepseek_results)
+    vl_decoded, vl_trained = qwen2vl_phase(torch, smi)
+    seamless_served, seamless_trained = seamless_phase(torch, smi)
 
     # one entry per kernel and path: the path's launches, read right after
     # its run, beside the kernel's numbers at that path's bf16 shape
@@ -2332,6 +2782,24 @@ def main() -> int:
         results, [((case, "bfloat16"),
                    sum(n for x, n in zip(local, runs) if x == want))
                   for case, want in zip(GEMMA_FLASH, (True, False))])
+    # seamless serving: RMSNorms of the encoder (4 x 1024 rows) and of the
+    # decode steps; self- and cross-attention decode, one each a layer.
+    # Its training: causal decoder self-attention, and the encoder's and
+    # cross-attention's non-causal flash, by their launches a step
+    scfg = C.get_config(SEAMLESS)
+    enc = encode_launches(scfg)
+    results[("rmsnorm", "seamless-serve", "bfloat16")] = launch_mix(
+        results, [(("rmsnorm", SEAMLESS_NORM_TRAIN, "bfloat16"), enc[0]),
+                  (("rmsnorm", SEAMLESS_NORM_SERVE, "bfloat16"),
+                   seamless_served[0] - enc[0])])
+    results[("decode_attention", SEAMLESS_DECODE, "bfloat16")] = launch_mix(
+        results, [(("decode_attention", shape, "bfloat16"), 1)
+                  for shape in SEAMLESS_DECODE])
+    self_runs = 2 * scfg.block_repeat          # remat: each layer twice
+    results[("seamless-train", "bfloat16")] = launch_mix(
+        results, [((SEAMLESS_SELF, "bfloat16"), self_runs),
+                  ((SEAMLESS_ENCODE, "non-causal", "bfloat16"),
+                   2 * scfg.block_repeat + 2 * enc[1])])
     paths = (
         ("rmsnorm", "serve", ("rmsnorm", (4, 1, 896)), served[0]),
         ("decode_attention", "serve",
@@ -2341,7 +2809,9 @@ def main() -> int:
         ("rmsnorm", "mamba2_train", ("rmsnorm", (4, 1024, 5120)), mamba[0]),
         ("ssd_scan", "mamba2_train", ("ssd_scan", SSD_MAIN), mamba[3]),
         ("decode_attention", "profile",
-         ("decode_attention", PROFILE_DECODE), profiled[1]),
+         ("decode_attention", PROFILE_DECODE), profiled[1] - profiled[4]),
+        ("decode_attention", "profile-mla",
+         ("decode_attention", PROFILE_MLA_DECODE), profiled[4]),
         ("flash_attention", "profile", (PROFILE_FLASH,), profiled[2]),
         ("ssd_scan", "profile", ("ssd_scan", PROFILE_SSD), profiled[3]),
         ("rmsnorm", "mixtral-serve", ("rmsnorm", (4, 1, 4096)), mixtral[0]),
@@ -2361,6 +2831,24 @@ def main() -> int:
          deepseek_served[0]),
         ("decode_attention", "deepseek-serve",
          ("decode_attention", DEEPSEEK_DECODE), deepseek_served[1]),
+        ("rmsnorm", "qwen2-vl-7b", ("rmsnorm", QWEN_VL_NORM_SERVE),
+         vl_decoded[0]),
+        ("decode_attention", "qwen2-vl-7b",
+         ("decode_attention", QWEN_VL_DECODE), vl_decoded[1]),
+        ("rmsnorm", "qwen2-vl-train", ("rmsnorm", QWEN_VL_NORM_TRAIN),
+         vl_trained[0]),
+        ("flash_attention", "qwen2-vl-train", (QWEN_VL_FLASH,),
+         vl_trained[2]),
+        ("flash_attention", "seamless-encode",
+         (SEAMLESS_ENCODE, "non-causal"), seamless_served[2]),
+        ("rmsnorm", "seamless-serve", ("rmsnorm", "seamless-serve"),
+         seamless_served[0]),
+        ("decode_attention", "seamless-serve",
+         ("decode_attention", SEAMLESS_DECODE), seamless_served[1]),
+        ("rmsnorm", "seamless-train", ("rmsnorm", SEAMLESS_NORM_TRAIN),
+         seamless_trained[0]),
+        ("flash_attention", "seamless-train", ("seamless-train",),
+         seamless_trained[2]),
     )
     kernels = []
     for name, path, key, n in paths:

@@ -5,8 +5,11 @@
 GQA decoders with a dense FFN (attention + MLP cells) or a MoE FFN
 (attention + MoE cells), MLA decoders (MLA + MoE cells; like the
 reference, the block repeats ``block_repeat`` times and the dense
-prefix block is not modelled), and Mamba2 (SSM cells).  The
-reference's method cannot be called here: ``repro.models`` loads JAX.
+prefix block is not modelled), Mamba2 (SSM cells), M-RoPE decoders
+(qwen2-vl: attention cells with ``rope="mrope"``), and encoder-decoders
+(seamless: a cross-attention cell after each decoder attention cell,
+and an encoder block of attention + MLP cells).  The reference's method
+cannot be called here: ``repro.models`` loads JAX.
 """
 
 from __future__ import annotations
@@ -17,22 +20,20 @@ from repro_torch.models.config import ModelConfig
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    """Raise for a config outside the GQA or MLA (dense or MoE FFN) and
-    SSM families."""
+    """Raise for a config outside the GQA or MLA (dense or MoE FFN), SSM
+    and encoder-decoder families."""
     unsupported = []
     if cfg.attn_kind not in ("gqa", "mla"):
         unsupported.append(f"attn_kind={cfg.attn_kind!r}")
     if cfg.ffn_kind not in ("dense", "moe", "none"):
         unsupported.append(f"ffn_kind={cfg.ffn_kind!r}")
-    if cfg.cross_attn or cfg.encoder is not None:
-        unsupported.append("encoder-decoder")
     if cfg.shared_attn:
         unsupported.append("shared attention block")
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: no IR for {', '.join(unsupported)}; the port has "
-            f"configs for dense GQA decoders, MoE GQA and MLA decoders and "
-            f"Mamba2 only")
+            f"configs for dense GQA decoders, MoE GQA and MLA decoders, "
+            f"Mamba2 and encoder-decoders only")
 
 
 def model_ir(cfg: ModelConfig) -> IR.ModelIR:
@@ -61,6 +62,12 @@ def model_ir(cfg: ModelConfig) -> IR.ModelIR:
                 n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
                 head_dim=cfg.resolved_head_dim,
                 qkv_bias=cfg.qkv_bias, window=spec.window, rope=cfg.rope))
+        if cfg.cross_attn:
+            cells.append(IR.CrossAttentionCell(
+                name=f"xattn{i}", d_model=cfg.d_model,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim,
+                source_len=cfg.cross_source_len))
         if cfg.ffn_kind == "moe":
             cells.append(IR.MoECell(
                 name=f"moe{i}", d_model=cfg.d_model,
@@ -72,6 +79,16 @@ def model_ir(cfg: ModelConfig) -> IR.ModelIR:
                 name=f"mlp{i}", d_model=cfg.d_model, d_ff=cfg.d_ff,
                 gated=cfg.ffn_gated))
     block = IR.Block(cells=tuple(cells), repeat=cfg.block_repeat)
+    enc = None
+    if cfg.encoder is not None:
+        e = cfg.encoder
+        enc = IR.Block(cells=(
+            IR.AttentionCell(name="enc_attn", d_model=e.d_model,
+                             n_heads=e.n_heads, n_kv_heads=e.n_heads,
+                             head_dim=e.d_model // e.n_heads),
+            IR.MLPCell(name="enc_mlp", d_model=e.d_model, d_ff=e.d_ff,
+                       gated=e.gated),
+        ), repeat=e.n_layers)
     return IR.ModelIR(name=cfg.name, d_model=cfg.d_model,
                       vocab_size=cfg.vocab_size, block=block,
-                      tie_embeddings=cfg.tie_embeddings)
+                      tie_embeddings=cfg.tie_embeddings, encoder=enc)

@@ -11,6 +11,11 @@ the model at full width: mixtral-8x7b FULL is 93.4 GB in bf16, and one
 80 GB H100 holds 16 of its 32 layers (``--depth 16``); gemma3-12b FULL
 (23.5 GB) serves all 48 layers.
 
+As in ``repro/launch/serve.py``, a stub-frontend arch (qwen2-vl-7b's
+patch embeddings, seamless-m4t-large-v2's encoder over frame
+embeddings) gets the search and no engine run: the engine serves token
+prompts only, and ``repro_torch.launch.serve`` refuses such an arch.
+
 The search covers every plan, cell-level data parallelism included, as
 ``repro/launch/serve.py`` does, where there are at most
 ``MAX_SEARCH_PLANS``; a block of many cells has more (gemma3-12b's 12
@@ -46,7 +51,8 @@ def serve(arch: str = "qwen2-0.5b", trace: str = "chat", requests: int = 8,
     ``arch`` at ``size`` with the port entry point's defaults (4 slots of
     512, prompts cut to 128 tokens, outputs to 64, seed 0), at ``depth``
     blocks if given (the search prices every block); returns (baseline
-    report, search result, engine report)."""
+    report, search result, engine report), the last None for a
+    stub-frontend arch, whose engine run is skipped."""
     model = model_ir(C.get_config(arch))
     clu = get_cluster(cluster)
     reqs = get_trace(trace, arrival_rate=SEARCH_RATE,
@@ -63,6 +69,10 @@ def serve(arch: str = "qwen2-0.5b", trace: str = "chat", requests: int = 8,
         f"({base.e2e_latency / best.best.e2e_latency:.2f}x) "
         f"[{best.num_schemes} plans in {best.search_seconds:.1f}s"
         f"{', the plans current systems run' if feasible_only else ''}]")
+    cfg = (C.get_config if size == "full" else C.get_reduced)(arch)
+    if port_serve.stub_frontend(cfg):
+        log(f"({size} engine demo skipped: stub-frontend arch)")
+        return base, best, None
     report, _ = port_serve.serve(arch, size, trace, requests,
                                  device=device, log=log, depth=depth)
     return base, best, report

@@ -5,9 +5,11 @@ miniature for CPU tests), copied from ``repro/configs``.
 The port carries the dense GQA decoders (gemma3-12b among them, with
 its blocks of five sliding-window layers and one global layer), the
 attention-free Mamba2 model, the MoE decoder mixtral-8x7b and the MLA
-decoder deepseek-v2-lite-16b (64 experts, a dense first layer); the other
-architectures of the JAX registry arrive with the slices that port
-their layers.
+decoder deepseek-v2-lite-16b (64 experts, a dense first layer), the
+M-RoPE backbone qwen2-vl-7b (embedding inputs: its vision frontend is a
+stub) and the encoder-decoder seamless-m4t-large-v2 (its speech frontend
+a stub); the other architectures of the JAX registry arrive with the
+slices that port their layers.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ ARCHS: List[str] = [
     "mixtral_8x7b",
     "gemma3_12b",
     "deepseek_v2_lite_16b",
+    "qwen2_vl_7b",
+    "seamless_m4t_large_v2",
 ]
 
 # canonical ids as given in the assignment -> module names
@@ -36,6 +40,8 @@ ALIASES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "gemma3-12b": "gemma3_12b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
 }
 
 

@@ -20,7 +20,12 @@ of a cache stay fp32.  Weights keep the JAX layout, so conversion is a
 copy: a MoE FFN's experts stay stacked on their leading E axis, and its
 shared experts' MLP is the submodule ``shared`` (parameter
 ``blocks.<r>.l0.ffn.shared.w_up`` is ``tree["blocks"]["l0"]["ffn"]
-["shared"]["w_up"][r]``).
+["shared"]["w_up"][r]``).  A decoder layer with cross-attention also
+carries ``norm_x`` and ``xattn`` alike.  An encoder-decoder model's
+encoder (``tree["encoder"]``: ``layers``, stacked over its ``n_layers``
+on a leading axis, and ``final_norm``) is the port's ``encoder``:
+``encoder.layers.<i>.attn.wq`` is ``tree["encoder"]["layers"]["attn"]
+["wq"][i]``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from torch import nn
 
 from repro_torch.layers.moe import MoEParams
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import Encoder, EncoderLayer
 from repro_torch.models.transformer import (DecoderLayer, SSMLayer,
                                             Transformer, check_supported)
 
@@ -81,10 +87,28 @@ def _block(block_tree: Mapping, cfg: ModelConfig, device,
             layers[f"l{i}"] = SSMLayer(leaf(lt["norm1"]),
                                        _param_dict(lt["mixer"], device, r))
             continue
+        cross = {}
+        if "xattn" in lt:
+            cross = dict(norm_x=leaf(lt["norm_x"]),
+                         xattn=_param_dict(lt["xattn"], device, r))
         layers[f"l{i}"] = DecoderLayer(
             leaf(lt["norm1"]), _param_dict(lt["attn"], device, r),
-            leaf(lt["norm2"]), _ffn_dict(lt["ffn"], device, r))
+            leaf(lt["norm2"]), _ffn_dict(lt["ffn"], device, r), **cross)
     return nn.ModuleDict(layers)
+
+
+def _encoder(tree: Mapping, device) -> Encoder:
+    """The encoder from the reference's ``tree["encoder"]``: layer ``i``
+    is slice ``i`` of the stacked ``layers`` leaves."""
+    lt = tree["layers"]
+    n = np.asarray(lt["norm1"]).shape[0]
+    layers = nn.ModuleList(
+        EncoderLayer(_param(np.asarray(lt["norm1"])[i], device),
+                     _param_dict(lt["attn"], device, i),
+                     _param(np.asarray(lt["norm2"])[i], device),
+                     _param_dict(lt["mlp"], device, i))
+        for i in range(n))
+    return Encoder(layers, _param(tree["final_norm"], device))
 
 
 def params_from_jax(tree: Mapping, cfg: ModelConfig,
@@ -93,7 +117,9 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
 
     ``tree`` is ``jax.device_get(repro.models.transformer.init_params(
     key, cfg))`` for a config the port carries (GQA or MLA with a dense
-    or MoE FFN and prefix blocks, or Mamba2)."""
+    or MoE FFN and prefix blocks, or Mamba2); or of
+    ``repro.models.encdec.init_encdec_params`` for an encoder-decoder
+    config."""
     check_supported(cfg)
     blocks = nn.ModuleList(
         _block(tree["blocks"], cfg, device, r)
@@ -102,9 +128,11 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
                             for b in tree["prefix"])
               if "prefix" in tree else None)
     head = _param(tree["head"], device) if "head" in tree else None
+    encoder = (_encoder(tree["encoder"], device) if "encoder" in tree
+               else None)
     return Transformer(_param(tree["embed"], device),
                        _param(tree["final_norm"], device), blocks, head,
-                       prefix)
+                       prefix, encoder)
 
 
 def cache_from_jax(tree: Mapping, device=None) -> dict:
@@ -126,11 +154,14 @@ def jax_path(name: str) -> Tuple[Tuple, Optional[int]]:
     """A port parameter name -> (its path in the JAX pytree, its block
     index or None): ``blocks.3.l0.attn.wq`` -> ``(("blocks", "l0",
     "attn", "wq"), 3)``, ``prefix.0.l0.attn.wukv`` -> ``(("prefix", 0,
-    "l0", "attn", "wukv"), None)`` (a list index), ``embed`` ->
-    ``(("embed",), None)``."""
+    "l0", "attn", "wukv"), None)`` (a list index),
+    ``encoder.layers.2.attn.wq`` -> ``(("encoder", "layers", "attn",
+    "wq"), 2)``, ``embed`` -> ``(("embed",), None)``."""
     parts = name.split(".")
     if parts[0] == "blocks":
         return ("blocks", *parts[2:]), int(parts[1])
+    if parts[:2] == ["encoder", "layers"]:
+        return ("encoder", "layers", *parts[3:]), int(parts[2])
     if parts[0] == "prefix":
         return ("prefix", int(parts[1]), *parts[2:]), None
     return tuple(parts), None
@@ -151,7 +182,8 @@ def _insert(tree: dict, path: Tuple, leaf) -> None:
 def to_jax_layout(named: Mapping[str, torch.Tensor]) -> dict:
     """Tensors keyed by port parameter name (``named_parameters()``) ->
     the JAX pytree layout: nested dicts, each block tensor stacked over
-    the blocks on a leading R axis, and the prefix blocks a list.  Leaves
+    the blocks (the encoder's layers) on a leading axis, and the prefix
+    blocks a list.  Leaves
     are detached torch tensors."""
     tree: dict = {}
     stacks: dict = {}

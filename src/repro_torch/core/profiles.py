@@ -65,6 +65,12 @@ Departures from the reference, which times jitted einsums on a CPU:
 
 ``calls`` counts the calls of each op's function, warm-up included: on a
 card each is one launch of the op's kernel (or one matrix product).
+
+The simulator prices MLA's decode at the latent width, ``(n_heads,
+kv_lora_rank)`` = (16, 512) for deepseek-v2-lite-16b: that sample runs
+the decode kernel's head-dim-512 instance, which takes group 1, all a
+sample's ``Hq = Hkv`` needs.
+
 ``_op_work`` is a copy of the reference's work model: the FLOPs and bytes
 the simulator's analytic backend and roofline bound charge a sample.
 """

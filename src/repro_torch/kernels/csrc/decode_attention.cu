@@ -4,8 +4,8 @@
 
 // q: (batch, hkv * group, D); k, v: (batch, smax, hkv, D); lengths:
 // (batch,) int32; out: (batch, hkv * group, D).  All contiguous, q/k/v/out
-// of one dtype, k and v 16-byte aligned.  D is 64, 128 or 256 and group
-// 1..8.
+// of one dtype, k and v 16-byte aligned.  D is 64, 128 or 256 with group
+// 1..8, or 512 with group 1.
 // The grid is (splits, hkv, batch) with span * splits >= smax and splits
 // <= 64.  ws: fp32, batch * hkv * splits * group * (D + 2) values, unused
 // (may be null) when splits == 1; tickets: batch * hkv int32 zeros, left
@@ -52,6 +52,12 @@ extern "C" int apex_decode_attention(const void* q, const void* k,
                                    batch, hkv, group, smax, span, splits,
                                    scale, s);
     }
+  } else if (head_dim == 512) {
+    const int err = apex::launch_decode_d512(q, k, v, lengths, out, ws,
+                                             tickets, batch, hkv, group,
+                                             smax, span, splits, bf16, scale,
+                                             s);
+    if (err != 0) return err;
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

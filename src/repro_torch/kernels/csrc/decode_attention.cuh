@@ -40,9 +40,10 @@
 // span with no valid slot has m = -1e30 and l = 0 and adds 0.
 //
 // This header holds the kernel and its launcher; decode_attention.cu has
-// the C entry point and the instances of head dims 64 and 128, and
-// decode_attention_d256_{f32,bf16}.cu those of head dim 256: nvcc builds
-// the three in parallel (the D = 256 instances, fully unrolled over 8
+// the C entry point and the instances of head dims 64 and 128,
+// decode_attention_d256_{f32,bf16}.cu those of head dim 256, and
+// decode_attention_d512.cu the group-1 ones of head dim 512: nvcc builds
+// the four in parallel (the D = 256 instances, fully unrolled over 8
 // groups, took 80 of the 121 s of one file's build on an H100 host).
 #pragma once
 
@@ -101,14 +102,15 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kVec = 16 / sizeof(T);      // elements per 16-byte load
   constexpr int kChunks = D / kVec;         // 16-byte chunks of a row
   // In P V a lane owns kOwn chunks of a row, kLanes chunks apart: one
-  // chunk, except for fp32 D = 256 (64 chunks, two per lane).
+  // chunk, except above 32 chunks (fp32 D = 256: two per lane; D = 512:
+  // bf16 two, fp32 four).
   constexpr int kOwn = kChunks > 32 ? kChunks / 32 : 1;
   constexpr int kLanes = kChunks / kOwn;    // lanes that cover a row
   constexpr int kSub = 32 / kLanes;         // lanes sharing a chunk in P V
   constexpr int kRowsPV = kTile / kSub;     // V rows of a tile per lane
   // q . k reads the K row in passes of kPass chunks: the whole row up to
-  // 32 chunks (128 registers); at D = 256, where the accumulators take
-  // 8 G registers, 16 chunks a pass
+  // 32 chunks (128 registers); at D >= 256, where the accumulators take
+  // 8 G registers or more, 16 chunks a pass
   constexpr int kPass = kChunks < 32 ? kChunks : (D > 128 ? 16 : 32);
   // V rows are loaded with the K row where both fit in 128 registers
   // (D <= 64, and bf16 D = 128; the others load them as they multiply)
@@ -429,6 +431,13 @@ void launch_decode_d256_bf16(const void* q, const void* k, const void* v,
                              void* tickets, int batch, int hkv, int group,
                              int smax, int span, int splits, float scale,
                              cudaStream_t stream);
+// Head dim 512, group 1 only (decode_attention_d512.cu): returns
+// cudaErrorInvalidValue for any other group, else 0.
+int launch_decode_d512(const void* q, const void* k, const void* v,
+                       const void* lengths, void* out, void* ws,
+                       void* tickets, int batch, int hkv, int group,
+                       int smax, int span, int splits, bool bf16,
+                       float scale, cudaStream_t stream);
 
 }  // namespace apex
 

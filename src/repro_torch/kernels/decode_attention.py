@@ -24,7 +24,9 @@ for q, k and v, so a value head dim Dv below D (MLA: q and k 192 wide, v
 Dv.  Cost: the padding copies the whole K/V cache on every call, 64 / D
 times its bytes, so it is for the REDUCED configs and MLA (192 and 128
 to 256); the other FULL configs' head dims (64, 128, gemma3's 256) copy
-nothing.  A head dim above 256 raises.
+nothing.  Head dim 512, the latent width at which the simulator prices
+MLA's decode (``core.profiles``), is built for group 1 only
+(``max_group``); a head dim above 512 raises.
 """
 
 from __future__ import annotations
@@ -45,8 +47,11 @@ launches = 0
 variant_launches: Dict[Tuple[int, int], int] = {}
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 128, 256, 512)
 MAX_GROUP = 8
+# D 512 takes one query head a kv head: at group 8 its block would hold
+# 86 KB of static shared memory, past the 48 KB allowed
+WIDE_HEAD_DIM = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (
     ctypes.c_float, ctypes.c_void_p)
@@ -122,10 +127,17 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.to(q.dtype)
 
 
+def max_group(d: int) -> int:
+    """The largest group (query heads a kv head) the kernel takes at head
+    dim ``d`` of ``HEAD_DIMS``: 1 at ``WIDE_HEAD_DIM``, else
+    ``MAX_GROUP``."""
+    return 1 if d == WIDE_HEAD_DIM else MAX_GROUP
+
+
 def padded_head_dim(d: int) -> int:
     """The head dim a call of head dim ``d`` runs at: the least of
     ``HEAD_DIMS`` that is ``>= d`` (8, 16, 24, 32 -> 64; 112 -> 128;
-    129 .. 256 -> 256).
+    129 .. 256 -> 256; 257 .. 512 -> 512, group 1 only).
     Raises ``ValueError`` above the largest."""
     for dim in HEAD_DIMS:
         if d <= dim:
@@ -166,9 +178,9 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Smax < 1 or Hkv < 1 or Hq % Hkv:
         raise ValueError(f"decode_attention kernel: Hq={Hq} must be a "
                          f"multiple of Hkv={Hkv}, Smax={Smax} >= 1")
-    if not 1 <= Hq // Hkv <= MAX_GROUP:
+    if not 1 <= Hq // Hkv <= max_group(D):
         raise ValueError(f"decode_attention kernel: group {Hq // Hkv} "
-                         f"outside [1, {MAX_GROUP}]")
+                         f"outside [1, {max_group(D)}] at head dim {D}")
     if D not in HEAD_DIMS:
         raise ValueError(f"decode_attention kernel: head dim {D} not in "
                          f"{HEAD_DIMS}")

@@ -13,6 +13,12 @@ throughput.
 The APEX plan-search half of ``repro/launch/serve.py`` needs the
 simulator, which the port does not import: ``python -m apex_bridge.serve``
 runs the search and then this entry point.
+
+Stub-frontend archs (qwen2-vl-7b, fed patch embeddings; the
+encoder-decoder seamless-m4t-large-v2, fed frame embeddings) raise
+``ValueError``: the reference skips its engine demo for them, as the
+engine serves token prompts.  seamless serves through
+``models.encdec.encdec_prefill`` and ``encdec_decode_step``.
 """
 
 from __future__ import annotations
@@ -27,7 +33,15 @@ from repro_torch import configs as C
 from repro_torch.data.requests import make_serving_requests
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
 from repro_torch.serving.engine import EngineReport, ServingEngine
+
+
+def stub_frontend(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s inputs come from a stubbed modality frontend (an
+    encoder over frames, or patch embeddings), which the reference's
+    serve skips the engine for."""
+    return cfg.encoder is not None or cfg.embeds_input
 
 
 def serve(arch: str = "qwen2-0.5b", size: str = "full",
@@ -43,8 +57,13 @@ def serve(arch: str = "qwen2-0.5b", size: str = "full",
     number."""
     if size not in ("full", "reduced"):
         raise ValueError(f"size must be 'full' or 'reduced', got {size!r}")
-    dev = resolve_device(device)
     cfg = C.get_config(arch) if size == "full" else C.get_reduced(arch)
+    if stub_frontend(cfg):
+        raise ValueError(f"{cfg.name}: stub-frontend arch, no engine demo "
+                         f"(as in repro/launch/serve.py); an "
+                         f"encoder-decoder serves through "
+                         f"models.encdec.encdec_prefill")
+    dev = resolve_device(device)
     if depth is not None:
         if depth <= cfg.first_k_dense:
             raise ValueError(f"depth {depth} keeps no block after "

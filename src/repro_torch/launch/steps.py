@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.optimizer import (AdamWState, adamw_update,
@@ -67,25 +68,45 @@ def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
                     remat: bool = True, peak_lr: float = 3e-4,
                     loss_chunk: int = 512):
     """Returns ``train_step(params, opt_state, batch) -> (params,
-    opt_state, metrics)``; batch: ``{"tokens", "labels"}``, (B, S) int32
-    on the parameters' device.  The parameters and the optimizer state
-    are updated in place and returned.
+    opt_state, metrics)``; batch on the parameters' device: ``{"tokens",
+    "labels"}`` (B, S) int32 for LM archs; ``{"frames" (B, Ssrc, d),
+    "tokens", "labels"}`` for an encoder-decoder; ``{"embeds" (B, S, d),
+    "labels"}`` for a stub-frontend arch.  The parameters and the
+    optimizer state are updated in place and returned.
 
     With one microbatch the gradients stay in the parameters' dtype and
     the clip norm is taken after their cast to fp32; with more, each
     microbatch's gradients are added into fp32 accumulators and the
-    loss and gradients averaged, as in the reference."""
-    if cfg.encoder is not None or cfg.embeds_input:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder and "
-                                  f"embedding-input training are not "
-                                  f"ported yet")
+    loss and gradients averaged, as in the reference.  An arch fed
+    embeddings never reads its untied embedding table: ``embed`` gets a
+    zero gradient, as ``jax.grad`` gives it, and AdamW still decays it.
+    Any other parameter the loss does not reach raises, as autograd
+    does."""
+    unread = ("embed",) if cfg.embeds_input and not cfg.tie_embeddings \
+        else ()
 
     def loss_fn(params: T.Transformer, batch: dict) -> torch.Tensor:
         head = params.embed.T if cfg.tie_embeddings else params.head
-        hidden = T.forward(params, cfg, tokens=batch["tokens"],
-                           remat=remat, return_hidden=True)
+        if cfg.encoder is not None:
+            memory = ED.encode(params, cfg, batch["frames"], remat=remat)
+            hidden = T.forward(params, cfg, batch["tokens"],
+                               enc_memory=memory, remat=remat,
+                               return_hidden=True)
+        elif cfg.embeds_input:
+            hidden = T.forward(params, cfg, embeds=batch["embeds"],
+                               remat=remat, return_hidden=True)
+        else:
+            hidden = T.forward(params, cfg, batch["tokens"], remat=remat,
+                               return_hidden=True)
         return chunked_ce_loss(hidden, head, batch["labels"],
                                chunk=loss_chunk)
+
+    def grads_of(loss: torch.Tensor, named: dict) -> list:
+        read = [n for n in named if n not in unread]
+        grads = dict(zip(read, torch.autograd.grad(
+            loss, [named[n] for n in read])))
+        return [grads[n] if n in grads else torch.zeros_like(p)
+                for n, p in named.items()]
 
     def train_step(params: T.Transformer, opt_state: AdamWState,
                    batch: dict):
@@ -101,7 +122,7 @@ def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
                                      *x.shape[1:])[mb]
                         for k, x in batch.items()}
                 mb_loss = loss_fn(params, part)
-                mb_grads = torch.autograd.grad(mb_loss, leaves)
+                mb_grads = grads_of(mb_loss, named)
                 # fp32 += bf16 promotes each element exactly, with no fp32
                 # copy of the whole gradient
                 torch._foreach_add_(grads, list(mb_grads))
@@ -111,7 +132,7 @@ def make_train_step(cfg: ModelConfig, *, microbatches: int = 1,
             torch._foreach_div_(grads, microbatches)
         else:
             loss = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = grads_of(loss, named)
             loss = loss.detach()
         lr = cosine_lr(int(opt_state.step) + 1, peak_lr=peak_lr)
         params, opt_state, metrics = adamw_update(

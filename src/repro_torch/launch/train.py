@@ -11,10 +11,19 @@ checkpoints -> resume.
         --full --steps 5 --seq 1024 --microbatches 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-12b \\
         --full --depth 1 --steps 5 --seq 2048 --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-7b \\
+        --full --depth 4 --steps 5 --seq 1024 --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch seamless-m4t-large-v2 --full --steps 5 --seq 1024 \\
+        --microbatches 2
 
 ``--depth`` keeps that many blocks at full width: gemma3-12b trains one
 block (six layers) on one H100, as its 48 layers' AdamW state alone
-passes 80 GB.
+passes 80 GB; qwen2-vl-7b trains 4 of its 28 layers.  The stub-frontend
+archs take inputs the token pipeline does not make: qwen2-vl-7b's patch
+embeddings and seamless-m4t-large-v2's frame embeddings, (B, seq,
+d_model), are drawn anew each step (``stub_inputs``), as the reference
+draws them.
 
 Without ``--device cpu`` it needs a CUDA card; ``--device cpu`` runs the
 plain PyTorch versions of the kernels (sensible with the reduced configs).
@@ -35,7 +44,9 @@ from repro_torch.convert import (from_jax_layout, load_jax_layout,
 from repro_torch.data.pipeline import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_train_step
+from repro_torch.models import encdec as ED
 from repro_torch.models import transformer as T
+from repro_torch.models.config import ModelConfig
 from repro_torch.training.checkpoint import CheckpointManager
 from repro_torch.training.optimizer import AdamWState, adamw_init
 
@@ -62,6 +73,22 @@ def load_train_state(params: T.Transformer, opt: AdamWState,
     return opt._replace(step=saved.step.to(torch.int32))
 
 
+def stub_inputs(cfg: ModelConfig, batch: int, seq: int, step: int,
+                seed: int, device) -> dict:
+    """A stub frontend's inputs for train step ``step``: ``frames`` for an
+    encoder-decoder, ``embeds`` for an arch fed embeddings, each (batch,
+    seq, d_model) fp32 N(0, 1) from a generator seeded by ``(seed,
+    step)``, so a resumed run draws what an unbroken one does; ``{}``
+    for other archs."""
+    name = ("frames" if cfg.encoder is not None
+            else "embeds" if cfg.embeds_input else None)
+    if name is None:
+        return {}
+    gen = torch.Generator(device=device).manual_seed((seed << 32) + step)
+    return {name: torch.randn(batch, seq, cfg.d_model, generator=gen,
+                              device=device)}
+
+
 def train(arch: str = "internlm2-1.8b", steps: int = 20, batch: int = 8,
           seq: int = 64, microbatches: int = 1,
           ckpt_dir: Optional[str] = None, ckpt_every: int = 10,
@@ -74,8 +101,9 @@ def train(arch: str = "internlm2-1.8b", steps: int = 20, batch: int = 8,
     Returns ``(params, opt, losses)``.  Each step's ``{"step", "loss",
     "grad_norm", "seconds"}`` is appended to ``history`` when given; the
     seconds are read after ``torch.cuda.synchronize()`` on a card.
-    Architectures the port does not train (MLA, encoder-decoder,
-    embedding inputs) raise ``NotImplementedError``."""
+    An encoder-decoder arch trains on ``{"frames", "tokens", "labels"}``,
+    an arch fed embeddings on ``{"embeds", "labels"}`` (``stub_inputs``).
+    MLA, which the port does not train, raises ``NotImplementedError``."""
     cfg = C.get_reduced(arch) if reduced else C.get_config(arch)
     if cfg.attn_kind == "mla":
         raise NotImplementedError(
@@ -85,7 +113,10 @@ def train(arch: str = "internlm2-1.8b", steps: int = 20, batch: int = 8,
     if depth is not None:
         cfg = dataclasses.replace(cfg, block_repeat=depth)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    params = T.init_params(gen, cfg, device=dev)
+    if cfg.encoder is not None:
+        params = ED.init_encdec_params(gen, cfg, device=dev)
+    else:
+        params = T.init_params(gen, cfg, device=dev)
     opt = adamw_init(params)
     pipe = TokenPipeline(vocab_size=cfg.vocab_size, seq_len=seq,
                          global_batch=batch, seed=seed)
@@ -105,6 +136,7 @@ def train(arch: str = "internlm2-1.8b", steps: int = 20, batch: int = 8,
     for step in range(start_step, steps):
         data = pipe.global_batch_at(step)
         batch_in = {k: t.to(dev) for k, t in data.items()}
+        batch_in.update(stub_inputs(cfg, batch, seq, step, seed, dev))
         sync()
         t0 = time.perf_counter()
         params, opt, metrics = step_fn(params, opt, batch_in)

@@ -16,10 +16,10 @@ from .attention import (blockwise_attention, gqa_attention,
 from .mlp import init_mlp, mlp_forward
 from .moe import MoEParams, init_moe, moe_forward
 from .norms import rms_norm
-from .rope import apply_rope, rope_angles
+from .rope import apply_mrope, apply_rope, rope_angles
 from .ssm import init_mamba2, mamba2_decode_step, mamba2_forward
 
-__all__ = ["MoEParams", "apply_rope", "blockwise_attention",
+__all__ = ["MoEParams", "apply_mrope", "apply_rope", "blockwise_attention",
            "gqa_attention", "gqa_decode_step", "init_attention",
            "init_mamba2", "init_mla", "init_mlp", "init_moe",
            "mamba2_decode_step", "mamba2_forward", "mla_attention",

@@ -15,7 +15,9 @@ full-sequence path for training and the decode step for serving.
     reference does, and attends through the same two kernels (their
     wrappers pad v to the width of q and k).
 
-M-RoPE comes in a later slice.
+``rope="mrope"`` (qwen2-vl) rotates q and k by (t, h, w) position ids
+(``apply_mrope``); the decode step broadcasts a token's one position to
+all three axes, as the reference does.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from torch import nn
 from repro_torch.kernels import decode_attention as _attn_kernel
 from repro_torch.kernels import flash_attention as _flash
 from .mlp import normal_param
-from .rope import apply_rope
+from .rope import apply_mrope, apply_rope
 
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
@@ -171,10 +173,12 @@ def gqa_attention(params: nn.ParameterDict, x: torch.Tensor,
                   rope: str = "rope",
                   rope_theta: float = 10000.0) -> torch.Tensor:
     """Full-sequence GQA (training).  x: (B, S, d_model); positions:
-    (B, S) absolute."""
+    (B, S) absolute, or (B, S, 3) (t, h, w) ids under M-RoPE."""
     q, k, v = _project_qkv(params, x, n_heads, n_kv_heads, head_dim)
     if rope == "rope":
         q, k = apply_rope(q, k, positions, rope_theta)
+    elif rope == "mrope":
+        q, k = apply_mrope(q, k, positions, theta=rope_theta)
     elif rope != "none":
         raise NotImplementedError(f"rope={rope!r} is not ported yet")
     out = blockwise_attention(q.contiguous(), k.contiguous(),
@@ -210,6 +214,9 @@ def gqa_decode_step(params: nn.ParameterDict, x: torch.Tensor,
     pos = cache_len[:, None]                               # (B, 1) absolute
     if rope == "rope":
         q, k = apply_rope(q, k, pos, rope_theta)
+    elif rope == "mrope":
+        q, k = apply_mrope(q, k, pos[..., None].expand(B, 1, 3),
+                           theta=rope_theta)
     elif rope != "none":
         raise NotImplementedError(f"rope={rope!r} is not ported yet")
     ring = window is not None and Smax <= window + 16

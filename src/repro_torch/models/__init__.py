@@ -1,5 +1,6 @@
-"""Model zoo of the port: the dense decoder and Mamba2 paths of
-``repro.models``."""
+"""Model zoo of the port: the decoder paths of ``repro.models`` (dense,
+MoE, MLA, Mamba2, M-RoPE fed embeddings) in ``transformer`` and the
+encoder-decoder in ``encdec``."""
 
 from .config import EncoderConfig, LayerSpec, ModelConfig
 from .transformer import (decode_step, forward, init_cache, init_params,

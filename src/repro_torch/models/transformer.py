@@ -1,13 +1,17 @@
 """Decoder of the port (``repro/models/transformer.py``): GQA and MLA
-decoders with a dense or MoE FFN, and attention-free Mamba2 stacks.
+decoders with a dense or MoE FFN, attention-free Mamba2 stacks, M-RoPE
+decoders fed embeddings (qwen2-vl) and the decoder of an
+encoder-decoder model (seamless; ``models.encdec`` holds its encoder).
 
 Parameters are an ``nn.Module`` tree that mirrors the reference's pytree:
 ``embed``, ``final_norm``, optional ``head``, and ``blocks``, a
 ``ModuleList`` of ``block_repeat - first_k_dense`` blocks, each a
 ``ModuleDict`` of layers keyed ``l0``, ``l1``, ... by block-pattern
-slot: a ``DecoderLayer`` (``norm1``, ``attn``, ``norm2``, ``ffn``) for
-an attention slot (``ffn`` a ``MoEParams`` in a MoE model), an
-``SSMLayer`` (``norm1``, ``mixer``) for an SSM slot.  A model with
+slot: a ``DecoderLayer`` (``norm1``, ``attn``, ``norm2``, ``ffn``; with
+cross-attention also ``norm_x`` and ``xattn``) for an attention slot
+(``ffn`` a ``MoEParams`` in a MoE model), an ``SSMLayer`` (``norm1``,
+``mixer``) for an SSM slot.  An encoder-decoder model also has
+``encoder`` (``models.encdec.Encoder``).  A model with
 ``first_k_dense`` prefix blocks (deepseek: one) also has ``prefix``, a
 ``ModuleList`` of that many blocks laid out alike, whose FFN is a dense
 MLP of ``d_ff_dense_first``; they run before ``blocks``.
@@ -16,15 +20,21 @@ The reference stacks block parameters on a leading R axis for
 scan is a loop over the R block modules.
 
 ``forward`` (training) runs the whole sequence through the flash kernel
-or the SSD-scan kernel; ``decode_step`` and the token-replay ``prefill``
+or the SSD-scan kernel, from token ids or from embeddings (``embeds``),
+at ``positions`` (default ``arange``; (t, h, w) ids under M-RoPE), and
+attends to an encoder's memory (``enc_memory``) through the flash kernel
+without the causal mask; ``decode_step`` and the token-replay ``prefill``
 (serving) run under ``torch.no_grad`` through the decode-attention
-kernel or the one-step Mamba2 recurrence.
+kernel or the one-step Mamba2 recurrence, cross-attention through the
+decode kernel over the whole cross cache.
 
 The cache keeps the reference's layout, per pattern slot: ``k``/``v``
 (R, B, Smax, Hkv, D) for GQA; the latents ``c_kv`` (R, B, Smax, r) and
 rotated RoPE keys ``k_pe`` (R, B, Smax, dr) for MLA; ``ssm`` (R, B, H,
 P, N) fp32 and the conv windows ``conv_x`` (R, B, K-1, d_inner) and
-``conv_bc`` (R, B, K-1, 2 N) for SSM; plus ``len`` (B,) int32.  The
+``conv_bc`` (R, B, K-1, 2 N) for SSM; with cross-attention also ``xk``/``xv``
+(R, B, Se, Hkv, D), the encoder memory's keys and values; plus ``len``
+(B,) int32.  The
 prefix blocks' caches are the list ``prefix``, the same leaves without
 the R axis.  ``decode_step`` writes the new K/V rows (latents) and the
 new SSM state and windows into it in place.
@@ -35,11 +45,11 @@ ring_size(window))`` slots (``init_cache``, ``gqa_decode_step``).
 Ported: GQA and MLA decoders with a dense or MoE FFN (mixtral;
 deepseek, with its first-k-dense prefix), blocks of several attention
 layers with their own windows (gemma3: five sliding-window layers and
-one global layer), and all-SSM stacks without an FFN (mamba2).
-Attention without an FFN, attention and SSM layers in one block, SSM
-layers with MoE or a prefix, cross-attention, shared attention (zamba2),
-several SSM groups, M-RoPE and embedding inputs raise
-``NotImplementedError``.
+one global layer), all-SSM stacks without an FFN (mamba2), M-RoPE and
+embedding inputs (qwen2-vl), and cross-attention to an encoder's memory
+(seamless).  Attention without an FFN, attention and SSM layers in one
+block, SSM layers with MoE, a prefix or cross-attention, shared
+attention (zamba2) and several SSM groups raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -52,14 +62,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import torch_dtype
-from repro_torch.layers import (gqa_attention, gqa_decode_step,
-                                init_attention, init_mamba2, init_mla,
-                                init_mlp, init_moe, mamba2_decode_step,
-                                mamba2_forward, mla_attention,
-                                mla_decode_step, mlp_forward, moe_forward,
-                                rms_norm)
+from repro_torch.kernels import decode_attention as _decode_attention
+from repro_torch.layers import (blockwise_attention, gqa_attention,
+                                gqa_decode_step, init_attention,
+                                init_mamba2, init_mla, init_mlp, init_moe,
+                                mamba2_decode_step, mamba2_forward,
+                                mla_attention, mla_decode_step,
+                                mlp_forward, moe_forward, rms_norm)
 from repro_torch.layers.mlp import normal_param
 from .config import LayerSpec, ModelConfig
+
+
+ENCDEC_PREFILL = ("encoder-decoder models prefill via "
+                  "repro_torch.models.encdec.encdec_prefill")
 
 
 def ring_size(window: int, multiple: int = 16) -> int:
@@ -79,15 +94,13 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"ffn_kind={cfg.ffn_kind!r}")
     if ssm and cfg.n_ssm_groups != 1:
         missing.append(f"n_ssm_groups={cfg.n_ssm_groups}")
-    if cfg.cross_attn or cfg.encoder is not None:
-        missing.append("cross-attention / encoder")
+    if ssm and cfg.cross_attn:
+        missing.append("cross-attention beside SSM layers")
     if cfg.shared_attn:
         missing.append("shared attention")
     if ssm and cfg.first_k_dense:
         missing.append("first_k_dense prefix blocks of SSM layers")
-    if cfg.embeds_input:
-        missing.append("embedding inputs")
-    if cfg.rope not in ("rope", "none"):
+    if cfg.rope not in ("rope", "mrope", "none"):
         missing.append(f"rope={cfg.rope!r}")
     if missing:
         raise NotImplementedError(f"{cfg.name}: not ported yet: "
@@ -99,15 +112,21 @@ def _ones(d: int, dtype: torch.dtype, device) -> nn.Parameter:
 
 
 class DecoderLayer(nn.Module):
-    """One attention + FFN layer: ``norm1``, ``attn``, ``norm2``, ``ffn``."""
+    """One attention + FFN layer: ``norm1``, ``attn``, ``norm2``, ``ffn``;
+    a decoder layer of an encoder-decoder model also has ``norm_x`` and
+    ``xattn`` (cross-attention's ``wq``, ``wk``, ``wv``, ``wo``)."""
 
     def __init__(self, norm1: nn.Parameter, attn: nn.ParameterDict,
-                 norm2: nn.Parameter, ffn: nn.ParameterDict):
+                 norm2: nn.Parameter, ffn: nn.ParameterDict,
+                 norm_x: Optional[nn.Parameter] = None,
+                 xattn: Optional[nn.ParameterDict] = None):
         super().__init__()
         self.norm1 = norm1
         self.attn = attn
         self.norm2 = norm2
         self.ffn = ffn
+        self.norm_x = norm_x
+        self.xattn = xattn
 
 
 class SSMLayer(nn.Module):
@@ -125,13 +144,15 @@ class Transformer(nn.Module):
     def __init__(self, embed: nn.Parameter, final_norm: nn.Parameter,
                  blocks: nn.ModuleList,
                  head: Optional[nn.Parameter] = None,
-                 prefix: Optional[nn.ModuleList] = None):
+                 prefix: Optional[nn.ModuleList] = None,
+                 encoder: Optional[nn.Module] = None):
         super().__init__()
         self.embed = embed
         self.final_norm = final_norm
         self.blocks = blocks
         self.head = head
         self.prefix = prefix
+        self.encoder = encoder
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
@@ -174,8 +195,13 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
                 cfg.d_ff_dense_first else cfg.d_ff
             ffn = init_mlp(gen, d, d_ff, cfg.ffn_gated, dtype=dt,
                            device=device)
+        cross = {}
+        if cfg.cross_attn:
+            cross = dict(norm_x=_ones(d, dt, device), xattn=init_attention(
+                gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                dtype=dt, device=device))
         return DecoderLayer(_ones(d, dt, device), attn,
-                            _ones(d, dt, device), ffn)
+                            _ones(d, dt, device), ffn, **cross)
 
     def block_list(n: int, dense_ffn: bool = False) -> nn.ModuleList:
         return nn.ModuleList(
@@ -193,15 +219,17 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None, cache_dtype=None) -> dict:
+               device=None, cache_dtype=None, source_len: int = 0) -> dict:
     """All-zero cache: per GQA slot ``k``/``v`` (R, B, Smax, Hkv, D),
     ``Smax = max_len`` for full attention and ``min(max_len,
     ring_size(window))`` for sliding-window layers; per MLA slot ``c_kv``
     (R, B, max_len, r) and ``k_pe`` (R, B, max_len, dr); per SSM slot
     ``ssm`` (R, B, H, P, N) fp32, ``conv_x`` (R, B, K-1, d_inner) and
-    ``conv_bc`` (R, B, K-1, 2 G N); ``len`` (B,) int32.  R is
-    ``block_repeat - first_k_dense``; a model with prefix blocks also has
-    ``prefix``, a list of their caches, the same leaves without R."""
+    ``conv_bc`` (R, B, K-1, 2 G N); with cross-attention, per attention
+    slot also ``xk``/``xv`` (R, B, source_len, Hkv, D); ``len`` (B,)
+    int32.  R is ``block_repeat - first_k_dense``; a model with prefix
+    blocks also has ``prefix``, a list of their caches, the same leaves
+    without R."""
     check_supported(cfg)
     dt = torch_dtype(cache_dtype if cache_dtype is not None else cfg.dtype)
     R = cfg.block_repeat - cfg.first_k_dense
@@ -221,13 +249,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                 "conv_bc": zeros(*lead, batch, cfg.d_conv - 1, 2 * gn),
             }
         if cfg.attn_kind == "mla":
-            return {"c_kv": zeros(*lead, batch, max_len, cfg.kv_lora_rank),
-                    "k_pe": zeros(*lead, batch, max_len,
-                                  cfg.qk_rope_head_dim)}
-        kv_len = max_len if spec.window is None \
-            else min(max_len, ring_size(spec.window))
-        return {"k": zeros(*lead, batch, kv_len, cfg.n_kv_heads, hd),
-                "v": zeros(*lead, batch, kv_len, cfg.n_kv_heads, hd)}
+            c = {"c_kv": zeros(*lead, batch, max_len, cfg.kv_lora_rank),
+                 "k_pe": zeros(*lead, batch, max_len, cfg.qk_rope_head_dim)}
+        else:
+            kv_len = max_len if spec.window is None \
+                else min(max_len, ring_size(spec.window))
+            c = {"k": zeros(*lead, batch, kv_len, cfg.n_kv_heads, hd),
+                 "v": zeros(*lead, batch, kv_len, cfg.n_kv_heads, hd)}
+        if cfg.cross_attn:
+            c["xk"] = zeros(*lead, batch, source_len, cfg.n_kv_heads, hd)
+            c["xv"] = zeros(*lead, batch, source_len, cfg.n_kv_heads, hd)
+        return c
 
     cache = {
         "blocks": {f"l{i}": layer_cache(spec)
@@ -251,7 +283,8 @@ def _ffn_apply(cfg: ModelConfig, p: nn.ParameterDict,
 
 
 def _layer_apply(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
-                 x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, positions: torch.Tensor,
+                 enc_memory: Optional[torch.Tensor] = None) -> torch.Tensor:
     if spec.kind == "ssm":
         return x + mamba2_forward(p.mixer, rms_norm(x, p.norm1),
                                   d_inner=cfg.d_inner, d_state=cfg.d_state,
@@ -271,18 +304,37 @@ def _layer_apply(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
                               head_dim=cfg.resolved_head_dim,
                               window=spec.window, rope=cfg.rope,
                               rope_theta=cfg.rope_theta)
+    if cfg.cross_attn and enc_memory is not None:
+        x = x + _cross_attention(cfg, p.xattn, rms_norm(x, p.norm_x),
+                                 enc_memory)
     return x + _ffn_apply(cfg, p.ffn, rms_norm(x, p.norm2))
 
 
+def _cross_attention(cfg: ModelConfig, xp: nn.ParameterDict,
+                     h: torch.Tensor, memory: torch.Tensor) -> torch.Tensor:
+    """Attention of the decoder's ``h`` (B, S, d) over the encoder's
+    ``memory`` (B, Se, d): no mask, no RoPE, no bias; the flash kernel
+    with ``causal=False`` and Sq = S, Skv = Se."""
+    B, S, _ = h.shape
+    Se = memory.shape[1]
+    hd = cfg.resolved_head_dim
+    q = (h @ xp["wq"]).reshape(B, S, cfg.n_heads, hd)
+    k = (memory @ xp["wk"]).reshape(B, Se, cfg.n_kv_heads, hd)
+    v = (memory @ xp["wv"]).reshape(B, Se, cfg.n_kv_heads, hd)
+    out = blockwise_attention(q, k, v, causal=False)
+    return out.reshape(B, S, cfg.n_heads * hd) @ xp["wo"]
+
+
 def _block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
-                 positions: torch.Tensor, nest_remat: bool = False
-                 ) -> torch.Tensor:
+                 positions: torch.Tensor, nest_remat: bool = False,
+                 enc_memory: Optional[torch.Tensor] = None) -> torch.Tensor:
     for i, spec in enumerate(cfg.block_pattern):
         if nest_remat:
             x = checkpoint(_layer_apply, cfg, spec, blk[f"l{i}"], x,
-                           positions, use_reentrant=False)
+                           positions, enc_memory, use_reentrant=False)
         else:
-            x = _layer_apply(cfg, spec, blk[f"l{i}"], x, positions)
+            x = _layer_apply(cfg, spec, blk[f"l{i}"], x, positions,
+                             enc_memory)
     return x
 
 
@@ -296,11 +348,32 @@ def _prefix_blocks(params: Transformer, cfg: ModelConfig) -> list:
     return blocks
 
 
-def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
+def _embed(params: Transformer, cfg: ModelConfig,
+           tokens: Optional[torch.Tensor],
+           embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The input rows: ``embeds`` cast to the model's dtype where given
+    (a stub frontend's patch or frame embeddings; contiguous, as the
+    kernels take them, also when they are a slice of a prompt's), else
+    the embedding rows of ``tokens``."""
+    if embeds is not None:
+        return embeds.to(torch_dtype(cfg.dtype)).contiguous()
+    return params.embed[tokens]
+
+
+def forward(params: Transformer, cfg: ModelConfig,
+            tokens: Optional[torch.Tensor] = None, *,
+            embeds: Optional[torch.Tensor] = None,
+            positions: Optional[torch.Tensor] = None,
+            enc_memory: Optional[torch.Tensor] = None,
             remat: bool = False,
             return_hidden: bool = False) -> torch.Tensor:
-    """Full-sequence forward: (B, S) token ids -> logits (B, S, vocab),
-    at positions ``arange(S)``.
+    """Full-sequence forward -> logits (B, S, vocab).
+
+    ``tokens`` (B, S) ids, or ``embeds`` (B, S, d_model) from a stub
+    frontend (VLM patches); ``positions`` (B, S), or (B, S, 3) (t, h, w)
+    ids under M-RoPE, default ``arange(S)`` on every axis;
+    ``enc_memory`` (B, Se, d_model), an encoder's output, which every
+    decoder layer of a cross-attention model attends to.
 
     ``remat`` checkpoints each block (``torch.utils.checkpoint``,
     non-reentrant) where the reference wraps the scanned block in
@@ -314,19 +387,22 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     logits.  Prefix blocks run first, never checkpointed, as in the
     reference."""
     check_supported(cfg)
-    x = params.embed[tokens]
+    x = _embed(params, cfg, tokens, embeds)
     B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+        if cfg.rope == "mrope":
+            positions = positions[..., None].expand(B, S, 3)
     for blk in _prefix_blocks(params, cfg):
-        x = _block_apply(cfg, blk, x, positions)
+        x = _block_apply(cfg, blk, x, positions, enc_memory=enc_memory)
     nest_remat = remat and len(cfg.block_pattern) > 1
     for blk in params.blocks:
         if remat:
             x = checkpoint(_block_apply, cfg, blk, x, positions, nest_remat,
-                           use_reentrant=False)
+                           enc_memory, use_reentrant=False)
         else:
-            x = _block_apply(cfg, blk, x, positions)
+            x = _block_apply(cfg, blk, x, positions, enc_memory=enc_memory)
     x = rms_norm(x, params.final_norm)
     if return_hidden:
         return x
@@ -336,9 +412,11 @@ def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _layer_decode(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
                   x: torch.Tensor, lc: dict, r: int,
-                  cache_len: torch.Tensor) -> torch.Tensor:
+                  cache_len: torch.Tensor,
+                  cross_len: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer of block ``r`` for one token; writes the layer's cache
-    ``lc`` (block ``r``'s rows) in place."""
+    ``lc`` (block ``r``'s rows) in place.  ``cross_len`` (B,) int32: the
+    cross cache's length Se in every row, where it has one."""
     h = rms_norm(x, p.norm1)
     if spec.kind == "ssm":
         y, state, conv = mamba2_decode_step(
@@ -364,12 +442,24 @@ def _layer_decode(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
             head_dim=cfg.resolved_head_dim, window=spec.window,
             rope=cfg.rope, rope_theta=cfg.rope_theta)
     x = x + y
+    if cross_len is not None:
+        x = x + _cross_decode(cfg, p.xattn, rms_norm(x, p.norm_x),
+                              lc["xk"][r], lc["xv"][r], cross_len)
     return x + _ffn_apply(cfg, p.ffn, rms_norm(x, p.norm2))
 
 
-def _no_embeds(embeds: Optional[torch.Tensor]) -> None:
-    if embeds is not None:
-        raise NotImplementedError("embedding inputs are not ported yet")
+def _cross_decode(cfg: ModelConfig, xp: nn.ParameterDict, h: torch.Tensor,
+                  xk: torch.Tensor, xv: torch.Tensor,
+                  cross_len: torch.Tensor) -> torch.Tensor:
+    """One token's cross-attention over the whole cross cache ``xk``/``xv``
+    (B, Se, Hkv, D) through ``kernels.decode_attention`` with every row's
+    length Se (group ``Hq // Hkv``).  The reference writes it as an einsum
+    softmax over the cache, the function the kernel computes."""
+    B = h.shape[0]
+    hd = cfg.resolved_head_dim
+    q = (h @ xp["wq"]).reshape(B, cfg.n_heads, hd)
+    out = _decode_attention.decode_attention(q, xk, xv, cross_len)
+    return out.reshape(B, 1, cfg.n_heads * hd) @ xp["wo"]
 
 
 @torch.no_grad()
@@ -377,17 +467,27 @@ def decode_step(params: Transformer, cfg: ModelConfig,
                 tokens: torch.Tensor, cache: dict,
                 embeds: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, dict]:
-    """One serving step: (B, 1) token ids + cache -> logits (B, vocab) and
-    the cache with ``len`` advanced by one.
+    """One serving step: (B, 1) token ids (or ``embeds`` (B, 1, d_model))
+    + cache -> logits (B, vocab) and the cache with ``len`` advanced by
+    one.
 
     The K/V (latent, or SSM state and conv window) tensors of ``cache``
     are updated in place and shared by the returned cache; only ``len``
     is a new tensor.  Prefix blocks run first, on the ``prefix`` caches.
+    A cross-attention model attends to the cache's ``xk``/``xv`` (filled
+    by ``models.encdec.encdec_prefill``); over a cross cache of no
+    source tokens it adds nothing, as the reference's empty softmax
+    does.
     """
     check_supported(cfg)
-    _no_embeds(embeds)
-    x = params.embed[tokens]
+    x = _embed(params, cfg, tokens, embeds)
     cache_len = cache["len"]
+    cross_len = None
+    if cfg.cross_attn:
+        Se = cache["blocks"]["l0"]["xk"].shape[2]
+        if Se:
+            cross_len = torch.full((x.shape[0],), Se, dtype=torch.int32,
+                                   device=x.device)
     prefix_caches = cache.get("prefix", [])
     if len(prefix_caches) != cfg.first_k_dense:
         raise ValueError(f"decode_step: {len(prefix_caches)} prefix block "
@@ -397,11 +497,13 @@ def decode_step(params: Transformer, cfg: ModelConfig,
             # a leading axis of one, so that the prefix caches read like
             # block 0 of the scanned ones (views: writes reach ``pc``)
             lc = {name: t[None] for name, t in pc[f"l{i}"].items()}
-            x = _layer_decode(cfg, spec, blk[f"l{i}"], x, lc, 0, cache_len)
+            x = _layer_decode(cfg, spec, blk[f"l{i}"], x, lc, 0, cache_len,
+                              cross_len)
     for r, blk in enumerate(params.blocks):
         for i, spec in enumerate(cfg.block_pattern):
             x = _layer_decode(cfg, spec, blk[f"l{i}"], x,
-                              cache["blocks"][f"l{i}"], r, cache_len)
+                              cache["blocks"][f"l{i}"], r, cache_len,
+                              cross_len)
     x = rms_norm(x, params.final_norm)
     head = params.embed.T if cfg.tie_embeddings else params.head
     new_cache = dict(cache, len=cache_len + 1)
@@ -416,10 +518,14 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     """Build the cache by replaying the prompt through ``decode_step``,
     one token at a time, as the reference does.
 
-    tokens: (B, S) right-padded; lengths: (B,) true lengths (default S).
-    Returns (last-token logits (B, vocab), populated cache).
+    tokens: (B, S) right-padded; embeds: (B, S, d_model), which then
+    stand in for the tokens' rows; lengths: (B,) true lengths (default
+    S).  Returns (last-token logits (B, vocab), populated cache).  An
+    encoder-decoder model raises ``ValueError``: it prefills through
+    ``models.encdec.encdec_prefill``, as in the reference.
     """
-    _no_embeds(embeds)
+    if cfg.cross_attn:
+        raise ValueError(ENCDEC_PREFILL)
     B, S = tokens.shape[:2]
     device = tokens.device
     cache = init_cache(cfg, B, max_len, device=device)
@@ -427,7 +533,9 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
         lengths = torch.full((B,), S, dtype=torch.int32, device=device)
     all_logits = []
     for t in range(S):
-        logits, cache = decode_step(params, cfg, tokens[:, t:t + 1], cache)
+        emb = None if embeds is None else embeds[:, t:t + 1]
+        logits, cache = decode_step(params, cfg, tokens[:, t:t + 1], cache,
+                                    embeds=emb)
         all_logits.append(logits)
     # len advanced S times; clamp to the true lengths
     cache["len"] = lengths.to(device=device, dtype=torch.int32)

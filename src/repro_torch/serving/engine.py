@@ -43,6 +43,11 @@ Slot lengths live on the host as numpy and are uploaded before each step,
 so bookkeeping costs no device-to-host copy; the one copy per step is the
 sampled tokens.  ``snapshot()``/``restore()`` capture queued and in-flight
 requests so a restarted replica replays its work.
+
+An encoder-decoder config raises ``ValueError`` before anything is
+allocated, with the reference's ``prefill`` error: its requests prefill
+through ``models.encdec.encdec_prefill``, which the engine does not run,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -131,6 +136,8 @@ class ServingEngine:
                  max_batch: int = 4, max_len: int = 512,
                  kv_token_budget: Optional[int] = None, device=None,
                  dtype=None):
+        if cfg.cross_attn:
+            raise ValueError(T.ENCDEC_PREFILL)
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)

@@ -54,13 +54,22 @@ def test_model_ir_takes_a_moe_ffn(change):
                                                           "MoECell"]
 
 
-@pytest.mark.parametrize("change", [
-    dict(encoder=EncoderConfig(n_layers=1, d_model=56, n_heads=7, d_ff=64)),
-    dict(shared_attn=True), dict(cross_attn=True)])
+@pytest.mark.parametrize("change", [dict(shared_attn=True)])
 def test_model_ir_raises_for_families_without_a_port_config(change):
     cfg = dataclasses.replace(C.get_reduced("qwen2-0.5b"), **change)
     with pytest.raises(NotImplementedError, match="dense GQA"):
         model_ir(cfg)
+
+
+@pytest.mark.parametrize("change", [
+    dict(encoder=EncoderConfig(n_layers=1, d_model=56, n_heads=7, d_ff=64)),
+    dict(cross_attn=True)])
+def test_model_ir_takes_an_encoder_and_cross_attention(change):
+    """An encoder block and cross-attention cells, refused before the
+    seamless slice: the IR equals the JAX package's ``to_ir``."""
+    port = dataclasses.replace(C.get_reduced("qwen2-0.5b"), **change)
+    ref = dataclasses.replace(RC.get_reduced("qwen2-0.5b"), **change)
+    assert model_ir(port) == ref.to_ir()
 
 
 def test_measured_backends_share_one_profiling_pass():
@@ -165,7 +174,7 @@ def test_serve_passes_depth_to_the_engine(monkeypatch):
 
 def test_serve_raises_for_an_arch_without_a_port_config():
     with pytest.raises(KeyError, match="not yet ported"):
-        serve.serve(arch="qwen2-vl-7b", size="reduced",
+        serve.serve(arch="zamba2-7b", size="reduced",
                     device="cpu", log=lambda s: None)
 
 

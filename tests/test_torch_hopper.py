@@ -116,8 +116,9 @@ def test_smoke_names_the_kernel_instances_it_reports(mangled, label):
 
 
 def test_head_dims_above_the_kernels_raise():
-    for mod in (FA, DA):
-        for d in (257, 512):           # gemma3's 256 is the largest kernel
+    # gemma3's 256 is flash's largest; decode's is MLA's latent 512
+    for mod, dims in ((FA, (257, 512)), (DA, (513, 1024))):
+        for d in dims:
             with pytest.raises(ValueError, match="above"):
                 mod.padded_head_dim(d)
 

@@ -153,7 +153,9 @@ def test_decode_attention_kernel_checks_refuse_bad_args():
     DA.check_kernel_args(*args(Hq=16, Hkv=8, D=128))    # internlm2-1.8b
     DA.check_kernel_args(*args(Hq=16, Hkv=8, D=256))    # gemma3-12b
     DA.check_kernel_args(*args(Hq=8, Hkv=8, dtype=torch.float32))
+    DA.check_kernel_args(*args(B=1, Hq=16, Hkv=16, D=512))  # MLA's latent
     for bad in (args(D=16), args(Hq=18, Hkv=2), args(Hq=14, Hkv=4),
+                args(Hq=16, Hkv=8, D=512),              # D 512: group 1
                 args(dtype=torch.float16), args(ldtype=torch.int64)):
         with pytest.raises(ValueError):
             DA.check_kernel_args(*bad)
@@ -340,5 +342,6 @@ def test_source_hash_tracks_sources(tmp_path):
         *build.LINK_FLAGS, "-lcuda")) != build.source_hash(tmp_path)
     assert {p.name for p in build.sources()} == {
         "decode_attention.cu", "decode_attention_d256_bf16.cu",
-        "decode_attention_d256_f32.cu", "errors.cu", "flash_attention.cu",
+        "decode_attention_d256_f32.cu", "decode_attention_d512.cu",
+        "errors.cu", "flash_attention.cu",
         "rmsnorm.cu", "ssd_scan.cu"}

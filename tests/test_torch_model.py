@@ -275,8 +275,8 @@ def test_gemma3_params_from_jax_are_bit_exact_and_tied():
 
 def test_moe_gqa_decoders_are_supported():
     """A MoE FFN under GQA attention is ported (mixtral, and a dense
-    config given a MoE FFN); MoE beside M-RoPE, cross-attention or shared
-    attention still raises."""
+    config given a MoE FFN), also beside M-RoPE or cross-attention; MoE
+    beside shared attention still raises."""
     for cfg in (TC.get_reduced("mixtral-8x7b"),
                 dataclasses.replace(TC.get_reduced("qwen2-0.5b"),
                                     ffn_kind="moe", n_routed=4, top_k=2,
@@ -289,29 +289,67 @@ def test_moe_gqa_decoders_are_supported():
                                    cache)
         assert tuple(logits.shape) == (1, cfg.vocab_size)
         assert bool(torch.isfinite(logits).all())
-        for change in (dict(rope="mrope"), dict(cross_attn=True),
-                       dict(shared_attn=True)):
-            with pytest.raises(NotImplementedError):
-                TT.init_cache(dataclasses.replace(cfg, **change), 1, 8)
+        for change in (dict(rope="mrope"), dict(cross_attn=True)):
+            moe = dataclasses.replace(cfg, **change)
+            p = TT.init_params(torch.Generator().manual_seed(0), moe,
+                               device="cpu")
+            c = TT.init_cache(moe, 1, 8, device="cpu", source_len=3)
+            logits, _ = TT.decode_step(p, moe, torch.zeros(
+                1, 1, dtype=torch.int32), c)
+            assert bool(torch.isfinite(logits).all())
+        with pytest.raises(NotImplementedError):
+            TT.init_cache(dataclasses.replace(cfg, shared_attn=True), 1, 8)
 
 
 def test_unported_families_raise():
     cfg = TC.get_reduced("qwen2-0.5b")
-    for change in (dict(cross_attn=True), dict(ffn_kind="none"),
-                   dict(shared_attn=True),
-                   dict(encoder=EncoderConfig(1, 56, 7, 64)),
-                   dict(embeds_input=True), dict(rope="mrope")):
+    for change in (dict(ffn_kind="none"), dict(shared_attn=True),
+                   dict(shared_attn=True, rope="mrope")):
         with pytest.raises(NotImplementedError):
             TT.init_cache(dataclasses.replace(cfg, **change), 1, 8)
+        with pytest.raises(NotImplementedError):
+            TT.init_params(torch.Generator(),
+                           dataclasses.replace(cfg, **change))
+
+
+@pytest.mark.parametrize("change", [
+    dict(rope="mrope"), dict(embeds_input=True), dict(cross_attn=True),
+    dict(encoder=EncoderConfig(1, 56, 7, 64))])
+def test_families_ported_since_run_on_tokens_and_embeds(change):
+    """M-RoPE, embedding inputs, cross-attention and an encoder config
+    were refused before the qwen2-vl and seamless slice: a decoder with
+    one of them now decodes from token ids and from embeddings, and
+    prefills from embeddings unless it has cross-attention (which
+    prefills through ``encdec_prefill``, as in the reference).  Without
+    a filled cross cache cross-attention adds nothing, as the
+    reference's softmax over no source tokens does."""
+    cfg = dataclasses.replace(TC.get_reduced("qwen2-0.5b"), **change)
     params = TT.init_params(torch.Generator().manual_seed(0), cfg,
                             device="cpu")
     cache = TT.init_cache(cfg, 1, 8, device="cpu")
     toks = torch.zeros(1, 1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        TT.decode_step(params, cfg, toks, cache,
-                       embeds=torch.zeros(1, 1, cfg.d_model))
-    with pytest.raises(NotImplementedError):
-        TT.prefill(params, cfg, toks, 8, embeds=torch.zeros(1, 1, 56))
+    emb = torch.randn(1, 1, cfg.d_model, generator=torch.Generator())
+    for embeds in (None, emb):
+        logits, cache = TT.decode_step(params, cfg, toks, cache,
+                                       embeds=embeds)
+        assert tuple(logits.shape) == (1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())
+    if cfg.cross_attn:
+        with pytest.raises(ValueError, match="encdec_prefill"):
+            TT.prefill(params, cfg, toks, 8, embeds=emb)
+        plain = dataclasses.replace(cfg, cross_attn=False)
+        x = torch.randn(1, 5, cfg.d_model)
+        with torch.no_grad():
+            got = TT.forward(params, cfg, embeds=x)
+            # the same layers without the cross-attention call
+            want = TT.forward(params, plain, embeds=x)
+        assert torch.equal(got, want)
+    else:
+        last, pc = TT.prefill(params, cfg, toks, 8, embeds=emb)
+        assert torch.equal(last, TT.decode_step(
+            params, cfg, toks, TT.init_cache(cfg, 1, 8, device="cpu"),
+            embeds=emb)[0])
+        assert pc["len"].tolist() == [1]
 
 
 # A router near-tie: a token's reference margin between its k-th and

@@ -17,6 +17,7 @@ from repro.kernels.decode_attention.ref import \
 from repro.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro.kernels.ssd_scan.ref import ssd_scan_ref  # noqa: E402
 from repro_torch.core import profiles as P  # noqa: E402
+from repro_torch.kernels import decode_attention as DA  # noqa: E402
 
 # small axes of each op, as the REDUCED configs' IR gives them
 AXES = {
@@ -139,3 +140,23 @@ def test_without_a_card_the_profiler_raises_like_the_entry_points():
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             P.MeasuredBackend()
+
+
+def test_mla_attn_decode_sample_runs_the_kernels_d512_instance(cpu):
+    """deepseek's MLA decode is priced at (16, 512): the sample runs the
+    decode kernel's head-dim-512 instance (group 1, as every sample's Hq =
+    Hkv is), counted in ``calls`` like every other sample; the kernel's
+    argument check takes that shape and refuses D 512 above group 1."""
+    assert DA.padded_head_dim(512) == 512
+    assert DA.max_group(512) == 1 and DA.max_group(256) == DA.MAX_GROUP
+    cpu.measure("attn_decode", (16, 512, "bf16"), 8)
+    assert cpu.calls["attn_decode"] == 1 + 2 * cpu.repeats
+    a = cpu.inputs("attn_decode", (16, 512, "fp32"), 5)
+    DA.check_kernel_args(a["q"], a["k"], a["v"], a["lengths"])
+    with pytest.raises(ValueError, match="group 2 outside"):
+        DA.check_kernel_args(torch.cat([a["q"], a["q"]], dim=1), a["k"],
+                             a["v"], a["lengths"])
+    want = decode_attention_ref(_np(a["q"]), _np(a["k"]), _np(a["v"]),
+                                a["lengths"].numpy())
+    np.testing.assert_allclose(_np(cpu.run("attn_decode", a)),
+                               np.asarray(want), rtol=2e-5, atol=2e-5)

@@ -403,6 +403,28 @@ def test_train_picks_no_cpu_on_its_own_and_refuses_unported_archs():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train("qwen2-0.5b", steps=1, batch=2, seq=8)
+    with pytest.raises(NotImplementedError, match="MLA"):
+        train("deepseek-v2-lite-16b", steps=1, batch=2, seq=8, device="cpu")
+    # embedding inputs, refused before the qwen2-vl slice, now train
+    cfg = dataclasses.replace(TC.get_reduced("qwen2-0.5b"), embeds_input=True)
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    batch = {"embeds": torch.randn(2, 8, cfg.d_model),
+             "labels": torch.zeros(2, 8, dtype=torch.int32)}
+    _, _, m = TS.make_train_step(cfg)(params, TO.adamw_init(params), batch)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
+
+
+def test_a_parameter_cut_off_from_the_loss_raises():
+    """Only an embeddings-fed arch's untied ``embed`` gets a zero gradient
+    when the loss does not reach it; any other unreached parameter (here
+    one added beside the model's) still raises, as autograd does."""
     cfg = TC.get_reduced("qwen2-0.5b")
-    with pytest.raises(NotImplementedError):
-        TS.make_train_step(dataclasses.replace(cfg, embeds_input=True))
+    params = TT.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    params.register_parameter("stray", torch.nn.Parameter(torch.ones(3)))
+    batch = {"tokens": torch.zeros(2, 8, dtype=torch.int32),
+             "labels": torch.zeros(2, 8, dtype=torch.int32)}
+    with pytest.raises(RuntimeError, match="not have been used"):
+        TS.make_train_step(cfg)(params, TO.adamw_init(params), batch)
