@@ -7,6 +7,7 @@
     python3 chip_smoke.py --limits deepseek-v2-lite-16b   # and deepseek
     python3 chip_smoke.py --limits qwen2-vl-7b   # and the two
     python3 chip_smoke.py --limits seamless-m4t-large-v2   # stub frontends
+    python3 chip_smoke.py --limits zamba2-7b   # and zamba2
 
 Phases, one line each (the kernels phases print one line per case):
 
@@ -171,6 +172,25 @@ Phases, one line each (the kernels phases print one line per case):
                RMSNorms), logits kernels vs plain in fp32 and bf16; 5
                train steps on the frames batch and one step kernels vs
                plain.
+ 16. zamba2  -- zamba2-7b (78 Mamba2 layers with SSD head dim 112, and
+               one shared attention + MLP block applied after every six,
+               head dim 112) at full width: logits kernels vs plain, fp32
+               at 2 repeats and bf16 at all 13 (183 RMSNorms and 13
+               decode attentions a step on the (128, 1) instance), a
+               profiled bf16 step; ``forward`` at 2 repeats through the
+               SSD kernel at P 112 (two panels of 64) and the flash
+               kernel at D 112; 4 chat requests served at all 13 repeats
+               as in phase 11 (the fp32 run also holds the shared
+               block's K/V rows); two repeats trained 5 steps (every SSD
+               launch on the tensor-core kernel) and one step kernels vs
+               plain.  The flash and ssd phases time zamba2's shapes
+               (the wrappers' padding copies apart), the ssd phase also
+               against the sequential recurrence.
+ 17. deepseek-train -- deepseek-v2-lite-16b trained at full width and
+               depth 2 (the dense prefix layer and one MoE layer; MLA's
+               flash with v padded to the width of q and k) for 5 steps,
+               and one step kernels vs plain with the plain run's MoE
+               routes replayed.
 
 Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
 entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
@@ -186,7 +206,11 @@ entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 ``rmsnorm/qwen2-vl-train``, ``flash_attention/qwen2-vl-train``,
 ``flash_attention/seamless-encode``, ``rmsnorm/seamless-serve``,
 ``decode_attention/seamless-serve``, ``rmsnorm/seamless-train``,
-``flash_attention/seamless-train``, each with that path's
+``flash_attention/seamless-train``, ``rmsnorm/zamba2-serve``,
+``decode_attention/zamba2-serve``, ``rmsnorm/zamba2-train``,
+``flash_attention/zamba2-train``, ``ssd_scan/zamba2-train``,
+``rmsnorm/deepseek-train``, ``flash_attention/deepseek-train``, each
+with that path's
 launches and the kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -278,6 +302,9 @@ BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor cores
 # algorithm takes exp of differences of cum, which reaches ~1400 inside a
 # chunk where one fp32 ulp is 1.2e-4 (read: 1.2e-4 at |y| ~ 20).
 SEQ_TOL = dict(rtol=2e-4, atol=2e-4)
+# bf16 against the recurrence: each side rounds its fp32 sum to bf16 once,
+# so they may differ by one bf16 ulp beyond SEQ_TOL
+SEQ_TOL_BF16 = dict(rtol=2.0 ** -7 + SEQ_TOL["rtol"], atol=SEQ_TOL["atol"])
 # one train step of mamba2-2.7b at full width and depth 8 (batch 8 x
 # 1024, 2 microbatches, remat) through the kernels vs the plain versions,
 # as TRAIN_TOL.  Read on an H100 over seeds 0-2 (PERF.md): fp32
@@ -558,7 +585,8 @@ def attention_case(torch, F, shape, lengths, dtype_name, gen,
     as a serving step reads it.  ``dv``: v's head dim where it is not D
     (MLA); the wrapper then pads q, k and v to one width, its time
     includes those copies, and the kernel alone is timed on inputs padded
-    beforehand.  The bound counts the unpadded bytes."""
+    beforehand, as it is for a head dim the wrapper pads (zamba2's 112
+    to 128).  The bound counts the unpadded bytes."""
     from repro_torch.kernels import decode_attention as da
     B, Hq, Hkv, D, smax = shape
     dv = dv or D
@@ -594,8 +622,8 @@ def attention_case(torch, F, shape, lengths, dtype_name, gen,
             q[:, :, None, :], ks, vs, attn_mask=mask), sdpa_kvs))
     del kvs, sdpa_kvs
     alone = ""
-    if dv != D:
-        width = da.padded_head_dim(max(D, dv))
+    width = da.padded_head_dim(max(D, dv))
+    if dv != D or width != D:
         qp, kp, vp = (F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
         kernel_ms = time_ms(torch, lambda: da._launch(
             qp, kp, vp, lens, scale=1.0 / math.sqrt(D)))
@@ -662,7 +690,9 @@ def kernels_phase(torch, F) -> dict:
                       GEMMA_NORM_TRAIN,  # gemma3-12b training microbatch
                       QWEN_VL_NORM_SERVE, QWEN_VL_NORM_TRAIN,  # qwen2-vl
                       SEAMLESS_NORM_SERVE,   # seamless decode steps
-                      SEAMLESS_NORM_TRAIN):  # its encoder, its training
+                      SEAMLESS_NORM_TRAIN,   # its encoder, its training
+                      ZAMBA_NORM_SERVE, ZAMBA_NORM_TRAIN,  # gated norms
+                      DEEPSEEK_NORM_TRAIN):  # deepseek training
             r = rmsnorm_case(torch, F, shape, dtype_name, gen)
             results[("rmsnorm", shape, dtype_name)] = r
     # both kernels: REDUCED widths (qwen2 56, mamba2 64 and 128), widths
@@ -688,7 +718,8 @@ def kernels_phase(torch, F) -> dict:
                       (4, 16, 8, 128, 512),     # internlm2-1.8b, group 2
                       MIXTRAL_DECODE,           # mixtral-8x7b, group 4
                       *GEMMA_DECODE,            # gemma3-12b, group 2
-                      QWEN_VL_DECODE):          # qwen2-vl-7b, group 7
+                      QWEN_VL_DECODE,           # qwen2-vl-7b, group 7
+                      ZAMBA_DECODE):            # zamba2-7b, D 112 padded
             r = attention_case(torch, F, shape, lengths, dtype_name, gen)
             results[("decode_attention", shape, dtype_name)] = r
         # seamless's self-attention and cross-attention (group 1)
@@ -849,9 +880,12 @@ def replayed_routes(log: list, agree: list):
 
 def cache_leaves(cache: dict) -> list:
     """The K/V (latent, state) tensors of a ``decode_step`` cache: those
-    of the scanned blocks and of the prefix blocks (deepseek's first)."""
+    of the scanned blocks, of the prefix blocks (deepseek's first) and of
+    the shared block's applications (zamba2's)."""
     layers = list(cache["blocks"].values()) + [
         lc for pc in cache.get("prefix", ()) for lc in pc.values()]
+    if "shared" in cache:
+        layers.append(cache["shared"])
     return [t for lc in layers for t in lc.values()]
 
 
@@ -862,6 +896,8 @@ def clone_cache(cache: dict) -> dict:
     out = {"blocks": block(cache["blocks"]), "len": cache["len"].clone()}
     if "prefix" in cache:
         out["prefix"] = [block(pc) for pc in cache["prefix"]]
+    if "shared" in cache:
+        out["shared"] = {n: t.clone() for n, t in cache["shared"].items()}
     return out
 
 
@@ -871,11 +907,14 @@ def decode_launches_per_step(cfg):
     decoder layer, norm1 and the gated norm of a Mamba2 mixer) and the
     final norm; one decode attention an attention layer; with
     cross-attention (over a filled cross cache) a third RMSNorm
-    (``norm_x``) and a second decode attention an attention layer."""
+    (``norm_x``) and a second decode attention an attention layer; a
+    shared block (zamba2, one of ``n_layers`` a block) two RMSNorms and
+    one decode attention an application."""
     attn = sum(s.kind == "attn" for s in cfg.block_pattern) * \
         cfg.block_repeat
     x = attn if cfg.cross_attn else 0
-    return (2 * cfg.n_layers + 1 + x, attn + x, 0, 0)
+    shared = cfg.block_repeat if cfg.shared_attn else 0
+    return (2 * cfg.n_layers + 1 + x, attn + x + shared, 0, 0)
 
 
 def encode_launches(cfg):
@@ -971,7 +1010,7 @@ def model_check(torch, dtype_name: str, seed: int = 0,
         worst = max(worst, float((logits.float() - plain.float()).abs().max()))
         scale = max(scale, float(plain.float().abs().max()))
         agree += int((logits.argmax(-1) == plain.argmax(-1)).sum())
-    lc = cache["blocks"]["l0"]
+    lc = dict(cache["blocks"]["l0"], **cache.get("shared", {}))
     smax = next((lc[n].shape[2] for n in ("k", "c_kv") if n in lc), None)
     if profile:
         profile_steps(torch, T, params, cfg, cache, toks[:profiled_steps])
@@ -1118,18 +1157,19 @@ def broken_decode(torch, kind: str):
 
 
 @contextlib.contextmanager
-def one_kernel(keep: str):
-    """Run only the ``keep`` kernel ("rmsnorm", "decode_attention" or
-    "flash_attention"); the other attention and norm wrappers run their
-    plain versions, still counting their launches so that the launch
-    checks hold.  Shows which kernel's rounding flips a bf16 logits
-    reading comes from."""
-    rmsnorm, da, fa, _ = kernel_modules()
+def one_kernel(keep):
+    """Run only the ``keep`` kernel ("rmsnorm", "decode_attention",
+    "flash_attention" or "ssd_scan"; None: none of them); the other
+    wrappers run their plain versions, still counting their launches so
+    that the launch checks hold.  Shows which kernel's rounding flips a
+    bf16 reading comes from."""
+    rmsnorm, da, fa, ssd = kernel_modules()
     wrappers = {"rmsnorm": (rmsnorm, "rms_norm", rmsnorm.rms_norm_plain),
                 "decode_attention": (da, "decode_attention",
                                      da.decode_attention_plain),
                 "flash_attention": (fa, "flash_attention",
-                                    fa.flash_attention_plain)}
+                                    fa.flash_attention_plain),
+                "ssd_scan": (ssd, "ssd_scan", ssd.ssd_scan_plain)}
     with contextlib.ExitStack() as stack:
         for name, (mod, attr, plain) in wrappers.items():
             if name == keep:
@@ -1151,7 +1191,8 @@ def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
     at a time (``one_kernel``), for each dtype of ``depths`` (in blocks;
     by default the arch's smoke depths and, for gemma3-12b, bf16 also at
     all 48 layers; deepseek-v2-lite-16b's, qwen2-vl-7b's and
-    seamless-m4t-large-v2's bf16 depth is the whole model).  seamless is
+    seamless-m4t-large-v2's bf16 depth is the whole model; zamba2-7b at
+    2, 4 and all 13 repeats in both dtypes).  seamless is
     read through ``seamless_check`` (encode, prefill and decode steps;
     its flash kernel also alone).  Prints them and checks nothing
     (``python3 chip_smoke.py --limits [arch]``)."""
@@ -1159,9 +1200,12 @@ def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
         ats = {"mixtral-8x7b": (MIXTRAL_DEPTHS,),
                "gemma3-12b": (GEMMA_DEPTHS, {"bfloat16": None}),
                DEEPSEEK: (DEEPSEEK_DEPTHS,), QWEN_VL: (QWEN_VL_DEPTHS,),
-               SEAMLESS: (SEAMLESS_DEPTHS,)}[arch]
+               SEAMLESS: (SEAMLESS_DEPTHS,),
+               ZAMBA: ZAMBA_LIMIT_DEPTHS}[arch]
     else:
         ats = (depths,)
+    if arch == ZAMBA and depths is None:
+        train_limits(torch)
     check = seamless_check if arch == SEAMLESS else model_check
     alone = ("rmsnorm", "decode_attention") + (
         ("flash_attention",) if arch == SEAMLESS else ())
@@ -1563,7 +1607,13 @@ NONCAUSAL_CASES = (SEAMLESS_ENCODE, (4, 256, 1024, 16, 16, 64, None, 0),
 # self-attention in training
 QWEN_VL_FLASH = (4, 1024, 1024, 28, 4, 128, None, 0)
 SEAMLESS_SELF = (4, 1024, 1024, 16, 16, 64, None, 0)
-FLASH_CASES = FLASH_CASES + (QWEN_VL_FLASH, SEAMLESS_SELF)
+# zamba2-7b's shared block in training (D 112, padded to 128)
+ZAMBA_FLASH = (4, 1024, 1024, 32, 32, 112, None, 0)
+FLASH_CASES = FLASH_CASES + (QWEN_VL_FLASH, SEAMLESS_SELF, ZAMBA_FLASH)
+# deepseek-v2-lite-16b's MLA in training: q/k 192, v 128 (both padded to
+# 256 by the wrapper)
+DEEPSEEK_FLASH = (4, 1024, 1024, 16, 16, 192, None, 0)
+DEEPSEEK_FLASH_DV = 128
 
 
 def flash_inputs(torch, case, dt, gen, dv=None):
@@ -1578,8 +1628,9 @@ def flash_inputs(torch, case, dt, gen, dv=None):
 def flash_case(torch, F, case, dtype_name, gen, timed: bool = True,
                dv=None, causal: bool = True) -> dict:
     """One flash-attention case; ``dv``: v's head dim where it is not D
-    (MLA), untimed only; ``causal=False``: no causal mask (the encoder's
-    and cross-attention's call)."""
+    (MLA, which the wrapper pads to the width of q and k; its time
+    includes those copies); ``causal=False``: no causal mask (the
+    encoder's and cross-attention's call)."""
     from repro_torch.kernels import flash_attention as fa
     B, Sq, Skv, Hq, Hkv, D, window, q_offset = case
     dt = getattr(torch, dtype_name)
@@ -1592,7 +1643,7 @@ def flash_case(torch, F, case, dtype_name, gen, timed: bool = True,
             f"{'' if causal else ' non-causal'} {dtype_name}")
     err, differ = compare(torch, out, want_out, dtype_name, what)
     lse_err, _ = compare(torch, lse, want_lse, "float32", what + " lse")
-    if not timed or dv:
+    if not timed:
         return dict(max_abs_err=max(err, lse_err))
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), inner=5,
                  reps=11)
@@ -1611,22 +1662,36 @@ def flash_case(torch, F, case, dtype_name, gen, timed: bool = True,
         sdpa = dict(attn_mask=mask)
     library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         qs, ks, vs, enable_gqa=True, **sdpa), inner=5, reps=11)
+    del qs, ks, vs
+    alone = ""
+    width = fa.padded_head_dim(max(D, v.shape[-1]))
+    if width != D or width != v.shape[-1]:
+        qp, kp, vp = (F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
+        kernel_ms = time_ms(torch, lambda: fa._launch(
+            qp, kp, vp, scale=1.0 / math.sqrt(D), **kw), inner=5, reps=11)
+        alone = (f" (padded to {width} in the wrapper; the kernel alone on "
+                 f"inputs padded beforehand {kernel_ms:.4f} ms, so the "
+                 f"padding copies {ms - kernel_ms:.4f} ms)")
+        del qp, kp, vp
     (gx, gy), threads = fa.grid(q)
     pairs = int(mask.sum())
     es = q.element_size()
-    nbytes = 2 * (q.numel() + k.numel()) * es + 4 * lse.numel()
-    flops = 4.0 * D * pairs * B * Hq
+    nbytes = ((q.numel() + k.numel() + v.numel() + out.numel()) * es
+              + 4 * lse.numel())
+    flops = 2.0 * (D + v.shape[-1]) * pairs * B * Hq
     peak = BF16_FLOPS if dtype_name == "bfloat16" else FP32_FLOPS
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = ((t_ops, "operations") if t_ops >= t_bytes
                           else (t_bytes, "bytes"))
-    say("flash", f"q {(B, Sq, Hq, D)} k/v {(B, Skv, Hkv, D)} "
+    say("flash", f"q {(B, Sq, Hq, D)} k/v {(B, Skv, Hkv, D)}"
+        f"{f' v Dv {dv}' if dv else ''} "
         f"{'causal' if causal else 'non-causal'} window "
         f"{window} q_offset {q_offset} {dtype_name}: max_abs_err out "
         f"{err:.3e} ({tol_text(dtype_name)}), not bit-equal {differ:.2e}, "
-        f"lse {lse_err:.3e} ({tol_text('float32')}) | kernel {ms:.4f} ms "
-        f"plain {plain_ms:.4f} ms library(SDPA) {library_ms:.4f} ms bound "
+        f"lse {lse_err:.3e} ({tol_text('float32')}) | kernel {ms:.4f} ms"
+        f"{alone} plain {plain_ms:.4f} ms library(SDPA) {library_ms:.4f} ms "
+        f"bound "
         f"{bound_ms:.5f} ms ({bound_by}: {flops:.4g} FLOP at "
         f"{peak / 1e12:.0f} TFLOP/s, {nbytes} B) | "
         f"{flops / ms / 1e9:.1f} TFLOP/s, grid {gx}x{gy} blocks of "
@@ -1646,6 +1711,8 @@ def flash_phase(torch, F) -> dict:
         for case in NONCAUSAL_CASES:
             results[(case, "non-causal", dtype_name)] = flash_case(
                 torch, F, case, dtype_name, gen, causal=False)
+        results[(DEEPSEEK_FLASH, "mla", dtype_name)] = flash_case(
+            torch, F, DEEPSEEK_FLASH, dtype_name, gen, dv=DEEPSEEK_FLASH_DV)
     worst = {"float32": 0.0, "bfloat16": 0.0}
     n = 0
     for dtype_name in ("float32", "bfloat16"):
@@ -1715,9 +1782,13 @@ def layer_runs(cfg):
     The block's recomputation stops once it has what the block's
     backward needs, the last layer's input (torch.utils.checkpoint's
     early stop), so the last slot runs twice and the others three times:
-    3n - 1 layer runs a block of n > 1 layers, 2 a block of one."""
+    3n - 1 layer runs a block of n > 1 layers, 2 a block of one.  A
+    shared block (zamba2) ends every block and is not checkpointed on
+    its own: the recomputation runs through it, so every slot of a
+    nested block runs three times."""
     n = len(cfg.block_pattern)
-    return [3 if i < n - 1 else 2 for i in range(n)]
+    last = 3 if cfg.shared_attn and n > 1 else 2
+    return [3 if i < n - 1 else last for i in range(n)]
 
 
 def train_launches_per_step(cfg, microbatches: int):
@@ -1728,12 +1799,18 @@ def train_launches_per_step(cfg, microbatches: int):
     or SSD scan, with cross-attention a third RMSNorm (``norm_x``) and a
     second flash attention (no mask), and the final norm; an encoder's
     layers, each checkpointed, run twice: ``encode_launches`` plus two
-    RMSNorms and one flash attention a layer again.  The backward passes
+    RMSNorms and one flash attention a layer again; a shared block runs
+    twice a block (forward, and the block's recomputation), two
+    RMSNorms and one flash attention each time.  The backward passes
     are plain PyTorch and launch nothing."""
     runs = {"attn": 0, "ssm": 0}           # per microbatch
+    # prefix blocks (deepseek's dense first layer) are never checkpointed
+    R = cfg.block_repeat - cfg.first_k_dense
     for spec, n in zip(cfg.block_pattern, layer_runs(cfg)):
-        runs[spec.kind] += n * cfg.block_repeat
+        runs[spec.kind] += n * R + cfg.first_k_dense
     x = runs["attn"] if cfg.cross_attn else 0
+    if cfg.shared_attn:
+        runs["attn"] += 2 * cfg.block_repeat
     rms, flash = 2 * sum(runs.values()) + 1 + x, runs["attn"] + x
     if cfg.encoder is not None:
         enc_rms, enc_flash = encode_launches(cfg)
@@ -1794,14 +1871,16 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
                  profile: bool = False, spec: dict = TRAIN,
                  depth=None, reduced: bool = False) -> dict:
     """One train step of ``spec``'s arch at FULL width (and ``depth``
-    blocks, if given) from the same weights and batch through the
-    kernels and through the plain versions; returns |loss difference|,
-    relative grad-norm difference, and the L2 norm of the difference of
-    the updated fp32 masters relative to the L2 norm of the plain run's
-    update (both over every leaf).  The starting weights and the kernel
-    run's masters wait in host memory, so the card holds one run's
-    weights and optimizer state at a time (gemma3-12b's block: 2.35 B
-    parameters)."""
+    blocks, if given) from the same weights and batch through the plain
+    versions and then through the kernels, the kernel run taking the
+    plain run's MoE routes (``replayed_routes``; every recomputation of
+    a checkpoint routes again, in the same order in both runs); returns
+    |loss difference|, relative grad-norm difference, and the L2 norm of
+    the difference of the updated fp32 masters relative to the L2 norm
+    of the plain run's update (both over every leaf).  The starting
+    weights and the plain run's masters wait in host memory, so the card
+    holds one run's weights and optimizer state at a time (gemma3-12b's
+    block: 2.35 B parameters)."""
     import dataclasses
 
     from repro_torch import configs as C
@@ -1827,14 +1906,17 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
     step = make_train_step(cfg, microbatches=spec["microbatches"],
                            remat=True)
     runs = []
-    for plain in (False, True):
+    log, routes = [], [0, 0]
+    for plain in (True, False):
         with torch.no_grad():
             for n, p in params.named_parameters():
                 p.copy_(start[n])
         opt = None
         opt = adamw_init(params)
         reset_counts()
-        with plain_kernels() if plain else contextlib.nullcontext():
+        with (contextlib.ExitStack() if not plain else plain_kernels()), \
+                (recorded_routes(log) if plain
+                 else replayed_routes(log, routes)):
             _, opt, metrics = step(params, opt, batch)
         sync(torch)
         if plain and counts() != (0, 0, 0, 0):
@@ -1842,16 +1924,16 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
         if not plain:
             launched = counts()
         runs.append((float(metrics["loss"]), float(metrics["grad_norm"]),
-                     opt.master if plain else
+                     opt.master if not plain else
                      {n: t.cpu() for n, t in opt.master.items()}))
         del metrics
-    (loss_k, gnorm_k, master_k), (loss_p, gnorm_p, master_p) = runs
+    (loss_p, gnorm_p, master_p), (loss_k, gnorm_k, master_k) = runs
+    del log
     diff_sq = upd_sq = 0.0
     for n in master_k:
-        diff_sq += float((master_k[n].to(DEVICE) - master_p[n]).square()
-                         .sum())
-        upd_sq += float((master_p[n] - start[n].to(DEVICE).float())
-                        .square().sum())
+        mp = master_p[n].to(DEVICE)
+        diff_sq += float((master_k[n] - mp).square().sum())
+        upd_sq += float((mp - start[n].to(DEVICE).float()).square().sum())
     del opt, runs, master_k, master_p
     torch.cuda.empty_cache()
     if profile:
@@ -1869,12 +1951,25 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
     return dict(loss=abs(loss_k - loss_p), loss_k=loss_k, loss_p=loss_p,
                 gnorm=abs(gnorm_k - gnorm_p) / gnorm_p, gnorm_k=gnorm_k,
                 gnorm_p=gnorm_p, master=master, update=math.sqrt(upd_sq),
-                launched=launched)
+                launched=launched, routes=tuple(routes))
+
+
+def parity_readings(r: dict, tol: dict) -> str:
+    return (f"loss {r['loss_k']:.6f} kernels vs {r['loss_p']:.6f} "
+            f"plain (|diff| {r['loss']:.3e}, tol {tol['loss']}), "
+            f"grad norm {r['gnorm_k']:.6f} vs {r['gnorm_p']:.6f} "
+            f"(rel diff {r['gnorm']:.3e}, tol {tol['gnorm']}), "
+            f"updated fp32 masters |diff| / |update| "
+            f"{r['master']:.3e} (tol {tol['master']}; |update| "
+            f"{r['update']:.3e})")
 
 
 def train_parity_phase(torch, spec: dict = TRAIN, limits=None,
                        depth=None, phase: str = "train",
-                       reduced: bool = False) -> None:
+                       reduced: bool = False, unheld=()) -> None:
+    """``train_parity`` in fp32 and bf16, held to ``limits`` (default
+    TRAIN_TOL) but for the (dtype, reading) pairs of ``unheld``, which
+    are printed and not held (zamba2's bf16 masters: PERF.md)."""
     limits = limits or TRAIN_TOL
     for dtype_name in ("float32", "bfloat16"):
         r = train_parity(torch, dtype_name, spec=spec, depth=depth,
@@ -1884,15 +1979,18 @@ def train_parity_phase(torch, spec: dict = TRAIN, limits=None,
             fail(f"{phase} parity {dtype_name}: launches "
                  f"{r['launched']}, no RMSNorm or no mixer kernel")
         tol = limits[dtype_name]
-        readings = (f"loss {r['loss_k']:.6f} kernels vs {r['loss_p']:.6f} "
-                    f"plain (|diff| {r['loss']:.3e}, tol {tol['loss']}), "
-                    f"grad norm {r['gnorm_k']:.6f} vs {r['gnorm_p']:.6f} "
-                    f"(rel diff {r['gnorm']:.3e}, tol {tol['gnorm']}), "
-                    f"updated fp32 masters |diff| / |update| "
-                    f"{r['master']:.3e} (tol {tol['master']}; |update| "
-                    f"{r['update']:.3e})")
-        if any(r[key] > tol[key] for key in tol):
+        readings = parity_readings(r, tol)
+        same, n = r["routes"]
+        if n:
+            readings += (f", MoE routes replayed from the plain run (the "
+                         f"kernel run's own agree {same}/{n}, "
+                         f"{same / n:.2%})")
+        held = [key for key in tol if (dtype_name, key) not in unheld]
+        if any(r[key] > tol[key] for key in held):
             fail(f"{phase} parity {dtype_name}: {readings}")
+        if len(held) < len(tol):
+            readings += (f" ({', '.join(k for k in tol if k not in held)} "
+                         f"not held in {dtype_name})")
         shape = ("" if depth is None else
                  f" at full width and depth {depth}")
         if reduced:
@@ -1954,6 +2052,10 @@ def profile_train_step(torch, step, params, opt, batch,
 
 # (B, S, H, P, N, chunk)
 SSD_MAIN = (4, 1024, 80, 64, 128, 128)       # mamba2-2.7b training microbatch
+# zamba2-7b's training microbatch: head dim 112, which the wrapper runs as
+# two panels of 64 (the second zero-padded); and a ragged length
+ZAMBA_SSD = (4, 1024, 64, 112, 64, 128)
+ZAMBA_SSD_CASES = (ZAMBA_SSD, (4, 1000, 64, 112, 64, 128))
 
 
 def ssd_inputs(torch, case, dt, gen):
@@ -2017,12 +2119,16 @@ def ssd_case(torch, case, dtype_name, gen, timed: bool = True,
     if not timed:
         return dict(max_abs_err=err, differ=differ)
     seq = ""
-    if dtype_name == "float32" and case == SSD_MAIN:
+    if (dtype_name == "float32" and case == SSD_MAIN) or \
+            case in ZAMBA_SSD_CASES:
         want = ssd.ssd_scan_sequential(*args)
-        seq_err, _ = compare(torch, got, want, dtype_name,
-                             what + " vs the sequential recurrence", SEQ_TOL)
+        tol = SEQ_TOL if dtype_name == "float32" else SEQ_TOL_BF16
+        # no DIFFER_MAX here: the chunked and step-by-step fp32 sums round
+        # to bf16 apart more often than two kernels of one algorithm do
+        seq_err, _ = compare(torch, got, want, "float32",
+                             what + " vs the sequential recurrence", tol)
         seq = (f", vs the sequential recurrence {seq_err:.3e} (rtol "
-               f"{SEQ_TOL['rtol']} atol {SEQ_TOL['atol']}, max|y| "
+               f"{tol['rtol']:.4g} atol {tol['atol']}, max|y| "
                f"{float(want.float().abs().max()):.3g})")
     def run(k):
         return time_ms(torch, lambda: ssd._launch(*args, chunk, kernel=k),
@@ -2044,6 +2150,15 @@ def ssd_case(torch, case, dtype_name, gen, timed: bool = True,
                f"{old_ms[0]:.4f} / {new_ms[0]:.4f} / {new_ms[1]:.4f} / "
                f"{old_ms[1]:.4f} ms (cuda_cores max_abs_err "
                f"{old_err:.3e}), {statistics.mean(old_ms) / ms:.1f}x")
+    if case[3] > ssd.PANEL_P:
+        split = ssd.split_panels(*args[:3]) + args[3:]
+        kernel_ms = time_ms(
+            torch, lambda: ssd._launch(*split, chunk, kernel=kernel),
+            inner=5, reps=11)
+        old += (f" | the kernel alone on panels split beforehand "
+                f"{kernel_ms:.4f} ms, so the pad and slice copies "
+                f"{ms - kernel_ms:.4f} ms")
+        del split
     plain_ms = time_ms(torch, lambda: ssd.ssd_scan_plain(*args, chunk=chunk),
                        inner=2, reps=5)
     nbytes, flops, bound_ms, bound_by = ssd_work(case, dtype_name)
@@ -2053,8 +2168,10 @@ def ssd_case(torch, case, dtype_name, gen, timed: bool = True,
         f"{differ:.2e}{seq} | kernel "
         f"{ms:.4f} ms plain {plain_ms:.4f} ms library none bound "
         f"{bound_ms:.5f} ms ({bound_by}: {nbytes} B, {flops:.4g} FLOP) | "
-        f"{flops / ms / 1e9:.2f} TFLOP/s, grid {case[0] * case[2]} "
-        f"blocks{old}")
+        f"{flops / ms / 1e9:.2f} TFLOP/s, grid "
+        f"{case[0] * case[2] * -(-case[3] // ssd.PANEL_P)} blocks"
+        f"{'' if case[3] <= ssd.PANEL_P else ' (head dim in panels of 64)'}"
+        f"{old}")
     return dict(max_abs_err=err, differ=differ, ms=ms, plain_ms=plain_ms,
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
@@ -2064,8 +2181,9 @@ def ssd_phase(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
     for dtype_name in ("float32", "bfloat16"):
-        results[("ssd_scan", SSD_MAIN, dtype_name)] = ssd_case(
-            torch, SSD_MAIN, dtype_name, gen)
+        for case in (SSD_MAIN,) + ZAMBA_SSD_CASES:
+            results[("ssd_scan", case, dtype_name)] = ssd_case(
+                torch, case, dtype_name, gen)
     worst = {}
     n = {}
     for dtype_name in ("float32", "bfloat16"):
@@ -2176,46 +2294,57 @@ def launch_mix(results: dict, parts) -> dict:
 # admitted into a slot an earlier request used
 SSM_LATE_ARRIVAL = 1e6
 # tests/test_torch_ssm.py's fp32 CACHE_TOL: the engine's state after a
-# prefill against a batch-1 prefill of the same prompt, max abs
-SSM_STATE_TOL = {"ssm": 1e-4, "conv_x": 1e-4, "conv_bc": 1e-4}
+# prefill against a batch-1 prefill of the same prompt, max abs; for
+# zamba2 also the shared block's K/V rows of the prompt
+SSM_STATE_TOL = {"ssm": 1e-4, "conv_x": 1e-4, "conv_bc": 1e-4,
+                 "shared k": 1e-4, "shared v": 1e-4}
 
 
-def ssm_serve_phase(torch, smi: str):
-    """mamba2-2.7b FULL (64 layers) served by ``ServingEngine``: 4 chat
-    requests, prompts cut to 64 tokens, outputs to 16, 4 slots, the last
-    request admitted into a reused slot.  In bf16: every request finishes
-    with its token count and every step launches its RMSNorms.  In fp32:
-    after each prefill the slot's ``ssm``/``conv_x``/``conv_bc`` rows
-    equal those of a batch-1 ``prefill`` of the same prompt within
-    SSM_STATE_TOL, and the other active slots' rows are unchanged.
-    Returns the bf16 run's launches."""
+def ssm_serve_phase(torch, smi: str, arch: str = "mamba2-2.7b",
+                    spec: dict = SSM_SERVE, norms=SSM_SERVE_NORMS,
+                    phase: str = "ssm-serve", instance=None):
+    """``arch`` FULL (mamba2-2.7b: 64 layers; zamba2-7b: 78 and the
+    shared block 13 times) served by ``ServingEngine``: ``spec``'s chat
+    requests (4; prompts cut to 64 tokens, zamba2's to 32; outputs to
+    16), 4 slots, the last request admitted into a reused slot.  In
+    bf16: every request finishes with its token count and every step
+    launches its kernels (``norms``: the RMSNorm shapes of a step, with
+    their launches), every decode attention on the kernel ``instance``
+    ((head dim, group)) where given.  In fp32: after each prefill the slot's
+    ``ssm``/``conv_x``/``conv_bc`` rows, and the shared block's K/V rows
+    of its prompt, equal those of a batch-1 ``prefill`` of the same
+    prompt within SSM_STATE_TOL, and the other active slots' SSM rows
+    are unchanged.  Returns the bf16 run's launches."""
     import dataclasses
 
     from repro_torch import configs as C
     from repro_torch.data.requests import make_serving_requests
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import SSM_STATE, ServingEngine
-    base = C.get_config("mamba2-2.7b")
-    R = base.block_repeat
-    if sum(n for _, n in SSM_SERVE_NORMS) != 2 * R + 1:
-        fail(f"ssm-serve: SSM_SERVE_NORMS does not count {2 * R + 1} "
+    base = C.get_config(arch)
+    layers = base.n_layers
+    per_step = decode_launches_per_step(base)
+    if sum(n for _, n in norms) != per_step[0]:
+        fail(f"{phase}: its RMSNorm shapes do not count {per_step[0]} "
              f"RMSNorms a step")
-    reqs = make_serving_requests("chat", 1.0, SSM_SERVE["requests"],
+    reqs = make_serving_requests("chat", 1.0, spec["requests"],
                                  base.vocab_size, seed=0,
-                                 max_len=SSM_SERVE["prompt_cap"])
+                                 max_len=spec["prompt_cap"])
     for i, r in enumerate(reqs):
-        r["gen_len"] = min(r["gen_len"], SSM_SERVE["gen_cap"])
+        r["gen_len"] = min(r["gen_len"], spec["gen_cap"])
         r["arrival"] = SSM_LATE_ARRIVAL if i == len(reqs) - 1 else 0.0
     launched = None
+    states = SSM_STATE + (("shared k", "shared v") if base.shared_attn
+                          else ())
     for dtype_name in ("bfloat16", "float32"):
         cfg = dataclasses.replace(base, dtype=dtype_name)
         torch.cuda.empty_cache()
         gen = torch.Generator(device=DEVICE).manual_seed(0)
         params = T.init_params(gen, cfg, device=DEVICE)
-        eng = ServingEngine(cfg, params, max_batch=SSM_SERVE["max_batch"],
-                            max_len=SSM_SERVE["max_len"], device=DEVICE)
+        eng = ServingEngine(cfg, params, max_batch=spec["max_batch"],
+                            max_len=spec["max_len"], device=DEVICE)
         admitted = []
-        worst = dict.fromkeys(SSM_STATE, 0.0)
+        worst = dict.fromkeys(states, 0.0)
         prefill = eng._prefill_slot
 
         def checked(i, prefill=prefill, eng=eng, cfg=cfg, params=params,
@@ -2242,6 +2371,12 @@ def ssm_serve_phase(torch, smi: str):
                     err = float((lc[name][:, i] - ref[name][:, 0]).abs()
                                 .max())
                     worst[name] = max(worst[name], err)
+            n = prompt.shape[1]
+            for name in ("k", "v") if cfg.shared_attn else ():
+                got = eng.cache["shared"][name][:, i, :n]
+                err = float((got - alone["shared"][name][:, 0, :n]).abs()
+                            .max())
+                worst[f"shared {name}"] = max(worst[f"shared {name}"], err)
 
         eng._prefill_slot = checked
         reset_counts()
@@ -2250,24 +2385,29 @@ def ssm_serve_phase(torch, smi: str):
         if dtype_name == "bfloat16":
             launched = counts()
         if len(report.results) != len(reqs):
-            fail(f"ssm-serve {dtype_name}: {len(report.results)} of "
+            fail(f"{phase} {dtype_name}: {len(report.results)} of "
                  f"{len(reqs)} finished")
         by_rid = {r["rid"]: r for r in reqs}
         for res in report.results:
             if len(res.tokens) != max(by_rid[res.rid]["gen_len"], 2) or \
                     not all(0 <= t < cfg.vocab_size for t in res.tokens):
-                fail(f"ssm-serve {dtype_name}: rid {res.rid} gave tokens "
+                fail(f"{phase} {dtype_name}: rid {res.rid} gave tokens "
                      f"{res.tokens}")
         if len(set(admitted)) == len(admitted):
-            fail(f"ssm-serve: no slot was reused ({admitted})")
+            fail(f"{phase}: no slot was reused ({admitted})")
         steps = report.iterations + sum(len(r["prompt"]) for r in reqs)
+        want = tuple(n * steps for n in per_step)
         if dtype_name == "bfloat16" and report.preemptions == 0 and \
-                launched != ((2 * R + 1) * steps, 0, 0, 0):
-            fail(f"ssm-serve: launches {launched} for {steps} decode "
-                 f"steps, expected {((2 * R + 1) * steps, 0, 0, 0)}")
+                launched != want:
+            fail(f"{phase}: launches {launched} for {steps} decode "
+                 f"steps, expected {want}")
+        if dtype_name == "bfloat16" and instance is not None and \
+                set(decode_instances()) != {instance}:
+            fail(f"{phase}: decode attention on (head dim, group) "
+                 f"{decode_instances()}, expected only {instance}")
         beyond = {n: e for n, e in worst.items() if e > SSM_STATE_TOL[n]}
         if beyond:
-            fail(f"ssm-serve: state after prefill vs batch-1 prefill "
+            fail(f"{phase}: state after prefill vs batch-1 prefill "
                  f"{worst}, beyond {SSM_STATE_TOL}")
         state = (" | state after each prefill vs a batch-1 prefill of the "
                  "prompt, max abs: " + ", ".join(
@@ -2275,8 +2415,11 @@ def ssm_serve_phase(torch, smi: str):
                  + f" (tol {SSM_STATE_TOL['ssm']}); other active slots "
                  f"unchanged")
         if dtype_name == "bfloat16":
-            state = f" | launches rmsnorm {launched[0]}"
-        say("ssm-serve", f"mamba2-2.7b FULL ({R} layers) {dtype_name} on "
+            state = (f" | launches rmsnorm {launched[0]} decode_attention "
+                     f"{launched[1]} ({per_step[0]} and {per_step[1]} a "
+                     f"step; decode instances by (head dim, group) "
+                     f"{decode_instances()})")
+        say(phase, f"{arch} FULL ({layers} layers) {dtype_name} on "
             f"{smi}: {len(report.results)} requests (prompts "
             f"{[len(r['prompt']) for r in reqs]}, gen "
             f"{[r['gen_len'] for r in reqs]}), slots in admission order "
@@ -2374,8 +2517,9 @@ def forward_check(torch, arch: str, depth: int, batch: int, seq: int,
     and through the kernels (the kernel run taking the plain run's MoE
     routes); an arch fed embeddings takes seeded patch embeddings at
     (t, h, w) ids of a 16 x 16 patch grid (``thw_positions``) instead.
-    Fails on the launches, on logits that are not finite, or beyond
-    LOGIT_TOL / ARGMAX_FLOOR."""
+    Fails on the launches (RMSNorms, flash attentions of the attention
+    layers and the shared block, SSD scans of the Mamba2 layers), on
+    logits that are not finite, or beyond LOGIT_TOL / ARGMAX_FLOOR."""
     import dataclasses
 
     from repro_torch import configs as C
@@ -2392,7 +2536,9 @@ def forward_check(torch, arch: str, depth: int, batch: int, seq: int,
                                          generator=gen, device=DEVICE),
                       positions=thw_positions(torch, batch, seq))
     attn = sum(s.kind == "attn" for s in cfg.block_pattern) * depth
-    want = (2 * cfg.n_layers + 1, 0, attn, 0)
+    ssm = sum(s.kind == "ssm" for s in cfg.block_pattern) * depth
+    want = (2 * cfg.n_layers + 1, 0,
+            attn + (depth if cfg.shared_attn else 0), ssm)
     log, routes = [], [0, 0]
     reset_counts()
     with torch.no_grad():
@@ -2698,6 +2844,179 @@ def seamless_phase(torch, smi: str):
     return served, trained
 
 
+# -- 16. zamba2 -------------------------------------------------------------
+
+ZAMBA = "zamba2-7b"
+# zamba2-7b at full width: 78 Mamba2 layers (six a repeat, 13 repeats) and
+# one shared attention + MLP block applied after each repeat, 6.4 B
+# parameters, 12.8 GB in bf16 and 25.7 GB in fp32: all 13 repeats fit one
+# card in either dtype.  fp32 is held at 2 repeats, bf16 at ZAMBA_DEPTHS
+# (``--limits zamba2-7b``)
+ZAMBA_DEPTHS = {"float32": 2, "bfloat16": None}
+# ``--limits zamba2-7b`` reads 2 and 4 repeats and all 13, in both dtypes
+ZAMBA_LIMIT_DEPTHS = ({"float32": 2, "bfloat16": 2},
+                      {"float32": 4, "bfloat16": 4},
+                      {"float32": None, "bfloat16": None})
+ZAMBA_INSTANCE = (128, 1)          # head dim 112 padded to 128, group 1
+# forward through the SSD kernel at P 112 and the flash kernel at D 112
+ZAMBA_FORWARD = dict(depth=2, batch=2, seq=256)
+ZAMBA_SERVE = dict(requests=4, prompt_cap=32, gen_cap=16, max_batch=4,
+                   max_len=512)
+# its RMSNorms per decode step: norm1 of 78 layers, the shared block's two
+# norms 13 times and the final norm at d 3584; the gated norm of 78 layers
+# at d_inner 7168.  In training (4 x 1024 tokens a microbatch) alike
+ZAMBA_NORM_SERVE = (4, 1, 7168)
+ZAMBA_NORM_TRAIN = (4, 1024, 7168)
+ZAMBA_SERVE_NORMS = ((QWEN_VL_NORM_SERVE, 78 + 2 * 13 + 1),
+                     (ZAMBA_NORM_SERVE, 78))
+# decode attention in a serve step: the shared block's 32 heads of 112
+# (group 1) over 4 slots of 512
+ZAMBA_DECODE = (4, 32, 32, 112, 512)
+# two repeats at full width: 12 Mamba2 layers and two applications of the
+# tied block, so its gradient sums over both; 1.36 B parameters
+ZAMBA_TRAIN = dict(arch=ZAMBA, steps=5, batch=8, seq=1024, microbatches=2,
+                   depth=2)
+# TRAIN_TOL's bf16 masters limit (0.1) is read, not held, for zamba2: with
+# sound kernels one bf16 step reads 0.117 to 0.128 over seeds 0-2 on an
+# H100, and 0.102 to 0.123 with any one kernel alone (RMSNorm, whose
+# output is bit-equal to the plain version's in all but ~1e-5 of its
+# elements, 0.123), while plain against plain reads 0: any one-ulp change
+# flips the sign of the first Adam update of the gradients nearest zero.
+# The bf16 loss and grad norm and every fp32 reading stay held; fp32
+# catches each of TRAIN_CONTROLS (masters 1.5e-2 to 2.7e-2), bf16 none
+# (PERF.md; ``--limits zamba2-7b`` prints the readings)
+ZAMBA_UNHELD = (("bfloat16", "master"),)
+
+
+def zamba2_phase(torch, smi: str):
+    """zamba2-7b (78 Mamba2 layers, SSD head dim 112; a shared attention
+    + MLP block after every six, head dim 112) at full width on seeded
+    random weights: (a) ``decode_step`` logits kernels vs plain at
+    ZAMBA_DEPTHS, held to LOGIT_TOL and ARGMAX_FLOOR, 183 RMSNorms and 13
+    decode attentions a step at 13 repeats, all on the (128, 1) instance,
+    with a profiled bf16 step at all 13 repeats (device ms by family and
+    the padding copies beside the weights' read-once bound); (b)
+    ``forward`` in bf16 at 2 repeats, B 2 x S 256, through the SSD kernel
+    at P 112 (two panels of 64) and the flash kernel at D 112; (c) 4 chat
+    requests served at all 13 repeats, the last into a reused slot, the
+    fp32 run's state after each prefill against a batch-1 prefill; (d)
+    two repeats trained for 5 steps (every SSD launch on the tensor-core
+    kernel) and one step kernels vs plain held to TRAIN_TOL.  Returns
+    the serve and train runs' launches."""
+    from repro_torch.kernels import ssd_scan
+    torch.cuda.empty_cache()
+    model_phase(torch, phase="zamba2", arch=ZAMBA, depths=ZAMBA_DEPTHS,
+                instance=ZAMBA_INSTANCE)
+    r = forward_check(torch, ZAMBA, **ZAMBA_FORWARD)
+    if ssd_scan.variant_launches["wgmma"] != r["launches"][3]:
+        fail(f"zamba2 forward: SSD launches {ssd_scan.variant_launches}, "
+             f"expected all {r['launches'][3]} on the tensor-core kernel")
+    say("zamba2", f"forward {ZAMBA} FULL width ({r['cfg'].n_layers} "
+        f"layers) bf16 B {ZAMBA_FORWARD['batch']} x S "
+        f"{ZAMBA_FORWARD['seq']}: {r['readings']}, launches rmsnorm "
+        f"{r['launches'][0]} flash_attention {r['launches'][2]} (D 112 "
+        f"padded to 128) ssd_scan {r['launches'][3]} (P 112 as two "
+        f"panels of 64, all on the tensor-core kernel)")
+    served = ssm_serve_phase(torch, smi, ZAMBA, ZAMBA_SERVE,
+                             ZAMBA_SERVE_NORMS, "zamba2", ZAMBA_INSTANCE)
+    trained = train_phase(torch, smi, ZAMBA_TRAIN, "zamba2")
+    if ssd_scan.variant_launches["wgmma"] != trained[3]:
+        fail(f"zamba2: {ssd_scan.variant_launches} of {trained[3]} SSD "
+             f"launches were not on the tensor-core kernel")
+    train_parity_phase(torch, ZAMBA_TRAIN, depth=ZAMBA_TRAIN["depth"],
+                       phase="zamba2", unheld=ZAMBA_UNHELD)
+    return served, trained
+
+
+# broken kernels of the train path, made by wrapping the sound ones and
+# read against TRAIN_TOL by ``--limits zamba2-7b``: the SSD scan rounding
+# its fp32 result toward zero to bf16 precision; the flash kernel
+# returning an lse 0.01 high (only the backward reads it); the flash
+# kernel with the values of the last 64 keys dropped
+TRAIN_CONTROLS = ("ssd_round_to_zero", "flash_lse_high", "flash_drop_keys")
+
+
+def broken_train(torch, kind: str):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ssd
+    if kind == "ssd_round_to_zero":
+        sound = ssd.ssd_scan
+
+        def faulty(x, dt, a_log, b, c, chunk=128):
+            y = sound(x.float(), dt, a_log, b.float(), c.float(), chunk)
+            cut = (y.detach().view(torch.int32) & -65536).view(torch.float32)
+            # the backward still sees the sound scan's gradient
+            return (y + (cut - y.detach())).to(x.dtype)
+
+        return mock.patch.object(ssd, "ssd_scan", faulty)
+    sound = fa.flash_attention
+
+    def faulty(q, k, v, **kw):
+        if kind == "flash_lse_high":
+            out, lse = sound(q, k, v, **kw)
+            return out, lse + 0.01
+        v = v.clone()
+        v[:, -64:] = 0
+        return sound(q, k, v, **kw)
+
+    return mock.patch.object(fa, "flash_attention", faulty)
+
+
+def train_limits(torch, spec: dict = None, seeds=range(3)) -> None:
+    """The readings behind ZAMBA_UNHELD: zamba2's train parity (2
+    repeats, batch 8 x 1024) over ``seeds`` in both dtypes, in bf16 with
+    one kernel at a time (``one_kernel``) and with no kernel at all
+    (plain against plain), and under each of TRAIN_CONTROLS in both
+    dtypes; printed against TRAIN_TOL, nothing held."""
+    spec = spec or ZAMBA_TRAIN
+    alone = ("rmsnorm", "flash_attention", "ssd_scan", None)
+    runs = [(d, seed, None) for d in ("float32", "bfloat16") for seed in seeds]
+    runs += [("bfloat16", 0, ("only", k)) for k in alone]
+    runs += [(d, 0, k) for d in ("float32", "bfloat16")
+             for k in TRAIN_CONTROLS]
+    for dtype_name, seed, kind in runs:
+        if kind is None:
+            patch, what = contextlib.nullcontext(), f"seed {seed}"
+        elif isinstance(kind, tuple):
+            patch = one_kernel(kind[1])
+            what = ("no kernel (plain against plain)" if kind[1] is None
+                    else f"only the {kind[1]} kernel")
+        else:
+            patch, what = broken_train(torch, kind), f"control {kind}"
+        with patch:
+            r = train_parity(torch, dtype_name, seed=seed, spec=spec,
+                             depth=spec.get("depth"))
+        say("limits", f"{spec['arch']} train parity {dtype_name} depth "
+            f"{spec.get('depth')} {what}: "
+            + parity_readings(r, TRAIN_TOL[dtype_name]))
+
+
+# -- 17. deepseek-train -----------------------------------------------------
+
+# deepseek-v2-lite-16b at full width and depth 2: the dense prefix layer
+# and one MoE layer (64 experts, top-6, 2 shared), 1.09 B parameters; AdamW
+# for all 27 layers (15.7 B) does not fit one card.  Parity at half the
+# batch
+DEEPSEEK_TRAIN = dict(arch=DEEPSEEK, steps=5, batch=8, seq=1024,
+                      microbatches=2, depth=2)
+DEEPSEEK_PARITY = dict(DEEPSEEK_TRAIN, batch=4)
+DEEPSEEK_NORM_TRAIN = (4, 1024, 2048)
+
+
+def deepseek_train_phase(torch, smi: str):
+    """deepseek-v2-lite-16b trained at full width and depth 2 (MLA: the
+    flash kernel with q/k 192 and v 128, both padded to 256 by the
+    wrapper, and the plain backward): 5 steps of 8 x 1024 tokens (2
+    microbatches, remat; the prefix block is not checkpointed), then one
+    step kernels vs plain held to TRAIN_TOL, the kernel run taking the
+    plain run's MoE routes.  Returns the train run's launches."""
+    torch.cuda.empty_cache()
+    trained = train_phase(torch, smi, DEEPSEEK_TRAIN, "deepseek-train")
+    train_parity_phase(torch, DEEPSEEK_PARITY,
+                       depth=DEEPSEEK_TRAIN["depth"], phase="deepseek-train")
+    return trained
+
+
 def main() -> int:
     try:
         import torch
@@ -2748,6 +3067,8 @@ def main() -> int:
     results.update(deepseek_results)
     vl_decoded, vl_trained = qwen2vl_phase(torch, smi)
     seamless_served, seamless_trained = seamless_phase(torch, smi)
+    zamba_served, zamba_trained = zamba2_phase(torch, smi)
+    deepseek_trained = deepseek_train_phase(torch, smi)
 
     # one entry per kernel and path: the path's launches, read right after
     # its run, beside the kernel's numbers at that path's bf16 shape
@@ -2800,6 +3121,18 @@ def main() -> int:
         results, [((SEAMLESS_SELF, "bfloat16"), self_runs),
                   ((SEAMLESS_ENCODE, "non-causal", "bfloat16"),
                    2 * scfg.block_repeat + 2 * enc[1])])
+    # zamba2's RMSNorms at d 3584 and at the gated norm's 7168, by their
+    # launches: serving ZAMBA_SERVE_NORMS a step; training, per
+    # microbatch, 3 runs of each Mamba2 layer (norm1 and the gated norm)
+    # and 2 of the shared block (two norms) a repeat, and the final norm
+    results[("rmsnorm", ZAMBA_SERVE_NORMS, "bfloat16")] = launch_mix(
+        results, [(("rmsnorm", shape, "bfloat16"), n)
+                  for shape, n in ZAMBA_SERVE_NORMS])
+    zr = ZAMBA_TRAIN["depth"]
+    results[("rmsnorm", "zamba2-train", "bfloat16")] = launch_mix(
+        results, [(("rmsnorm", QWEN_VL_NORM_TRAIN, "bfloat16"),
+                   18 * zr + 4 * zr + 1),
+                  (("rmsnorm", ZAMBA_NORM_TRAIN, "bfloat16"), 18 * zr)])
     paths = (
         ("rmsnorm", "serve", ("rmsnorm", (4, 1, 896)), served[0]),
         ("decode_attention", "serve",
@@ -2849,6 +3182,20 @@ def main() -> int:
          seamless_trained[0]),
         ("flash_attention", "seamless-train", ("seamless-train",),
          seamless_trained[2]),
+        ("rmsnorm", "zamba2-serve", ("rmsnorm", ZAMBA_SERVE_NORMS),
+         zamba_served[0]),
+        ("decode_attention", "zamba2-serve",
+         ("decode_attention", ZAMBA_DECODE), zamba_served[1]),
+        ("rmsnorm", "zamba2-train", ("rmsnorm", "zamba2-train"),
+         zamba_trained[0]),
+        ("flash_attention", "zamba2-train", (ZAMBA_FLASH,),
+         zamba_trained[2]),
+        ("ssd_scan", "zamba2-train", ("ssd_scan", ZAMBA_SSD),
+         zamba_trained[3]),
+        ("rmsnorm", "deepseek-train", ("rmsnorm", DEEPSEEK_NORM_TRAIN),
+         deepseek_trained[0]),
+        ("flash_attention", "deepseek-train", (DEEPSEEK_FLASH, "mla"),
+         deepseek_trained[2]),
     )
     kernels = []
     for name, path, key, n in paths:

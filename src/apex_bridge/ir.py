@@ -6,10 +6,12 @@ GQA decoders with a dense FFN (attention + MLP cells) or a MoE FFN
 (attention + MoE cells), MLA decoders (MLA + MoE cells; like the
 reference, the block repeats ``block_repeat`` times and the dense
 prefix block is not modelled), Mamba2 (SSM cells), M-RoPE decoders
-(qwen2-vl: attention cells with ``rope="mrope"``), and encoder-decoders
+(qwen2-vl: attention cells with ``rope="mrope"``), encoder-decoders
 (seamless: a cross-attention cell after each decoder attention cell,
-and an encoder block of attention + MLP cells).  The reference's method
-cannot be called here: ``repro.models`` loads JAX.
+and an encoder block of attention + MLP cells), and a shared attention
+block (zamba2: ``shared_attn`` and ``shared_mlp`` cells after each
+block's own).  The reference's method cannot be called here:
+``repro.models`` loads JAX.
 """
 
 from __future__ import annotations
@@ -21,19 +23,19 @@ from repro_torch.models.config import ModelConfig
 
 def _check_family(cfg: ModelConfig) -> None:
     """Raise for a config outside the GQA or MLA (dense or MoE FFN), SSM
-    and encoder-decoder families."""
+    (with or without a shared attention block) and encoder-decoder
+    families."""
     unsupported = []
     if cfg.attn_kind not in ("gqa", "mla"):
         unsupported.append(f"attn_kind={cfg.attn_kind!r}")
     if cfg.ffn_kind not in ("dense", "moe", "none"):
         unsupported.append(f"ffn_kind={cfg.ffn_kind!r}")
-    if cfg.shared_attn:
-        unsupported.append("shared attention block")
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: no IR for {', '.join(unsupported)}; the port has "
             f"configs for dense GQA decoders, MoE GQA and MLA decoders, "
-            f"Mamba2 and encoder-decoders only")
+            f"Mamba2 (with zamba2's shared block) and encoder-decoders "
+            f"only")
 
 
 def model_ir(cfg: ModelConfig) -> IR.ModelIR:
@@ -78,6 +80,14 @@ def model_ir(cfg: ModelConfig) -> IR.ModelIR:
             cells.append(IR.MLPCell(
                 name=f"mlp{i}", d_model=cfg.d_model, d_ff=cfg.d_ff,
                 gated=cfg.ffn_gated))
+    if cfg.shared_attn:
+        cells.append(IR.AttentionCell(
+            name="shared_attn", d_model=cfg.d_model,
+            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim))
+        cells.append(IR.MLPCell(
+            name="shared_mlp", d_model=cfg.d_model,
+            d_ff=cfg.shared_d_ff or cfg.d_ff, gated=cfg.ffn_gated))
     block = IR.Block(cells=tuple(cells), repeat=cfg.block_repeat)
     enc = None
     if cfg.encoder is not None:

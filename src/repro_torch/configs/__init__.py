@@ -7,15 +7,17 @@ its blocks of five sliding-window layers and one global layer), the
 attention-free Mamba2 model, the MoE decoder mixtral-8x7b and the MLA
 decoder deepseek-v2-lite-16b (64 experts, a dense first layer), the
 M-RoPE backbone qwen2-vl-7b (embedding inputs: its vision frontend is a
-stub) and the encoder-decoder seamless-m4t-large-v2 (its speech frontend
-a stub); the other architectures of the JAX registry arrive with the
-slices that port their layers.
+stub), the encoder-decoder seamless-m4t-large-v2 (its speech frontend
+a stub) and the hybrid zamba2-7b (78 Mamba2 layers and one shared
+attention block applied after every sixth): every architecture of the
+JAX registry.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
-from typing import List
+from typing import List, Optional
 
 from repro_torch.models.config import ModelConfig
 
@@ -29,6 +31,7 @@ ARCHS: List[str] = [
     "deepseek_v2_lite_16b",
     "qwen2_vl_7b",
     "seamless_m4t_large_v2",
+    "zamba2_7b",
 ]
 
 # canonical ids as given in the assignment -> module names
@@ -42,6 +45,7 @@ ALIASES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "qwen2-vl-7b": "qwen2_vl_7b",
     "seamless-m4t-large-v2": "seamless_m4t_large_v2",
+    "zamba2-7b": "zamba2_7b",
 }
 
 
@@ -60,3 +64,15 @@ def get_config(name: str) -> ModelConfig:
 def get_reduced(name: str) -> ModelConfig:
     return _module(name).REDUCED
 
+
+def at_depth(cfg: ModelConfig, depth: Optional[int]) -> ModelConfig:
+    """``cfg`` cut to its first ``depth`` blocks at full width, prefix
+    blocks (deepseek's dense first layer) counted; ``cfg`` itself for
+    None.  A depth that keeps no block past the prefix raises
+    ``ValueError``."""
+    if depth is None:
+        return cfg
+    if depth <= cfg.first_k_dense:
+        raise ValueError(f"depth {depth} keeps no block after {cfg.name}'s "
+                         f"{cfg.first_k_dense} prefix block(s)")
+    return dataclasses.replace(cfg, block_repeat=depth)

@@ -25,7 +25,14 @@ carries ``norm_x`` and ``xattn`` alike.  An encoder-decoder model's
 encoder (``tree["encoder"]``: ``layers``, stacked over its ``n_layers``
 on a leading axis, and ``final_norm``) is the port's ``encoder``:
 ``encoder.layers.<i>.attn.wq`` is ``tree["encoder"]["layers"]["attn"]
-["wq"][i]``.
+["wq"][i]``.  zamba2's shared attention block is the top-level
+``shared`` (``norm1``, ``attn``, ``norm2``, ``mlp``), unstacked: the
+port's ``shared.mlp.w_up`` is ``tree["shared"]["mlp"]["w_up"]``, and its
+caches ``cache["shared"]["k"]``/``["v"]``.  The name ``shared`` also
+names a MoE FFN's shared experts, ``blocks.<r>.l0.ffn.shared.w_up``;
+the two never meet, as a path is read from its first part
+(``jax_path``): ``blocks`` is a stacked block, anything else a path of
+the tree as it stands.
 """
 
 from __future__ import annotations
@@ -39,8 +46,9 @@ from torch import nn
 from repro_torch.layers.moe import MoEParams
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import Encoder, EncoderLayer
-from repro_torch.models.transformer import (DecoderLayer, SSMLayer,
-                                            Transformer, check_supported)
+from repro_torch.models.transformer import (DecoderLayer, SharedBlock,
+                                            SSMLayer, Transformer,
+                                            check_supported)
 
 
 def to_torch(a: np.ndarray, device=None) -> torch.Tensor:
@@ -117,7 +125,8 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
 
     ``tree`` is ``jax.device_get(repro.models.transformer.init_params(
     key, cfg))`` for a config the port carries (GQA or MLA with a dense
-    or MoE FFN and prefix blocks, or Mamba2); or of
+    or MoE FFN and prefix blocks, or Mamba2, with zamba2's shared block);
+    or of
     ``repro.models.encdec.init_encdec_params`` for an encoder-decoder
     config."""
     check_supported(cfg)
@@ -130,15 +139,22 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig,
     head = _param(tree["head"], device) if "head" in tree else None
     encoder = (_encoder(tree["encoder"], device) if "encoder" in tree
                else None)
+    shared = None
+    if "shared" in tree:
+        st = tree["shared"]
+        shared = SharedBlock(_param(st["norm1"], device),
+                             _param_dict(st["attn"], device),
+                             _param(st["norm2"], device),
+                             _param_dict(st["mlp"], device))
     return Transformer(_param(tree["embed"], device),
                        _param(tree["final_norm"], device), blocks, head,
-                       prefix, encoder)
+                       prefix, encoder, shared)
 
 
 def cache_from_jax(tree: Mapping, device=None) -> dict:
     """The port's cache from the reference's ``init_cache``/``prefill``
-    cache pytree (attention, MLA and SSM layers, and the prefix blocks'
-    list): same keys, shapes and dtypes."""
+    cache pytree (attention, MLA and SSM layers, the prefix blocks' list
+    and the shared block's ``shared``): same keys, shapes and dtypes."""
     def block(b: Mapping) -> dict:
         return {slot: {name: to_torch(a, device) for name, a in lc.items()}
                 for slot, lc in b.items()}
@@ -147,6 +163,9 @@ def cache_from_jax(tree: Mapping, device=None) -> dict:
              "len": to_torch(tree["len"], device).to(torch.int32)}
     if "prefix" in tree:
         cache["prefix"] = [block(b) for b in tree["prefix"]]
+    if "shared" in tree:
+        cache["shared"] = {name: to_torch(a, device)
+                           for name, a in tree["shared"].items()}
     return cache
 
 
@@ -156,7 +175,8 @@ def jax_path(name: str) -> Tuple[Tuple, Optional[int]]:
     "attn", "wq"), 3)``, ``prefix.0.l0.attn.wukv`` -> ``(("prefix", 0,
     "l0", "attn", "wukv"), None)`` (a list index),
     ``encoder.layers.2.attn.wq`` -> ``(("encoder", "layers", "attn",
-    "wq"), 2)``, ``embed`` -> ``(("embed",), None)``."""
+    "wq"), 2)``, ``shared.mlp.w_up`` -> ``(("shared", "mlp", "w_up"),
+    None)``, ``embed`` -> ``(("embed",), None)``."""
     parts = name.split(".")
     if parts[0] == "blocks":
         return ("blocks", *parts[2:]), int(parts[1])

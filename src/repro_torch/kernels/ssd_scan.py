@@ -24,6 +24,16 @@ FMAs) for every other call, fp32 and other chunks among them.  CUDA
 inputs neither takes raise.  ``launches`` counts kernel launches in this
 process (forward launches only), one per call whichever kernel runs.
 
+A head dim above ``PANEL_P`` = 64, up to ``MAX_P`` (zamba2's 112), runs
+as panels of 64 (``split_panels``, ``merge_panels``): x is zero-padded
+to a multiple of 64 and viewed as ``P_pad / 64`` heads of 64 per head,
+each panel taking its head's dt and a_log.  That is exact: every column
+of x has its own row of the ``(P, N)`` state and its own output column,
+and B, C, dt and A are shared by all columns of a head, so a zero column
+gives a zero output column.  The panels go through one launch, on the
+kernel ``variant`` picks for a head dim of 64; the output is sliced back
+to P.  Cost: the pad and the slice copy x and y once per call.
+
 Gradient: on CUDA the kernel sits in a ``torch.autograd.Function`` whose
 backward, ``ssd_scan_grads``, runs ``ssd_scan_plain`` again under
 autograd and differentiates it.  The TPU kernel has no backward either:
@@ -50,7 +60,8 @@ launches = 0
 variant_launches = {"wgmma": 0, "cuda_cores": 0}
 
 NEG_INF = -1e30
-MAX_P = 64
+PANEL_P = 64          # the widest head dim one kernel block takes
+MAX_P = 256           # wider head dims run as panels of PANEL_P
 MAX_N = 128
 MAX_CHUNK = 128
 WGMMA_CHUNK = 128
@@ -68,13 +79,37 @@ def variant(x_dtype: torch.dtype, bc_dtype: torch.dtype, head_dim: int,
     """The kernel a CUDA call takes: ``"wgmma"`` when x, b and c are bf16,
     ``chunk == WGMMA_CHUNK`` (a sequence shorter than the chunk is one
     chunk, zero-padded: zero rows leave y and the state exact), the head
-    dim is in ``WGMMA_HEAD_DIMS`` and the state dim in
+    dim as launched (a head dim above ``PANEL_P`` launches as panels of
+    ``PANEL_P``) is in ``WGMMA_HEAD_DIMS`` and the state dim in
     ``WGMMA_STATE_DIMS``; ``"cuda_cores"`` otherwise."""
+    head_dim = min(head_dim, PANEL_P)
     if (x_dtype == torch.bfloat16 and bc_dtype == torch.bfloat16
             and chunk == WGMMA_CHUNK and head_dim in WGMMA_HEAD_DIMS
             and d_state in WGMMA_STATE_DIMS):
         return "wgmma"
     return "cuda_cores"
+
+
+def split_panels(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (B, S, H, P), dt (B, S, H) and a_log (H,) as the same scan over
+    ``H * k`` heads of ``PANEL_P``, ``k = ceil(P / PANEL_P)``: x
+    zero-padded to ``k * PANEL_P`` columns and viewed as (B, S, H k,
+    PANEL_P), panel j of head h at head ``h k + j``; dt and a_log
+    repeated per panel.  ``merge_panels`` undoes it on the output."""
+    B, S, H, P = x.shape
+    k = -(-P // PANEL_P)
+    xp = F.pad(x, (0, k * PANEL_P - P)).reshape(B, S, H * k, PANEL_P)
+    return (xp, dt.repeat_interleave(k, dim=-1).contiguous(),
+            a_log.repeat_interleave(k).contiguous())
+
+
+def merge_panels(y: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """The output (B, S, H k, PANEL_P) of a ``split_panels`` scan as (B,
+    S, H, ``head_dim``): the panels side by side, the padding dropped."""
+    B, S, HK, _ = y.shape
+    k = -(-head_dim // PANEL_P)
+    return y.reshape(B, S, HK // k, k * PANEL_P)[..., :head_dim].contiguous()
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -166,9 +201,10 @@ def check_kernel_args(x: torch.Tensor, dt: torch.Tensor,
         raise ValueError(f"ssd_scan kernel: dt {tuple(dt.shape)} must be "
                          f"{(B, S, H)} and a_log {tuple(a_log.shape)} "
                          f"({H},)")
-    if B < 1 or S < 1 or H < 1 or B * H >= 2 ** 31:
+    panels = -(-P // PANEL_P)
+    if B < 1 or S < 1 or H < 1 or B * H * panels >= 2 ** 31:
         raise ValueError(f"ssd_scan kernel: B={B}, S={S}, H={H} must be "
-                         f">= 1 with B * H < 2**31")
+                         f">= 1 with B * H * {panels} panels < 2**31")
     if not (4 <= P <= MAX_P and P % 4 == 0):
         raise ValueError(f"ssd_scan kernel: head dim {P} is not a multiple "
                          f"of 4 in [4, {MAX_P}]")
@@ -195,8 +231,10 @@ def check_kernel_args(x: torch.Tensor, dt: torch.Tensor,
             raise ValueError(f"ssd_scan kernel: {name} on {t.device}, x on "
                              f"{x.device}")
         # the wgmma kernel reads x, b and c through TMA maps, whose bases
-        # must be 16-byte aligned
-        if wgmma and name in ("x", "b", "c") and t.data_ptr() % 16:
+        # must be 16-byte aligned; a head dim split into panels reads a
+        # padded copy of x
+        aligned = ("b", "c") if P > PANEL_P else ("x", "b", "c")
+        if wgmma and name in aligned and t.data_ptr() % 16:
             raise ValueError(f"ssd_scan kernel: bf16 {name} must be 16-byte "
                              f"aligned")
 
@@ -244,27 +282,31 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 def _launch(x, dt, a_log, b, c, chunk: int,
             kernel: Optional[str] = None) -> torch.Tensor:
     """Launch ``kernel`` (``variant``'s pick unless given: chip_smoke.py
-    times the two kernels on the same inputs) on checked inputs."""
+    times the two kernels on the same inputs) on checked inputs; a head
+    dim above ``PANEL_P`` as its panels, in the same one launch."""
     global launches
-    B, S, H, P = x.shape
+    P = x.shape[3]
     N = b.shape[2]
     kernel = kernel or variant(x.dtype, b.dtype, P, N, chunk)
     if kernel not in variant_launches:
         raise ValueError(f"ssd_scan: no kernel {kernel!r}")
+    if P > PANEL_P:
+        x, dt, a_log = split_panels(x, dt, a_log)
+    B, S, H, Pk = x.shape
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     if kernel == "wgmma":
         name = "apex_ssd_scan_wgmma"
         err = build.kernel(name, _WGMMA_ARGTYPES)(
             x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), B, S, H, P, N, stream)
+            c.data_ptr(), y.data_ptr(), B, S, H, Pk, N, stream)
     else:
         name = "apex_ssd_scan"
         err = build.kernel(name, _ARGTYPES)(
             x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), B, S, H, P, N, min(chunk, S),
+            c.data_ptr(), y.data_ptr(), B, S, H, Pk, N, min(chunk, S),
             _DTYPE_CODES[x.dtype], _DTYPE_CODES[b.dtype], stream)
     build.check(err, name)
     launches += 1
     variant_launches[kernel] += 1
-    return y
+    return y if Pk == P else merge_panels(y, P)

@@ -2,7 +2,8 @@
 
 Builds a config (default qwen2-0.5b at its FULL published size, or at
 the first ``depth`` blocks of it, as mixtral-8x7b needs on one H100;
-deepseek-v2-lite-16b fits whole, 31.4 GB in bf16),
+deepseek-v2-lite-16b fits whole, 31.4 GB in bf16, and so does
+zamba2-7b, whose ``depth`` counts its 6-layer repeats),
 draws random weights from a seeded ``torch.Generator``, serves
 chat-trace requests through ``ServingEngine`` and prints TTFT, TPOT and
 throughput.
@@ -24,7 +25,6 @@ engine serves token prompts.  seamless serves through
 from __future__ import annotations
 
 import argparse
-import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
@@ -64,12 +64,7 @@ def serve(arch: str = "qwen2-0.5b", size: str = "full",
                          f"encoder-decoder serves through "
                          f"models.encdec.encdec_prefill")
     dev = resolve_device(device)
-    if depth is not None:
-        if depth <= cfg.first_k_dense:
-            raise ValueError(f"depth {depth} keeps no block after "
-                             f"{cfg.name}'s {cfg.first_k_dense} prefix "
-                             f"block(s)")
-        cfg = dataclasses.replace(cfg, block_repeat=depth)
+    cfg = C.at_depth(cfg, depth)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = T.init_params(gen, cfg, device=dev)
     # the engine runs at time_scale=0.0, which moves every arrival to t=0,

@@ -16,10 +16,19 @@ checkpoints -> resume.
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch seamless-m4t-large-v2 --full --steps 5 --seq 1024 \\
         --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+        --full --depth 2 --steps 5 --seq 1024 --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-lite-16b --full --depth 2 --steps 5 \\
+        --seq 1024 --microbatches 2
 
 ``--depth`` keeps that many blocks at full width: gemma3-12b trains one
 block (six layers) on one H100, as its 48 layers' AdamW state alone
-passes 80 GB; qwen2-vl-7b trains 4 of its 28 layers.  The stub-frontend
+passes 80 GB; qwen2-vl-7b trains 4 of its 28 layers; zamba2-7b 2 of its
+13 repeats (12 Mamba2 layers, and the shared block applied twice, so
+its gradient sums over both); deepseek-v2-lite-16b 2 of 27 layers, the
+dense prefix layer and one MoE layer (the depth counts the prefix
+blocks and must exceed their number).  The stub-frontend
 archs take inputs the token pipeline does not make: qwen2-vl-7b's patch
 embeddings and seamless-m4t-large-v2's frame embeddings, (B, seq,
 d_model), are drawn anew each step (``stub_inputs``), as the reference
@@ -32,7 +41,6 @@ plain PyTorch versions of the kernels (sensible with the reduced configs).
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 from typing import List, Optional
 
@@ -97,21 +105,15 @@ def train(arch: str = "internlm2-1.8b", steps: int = 20, batch: int = 8,
           depth: Optional[int] = None):
     """Train ``arch`` for ``steps`` steps from random weights drawn from
     ``seed``, resuming from the newest checkpoint in ``ckpt_dir``;
-    ``depth`` cuts the model to that many blocks.
+    ``depth`` cuts the model to that many blocks (``configs.at_depth``).
     Returns ``(params, opt, losses)``.  Each step's ``{"step", "loss",
     "grad_norm", "seconds"}`` is appended to ``history`` when given; the
     seconds are read after ``torch.cuda.synchronize()`` on a card.
     An encoder-decoder arch trains on ``{"frames", "tokens", "labels"}``,
-    an arch fed embeddings on ``{"embeds", "labels"}`` (``stub_inputs``).
-    MLA, which the port does not train, raises ``NotImplementedError``."""
+    an arch fed embeddings on ``{"embeds", "labels"}`` (``stub_inputs``)."""
     cfg = C.get_reduced(arch) if reduced else C.get_config(arch)
-    if cfg.attn_kind == "mla":
-        raise NotImplementedError(
-            f"{cfg.name}: training an MLA model is not ported yet (the "
-            f"port serves it; its AdamW state does not fit one card)")
     dev = resolve_device(device)
-    if depth is not None:
-        cfg = dataclasses.replace(cfg, block_repeat=depth)
+    cfg = C.at_depth(cfg, depth)
     gen = torch.Generator(device=dev).manual_seed(seed)
     if cfg.encoder is not None:
         params = ED.init_encdec_params(gen, cfg, device=dev)

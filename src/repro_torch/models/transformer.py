@@ -1,7 +1,8 @@
 """Decoder of the port (``repro/models/transformer.py``): GQA and MLA
-decoders with a dense or MoE FFN, attention-free Mamba2 stacks, M-RoPE
-decoders fed embeddings (qwen2-vl) and the decoder of an
-encoder-decoder model (seamless; ``models.encdec`` holds its encoder).
+decoders with a dense or MoE FFN, attention-free Mamba2 stacks, Mamba2
+stacks with one shared attention block (zamba2), M-RoPE decoders fed
+embeddings (qwen2-vl) and the decoder of an encoder-decoder model
+(seamless; ``models.encdec`` holds its encoder).
 
 Parameters are an ``nn.Module`` tree that mirrors the reference's pytree:
 ``embed``, ``final_norm``, optional ``head``, and ``blocks``, a
@@ -14,7 +15,11 @@ cross-attention also ``norm_x`` and ``xattn``) for an attention slot
 ``encoder`` (``models.encdec.Encoder``).  A model with
 ``first_k_dense`` prefix blocks (deepseek: one) also has ``prefix``, a
 ``ModuleList`` of that many blocks laid out alike, whose FFN is a dense
-MLP of ``d_ff_dense_first``; they run before ``blocks``.
+MLP of ``d_ff_dense_first``; they run before ``blocks``.  A model with
+a shared attention block (zamba2) also has ``shared``, a ``SharedBlock``
+(``norm1``, ``attn``, ``norm2``, ``mlp``): ONE weight set that runs after
+the layers of every block, so its gradient sums over the block_repeat
+applications, as ``jax.grad`` sums it over the reference's scan.
 The reference stacks block parameters on a leading R axis for
 ``lax.scan`` and keeps its unscanned prefix blocks as a list; here the
 scan is a loop over the R block modules.
@@ -36,7 +41,8 @@ P, N) fp32 and the conv windows ``conv_x`` (R, B, K-1, d_inner) and
 (R, B, Se, Hkv, D), the encoder memory's keys and values; plus ``len``
 (B,) int32.  The
 prefix blocks' caches are the list ``prefix``, the same leaves without
-the R axis.  ``decode_step`` writes the new K/V rows (latents) and the
+the R axis.  The shared block's caches are ``shared``: ``k``/``v``
+(block_repeat, B, Smax, Hkv, D), one per application.  ``decode_step`` writes the new K/V rows (latents) and the
 new SSM state and windows into it in place.
 
 Sliding-window layers keep ring caches of ``min(max_len,
@@ -45,11 +51,13 @@ ring_size(window))`` slots (``init_cache``, ``gqa_decode_step``).
 Ported: GQA and MLA decoders with a dense or MoE FFN (mixtral;
 deepseek, with its first-k-dense prefix), blocks of several attention
 layers with their own windows (gemma3: five sliding-window layers and
-one global layer), all-SSM stacks without an FFN (mamba2), M-RoPE and
-embedding inputs (qwen2-vl), and cross-attention to an encoder's memory
-(seamless).  Attention without an FFN, attention and SSM layers in one
-block, SSM layers with MoE, a prefix or cross-attention, shared
-attention (zamba2) and several SSM groups raise ``NotImplementedError``.
+one global layer), all-SSM stacks without an FFN (mamba2), the shared
+attention block after the SSM layers of every block (zamba2: six Mamba2
+layers, then the tied block, 13 times), M-RoPE and embedding inputs
+(qwen2-vl), and cross-attention to an encoder's memory (seamless).
+Attention without an FFN, attention and SSM layers in one block, SSM
+layers with MoE, a prefix or cross-attention, a shared block beside
+attention layers and several SSM groups raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -96,8 +104,8 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"n_ssm_groups={cfg.n_ssm_groups}")
     if ssm and cfg.cross_attn:
         missing.append("cross-attention beside SSM layers")
-    if cfg.shared_attn:
-        missing.append("shared attention")
+    if cfg.shared_attn and not ssm:
+        missing.append("a shared attention block beside attention layers")
     if ssm and cfg.first_k_dense:
         missing.append("first_k_dense prefix blocks of SSM layers")
     if cfg.rope not in ("rope", "mrope", "none"):
@@ -138,6 +146,19 @@ class SSMLayer(nn.Module):
         self.mixer = mixer
 
 
+class SharedBlock(nn.Module):
+    """zamba2's shared attention + MLP block: ``norm1``, ``attn`` (GQA,
+    no bias), ``norm2``, ``mlp``; one weight set for every block."""
+
+    def __init__(self, norm1: nn.Parameter, attn: nn.ParameterDict,
+                 norm2: nn.Parameter, mlp: nn.ParameterDict):
+        super().__init__()
+        self.norm1 = norm1
+        self.attn = attn
+        self.norm2 = norm2
+        self.mlp = mlp
+
+
 class Transformer(nn.Module):
     """Parameter tree of a decoder (see the module docstring)."""
 
@@ -145,7 +166,8 @@ class Transformer(nn.Module):
                  blocks: nn.ModuleList,
                  head: Optional[nn.Parameter] = None,
                  prefix: Optional[nn.ModuleList] = None,
-                 encoder: Optional[nn.Module] = None):
+                 encoder: Optional[nn.Module] = None,
+                 shared: Optional[SharedBlock] = None):
         super().__init__()
         self.embed = embed
         self.final_norm = final_norm
@@ -153,6 +175,7 @@ class Transformer(nn.Module):
         self.head = head
         self.prefix = prefix
         self.encoder = encoder
+        self.shared = shared
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig,
@@ -214,8 +237,18 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
         raise ValueError("first_k_dense must be < block_repeat")
     prefix = block_list(cfg.first_k_dense, dense_ffn=True) \
         if cfg.first_k_dense else None
-    return Transformer(embed, _ones(d, dt, device), block_list(n_scan),
-                       head, prefix)
+    blocks = block_list(n_scan)
+    shared = None
+    if cfg.shared_attn:
+        shared = SharedBlock(
+            _ones(d, dt, device),
+            init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                           cfg.resolved_head_dim, dtype=dt, device=device),
+            _ones(d, dt, device),
+            init_mlp(gen, d, cfg.shared_d_ff or cfg.d_ff, cfg.ffn_gated,
+                     dtype=dt, device=device))
+    return Transformer(embed, _ones(d, dt, device), blocks, head, prefix,
+                       shared=shared)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -229,7 +262,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     slot also ``xk``/``xv`` (R, B, source_len, Hkv, D); ``len`` (B,)
     int32.  R is ``block_repeat - first_k_dense``; a model with prefix
     blocks also has ``prefix``, a list of their caches, the same leaves
-    without R."""
+    without R; a model with a shared block also has ``shared``, its
+    ``k``/``v`` (block_repeat, B, max_len, Hkv, D), one per
+    application."""
     check_supported(cfg)
     dt = torch_dtype(cache_dtype if cache_dtype is not None else cfg.dtype)
     R = cfg.block_repeat - cfg.first_k_dense
@@ -270,6 +305,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         cache["prefix"] = [{f"l{i}": layer_cache(spec, lead=())
                             for i, spec in enumerate(cfg.block_pattern)}
                            for _ in range(cfg.first_k_dense)]
+    if cfg.shared_attn:
+        shape = (cfg.block_repeat, batch, max_len, cfg.n_kv_heads, hd)
+        cache["shared"] = {"k": zeros(*shape), "v": zeros(*shape)}
     return cache
 
 
@@ -325,9 +363,24 @@ def _cross_attention(cfg: ModelConfig, xp: nn.ParameterDict,
     return out.reshape(B, S, cfg.n_heads * hd) @ xp["wo"]
 
 
+def _shared_apply(cfg: ModelConfig, shared: SharedBlock, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    """The shared attention + MLP block over the whole sequence."""
+    h = rms_norm(x, shared.norm1)
+    x = x + gqa_attention(shared.attn, h, positions, n_heads=cfg.n_heads,
+                          n_kv_heads=cfg.n_kv_heads,
+                          head_dim=cfg.resolved_head_dim, rope=cfg.rope,
+                          rope_theta=cfg.rope_theta)
+    return x + mlp_forward(shared.mlp, rms_norm(x, shared.norm2))
+
+
 def _block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
                  positions: torch.Tensor, nest_remat: bool = False,
-                 enc_memory: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 enc_memory: Optional[torch.Tensor] = None,
+                 shared: Optional[SharedBlock] = None) -> torch.Tensor:
+    """The block's layers, each in a checkpoint of its own with
+    ``nest_remat``, then the shared block where there is one (never
+    checkpointed on its own, as in the reference)."""
     for i, spec in enumerate(cfg.block_pattern):
         if nest_remat:
             x = checkpoint(_layer_apply, cfg, spec, blk[f"l{i}"], x,
@@ -335,6 +388,8 @@ def _block_apply(cfg: ModelConfig, blk: nn.ModuleDict, x: torch.Tensor,
         else:
             x = _layer_apply(cfg, spec, blk[f"l{i}"], x, positions,
                              enc_memory)
+    if shared is not None:
+        x = _shared_apply(cfg, shared, x, positions)
     return x
 
 
@@ -346,6 +401,17 @@ def _prefix_blocks(params: Transformer, cfg: ModelConfig) -> list:
         raise ValueError(f"{len(blocks)} prefix blocks for first_k_dense "
                          f"{cfg.first_k_dense}")
     return blocks
+
+
+def _shared_block(params: Transformer,
+                  cfg: ModelConfig) -> Optional[SharedBlock]:
+    """``params.shared``, which a config with ``shared_attn`` needs and
+    any other must not have."""
+    if (params.shared is not None) != cfg.shared_attn:
+        have = "have" if params.shared is not None else "lack"
+        raise ValueError(f"{cfg.name}: shared_attn={cfg.shared_attn} but "
+                         f"the params {have} a shared block")
+    return params.shared
 
 
 def _embed(params: Transformer, cfg: ModelConfig,
@@ -382,7 +448,9 @@ def forward(params: Transformer, cfg: ModelConfig,
     layers (gemma3's six) also checkpoints each of its layers inside the
     block's checkpoint, as the reference's ``nest_remat`` does; a block
     of one layer does not, where the reference says that re-running the
-    same region a third time only costs.  ``return_hidden``
+    same region a third time only costs.  The shared block (zamba2)
+    runs at the end of every block, inside the block's checkpoint.
+    ``return_hidden``
     returns the final-norm hidden states (B, S, d_model) instead of
     logits.  Prefix blocks run first, never checkpointed, as in the
     reference."""
@@ -397,12 +465,14 @@ def forward(params: Transformer, cfg: ModelConfig,
     for blk in _prefix_blocks(params, cfg):
         x = _block_apply(cfg, blk, x, positions, enc_memory=enc_memory)
     nest_remat = remat and len(cfg.block_pattern) > 1
+    shared = _shared_block(params, cfg)
     for blk in params.blocks:
         if remat:
             x = checkpoint(_block_apply, cfg, blk, x, positions, nest_remat,
-                           enc_memory, use_reentrant=False)
+                           enc_memory, shared, use_reentrant=False)
         else:
-            x = _block_apply(cfg, blk, x, positions, enc_memory=enc_memory)
+            x = _block_apply(cfg, blk, x, positions, enc_memory=enc_memory,
+                             shared=shared)
     x = rms_norm(x, params.final_norm)
     if return_hidden:
         return x
@@ -462,6 +532,20 @@ def _cross_decode(cfg: ModelConfig, xp: nn.ParameterDict, h: torch.Tensor,
     return out.reshape(B, 1, cfg.n_heads * hd) @ xp["wo"]
 
 
+def _shared_decode(cfg: ModelConfig, shared: SharedBlock, x: torch.Tensor,
+                   caches: dict, r: int,
+                   cache_len: torch.Tensor) -> torch.Tensor:
+    """The shared block for one token after block ``r``'s layers, on
+    application ``r``'s K/V cache (written in place)."""
+    y, _, _ = gqa_decode_step(
+        shared.attn, rms_norm(x, shared.norm1), caches["k"][r],
+        caches["v"][r], cache_len, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.resolved_head_dim,
+        rope=cfg.rope, rope_theta=cfg.rope_theta)
+    x = x + y
+    return x + mlp_forward(shared.mlp, rms_norm(x, shared.norm2))
+
+
 @torch.no_grad()
 def decode_step(params: Transformer, cfg: ModelConfig,
                 tokens: torch.Tensor, cache: dict,
@@ -473,8 +557,9 @@ def decode_step(params: Transformer, cfg: ModelConfig,
 
     The K/V (latent, or SSM state and conv window) tensors of ``cache``
     are updated in place and shared by the returned cache; only ``len``
-    is a new tensor.  Prefix blocks run first, on the ``prefix`` caches.
-    A cross-attention model attends to the cache's ``xk``/``xv`` (filled
+    is a new tensor.  Prefix blocks run first, on the ``prefix`` caches;
+    the shared block (zamba2) runs after each block's layers, on its
+    ``shared`` cache of that application.  A cross-attention model attends to the cache's ``xk``/``xv`` (filled
     by ``models.encdec.encdec_prefill``); over a cross cache of no
     source tokens it adds nothing, as the reference's empty softmax
     does.
@@ -499,11 +584,15 @@ def decode_step(params: Transformer, cfg: ModelConfig,
             lc = {name: t[None] for name, t in pc[f"l{i}"].items()}
             x = _layer_decode(cfg, spec, blk[f"l{i}"], x, lc, 0, cache_len,
                               cross_len)
+    shared = _shared_block(params, cfg)
     for r, blk in enumerate(params.blocks):
         for i, spec in enumerate(cfg.block_pattern):
             x = _layer_decode(cfg, spec, blk[f"l{i}"], x,
                               cache["blocks"][f"l{i}"], r, cache_len,
                               cross_len)
+        if shared is not None:
+            x = _shared_decode(cfg, shared, x, cache["shared"], r,
+                               cache_len)
     x = rms_norm(x, params.final_norm)
     head = params.embed.T if cfg.tie_embeddings else params.head
     new_cache = dict(cache, len=cache_len + 1)

@@ -29,7 +29,11 @@ Attention caches behave as in the reference: the rows a replay writes
 for another slot sit at its current length and are overwritten by its
 next step before it attends to them.  The main loop needs no such care:
 its active slots all advance, and an inactive slot is zeroed when it is
-next admitted.
+next admitted.  A hybrid cache (zamba2: 78 SSM layers' state beside the
+shared attention block's 13 K/V caches, ``cache["shared"]``) is served
+through one slot by the same two rules and adds no departure: its SSM
+layers' state is that of ``cache["blocks"]`` (``_state``), and the
+shared caches are attention caches.
 
 Unlike the reference, a request's first token is stamped once the
 prefills of the iteration that admitted it have run, not at the start of

@@ -54,11 +54,25 @@ def test_model_ir_takes_a_moe_ffn(change):
                                                           "MoECell"]
 
 
-@pytest.mark.parametrize("change", [dict(shared_attn=True)])
+@pytest.mark.parametrize("change", [dict(attn_kind="linear"),
+                                    dict(ffn_kind="conv")])
 def test_model_ir_raises_for_families_without_a_port_config(change):
     cfg = dataclasses.replace(C.get_reduced("qwen2-0.5b"), **change)
     with pytest.raises(NotImplementedError, match="dense GQA"):
         model_ir(cfg)
+
+
+@pytest.mark.parametrize("base", ["zamba2-7b", "qwen2-0.5b"])
+def test_model_ir_takes_the_shared_block(base):
+    """A shared attention block, refused before the zamba2 slice: its
+    attention and MLP cells follow the block's own, as the JAX package's
+    ``to_ir`` gives them (over SSM layers, and over a dense decoder)."""
+    port = dataclasses.replace(C.get_reduced(base), shared_attn=True)
+    ref = dataclasses.replace(RC.get_reduced(base), shared_attn=True)
+    ir = model_ir(port)
+    assert ir == ref.to_ir()
+    assert [c.name for c in ir.block.cells][-2:] == ["shared_attn",
+                                                     "shared_mlp"]
 
 
 @pytest.mark.parametrize("change", [
@@ -173,8 +187,12 @@ def test_serve_passes_depth_to_the_engine(monkeypatch):
 
 
 def test_serve_raises_for_an_arch_without_a_port_config():
+    """Every arch of the JAX registry has a port config since the zamba2
+    slice: a name neither package has."""
+    assert sorted(RC.ALIASES) == sorted(C.ALIASES)
+    assert "mamba3-1b" not in RC.ALIASES
     with pytest.raises(KeyError, match="not yet ported"):
-        serve.serve(arch="zamba2-7b", size="reduced",
+        serve.serve(arch="mamba3-1b", size="reduced",
                     device="cpu", log=lambda s: None)
 
 

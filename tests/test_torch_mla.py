@@ -462,5 +462,8 @@ def test_serve_entry_point_runs_deepseek_and_keeps_its_prefix():
 
 
 def test_training_an_mla_model_is_refused():
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TTR.train(ARCH, steps=1, batch=2, seq=8, device="cpu")
+    """MLA trains since the zamba2 slice (tests/test_torch_mla_train.py);
+    what ``launch.train`` still refuses is a depth that keeps no block
+    past the dense prefix, as ``launch.serve`` does."""
+    with pytest.raises(ValueError, match="prefix"):
+        TTR.train(ARCH, steps=1, batch=2, seq=8, device="cpu", depth=1)

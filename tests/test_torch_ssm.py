@@ -230,7 +230,7 @@ def test_ssd_scan_kernel_args_are_checked():
         (x, dt, a_log[:1], b, c, 16),                      # a_log shape
         (x, dt, a_log, b[:, :-1], c, 16),                  # b shape
         (x[..., None], dt, a_log, b, c, 16),               # x not 4-D
-        (torch.zeros(1, 40, 2, 68), dt, a_log, b, c, 16),  # P > 64
+        (torch.zeros(1, 40, 2, 260), dt, a_log, b, c, 16),  # P > MAX_P
         (torch.zeros(1, 40, 2, 6), dt, a_log, b, c, 16),   # P % 4
         (x, dt, a_log, torch.zeros(1, 40, 10), torch.zeros(1, 40, 10),
          16),                                              # N % 4
@@ -451,8 +451,9 @@ def test_mamba2_forward_equals_token_replay_decode():
 def test_mamba2_is_supported_and_its_neighbours_are_not():
     cfg = TC.get_reduced(ARCH)
     TT.check_supported(cfg)
-    for change in (dict(shared_attn=True),                 # zamba2
-                   dict(n_ssm_groups=2),
+    # zamba2's shared attention block over the SSM layers is ported
+    TT.check_supported(dataclasses.replace(cfg, shared_attn=True))
+    for change in (dict(n_ssm_groups=2),
                    dict(ffn_kind="moe"),
                    dict(block_pattern=(LayerSpec("ssm"),
                                        LayerSpec("attn")))):  # attn, no FFN

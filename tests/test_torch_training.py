@@ -403,8 +403,17 @@ def test_train_picks_no_cpu_on_its_own_and_refuses_unported_archs():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             train("qwen2-0.5b", steps=1, batch=2, seq=8)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        train("deepseek-v2-lite-16b", steps=1, batch=2, seq=8, device="cpu")
+    with pytest.raises(KeyError, match="not yet ported"):
+        train("mamba3-1b", steps=1, batch=2, seq=8, device="cpu")
+    # MLA, refused before the zamba2 slice, now trains (its dense prefix
+    # block and one MoE block), and a depth must keep a block past the
+    # prefix
+    _, _, losses = train("deepseek-v2-lite-16b", steps=1, batch=2, seq=8,
+                         device="cpu", log=lambda *a: None, depth=2)
+    assert np.isfinite(losses).all()
+    with pytest.raises(ValueError, match="prefix"):
+        train("deepseek-v2-lite-16b", steps=1, batch=2, seq=8,
+              device="cpu", depth=1)
     # embedding inputs, refused before the qwen2-vl slice, now train
     cfg = dataclasses.replace(TC.get_reduced("qwen2-0.5b"), embeds_input=True)
     params = TT.init_params(torch.Generator().manual_seed(0), cfg,
