@@ -8,6 +8,7 @@
     python3 chip_smoke.py --limits qwen2-vl-7b   # and the two
     python3 chip_smoke.py --limits seamless-m4t-large-v2   # stub frontends
     python3 chip_smoke.py --limits zamba2-7b   # and zamba2
+    python3 chip_smoke.py --limits parallel    # the parallel phase's bf16
 
 Phases, one line each (the kernels phases print one line per case):
 
@@ -191,6 +192,29 @@ Phases, one line each (the kernels phases print one line per case):
                flash with v padded to the width of q and k) for 5 steps,
                and one step kernels vs plain with the plain run's MoE
                routes replayed.
+ 18. parallel -- the parallel layer (``repro_torch.parallel``,
+               ``training.compress`` and ``elastic``) at world size 1
+               through NCCL, fp32 and bf16: ``moe_ep_forward`` on one
+               mixtral-8x7b and one deepseek-v2-lite-16b FFN at full
+               width (x 4 x 512) against the dense ``moe_forward`` at
+               capacity factor 8 (no drops), its drop fraction at 1.25
+               equal to the CPU's bucketing of the same routes, EP and
+               dense timed; ``sp_decode_attention`` at qwen1.5-32b's
+               decode heads over a 32768-slot cache against the plain
+               version and the decode kernel; ``pipeline_forward`` with
+               qwen2-0.5b FULL's 24 layers as one stage over 4
+               microbatches of (2, 1024) against the layers run over each
+               microbatch in turn and over the whole batch (192 RMSNorm
+               and 96 flash launches); qwen1.5-32b at full width and
+               depth 2 with its 40 heads padded to 48
+               (``pad_attention_heads``), prefill and decode logits
+               against the unpadded model through the kernels, held to
+               LOGIT_TOL and ARGMAX_FLOOR; a full-width gradient tree
+               (494 M values) through int8 compression (error within the
+               scale, unbiased over 64 draws, bytes); a world-size-1 plan
+               (an 8-device plan refused) and qwen2-0.5b FULL's
+               parameters through ``reshard_state`` and back, bit-exact.
+               Limits: PARALLEL_FP32 and PARALLEL_BF16.
 
 Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
 entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
@@ -209,7 +233,9 @@ entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 ``flash_attention/seamless-train``, ``rmsnorm/zamba2-serve``,
 ``decode_attention/zamba2-serve``, ``rmsnorm/zamba2-train``,
 ``flash_attention/zamba2-train``, ``ssd_scan/zamba2-train``,
-``rmsnorm/deepseek-train``, ``flash_attention/deepseek-train``, each
+``rmsnorm/deepseek-train``, ``flash_attention/deepseek-train``,
+``rmsnorm/parallel-pipeline``, ``flash_attention/parallel-pipeline``,
+``rmsnorm/parallel-padding``, ``decode_attention/parallel-padding``, each
 with that path's
 launches and the kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
@@ -3017,6 +3043,587 @@ def deepseek_train_phase(torch, smi: str):
     return trained
 
 
+# -- 18. parallel ---------------------------------------------------------------
+
+# fp32 limits of the parallel phase: the CPU tests' (tests/
+# test_parallel.py, tests/test_torch_parallel*.py): EP and SP decode 2e-4,
+# the pipeline's schedule check 2e-5 against the microbatches run in turn,
+# compression's error bound scale + 1e-7.  The CPU tests also hold the
+# pipeline at 2e-5 against one run over the whole batch; on the card two
+# plain runs miss that limit alike (cuBLAS takes other fp32 algorithms
+# for 4x the rows in three of the layer's products; ``pipeline_case``),
+# so fp32 holds the pipeline's share beyond 2e-5 to the plain runs' share
+# (0.61-0.72%), and max_abs_err / max|x| to a limit of the card's own.  It and the bf16 limits were read on an H100 over seeds 0-2
+# (``python3 chip_smoke.py --limits parallel``; PERF.md): EP bf16 0
+# (mixtral) and 3.1e-2 (deepseek: one bf16 ulp at |y| ~ 5), controls >=
+# 1.41 (an expert dropped: 2.60 / 1.76; gates not renormalised: 1.62 /
+# 1.41); SP decode bf16 1.5e-5 to 1.2e-4, controls 3.88 (each row's last
+# valid slot masked) and 38.0 (the normaliser left out); pipeline bf16 0
+# against both, fp32 against the whole batch 2.8e-6 to 3.8e-6, microbatch
+# 1 passed through the stage untouched 0.99.  At world size 1 every
+# collective is the identity, so a left-out all-reduce cannot show here;
+# tests/test_torch_parallel_ranks.py catches it at tp 4.
+PARALLEL_FP32 = {"ep": 2e-4, "sp": 2e-4, "pipeline": 2e-5,
+                 "pipeline_whole": 1e-4}
+PARALLEL_BF16 = {"ep": 0.1, "sp": 1e-3, "pipeline": 1e-2,
+                 "pipeline_whole": 1e-2}
+# (arch, (batch, seq)) of the EP cases: one MoE FFN at full width
+EP_CASES = (("mixtral-8x7b", (4, 512)), (DEEPSEEK, (4, 512)))
+# qwen1.5-32b's decode heads over the kernels phase's long cache
+SP_DECODE = (4, 40, 40, 128, 32768)
+# qwen2-0.5b FULL's 24 layers as one stage: 4 microbatches of (2, 1024)
+PIPE = dict(arch="qwen2-0.5b", n_micro=4, mb=2, seq=1024)
+PIPE_FLASH = (2, 1024, 1024, 14, 2, 64, None, 0)
+PIPE_NORM = (2, 1024, 896)
+# qwen1.5-32b FULL width at depth 2 of 64, 40 heads padded to 48:
+# prompts of these lengths replayed, then ``steps`` decode steps
+PAD = dict(arch="qwen1.5-32b", depth=2, lengths=(16, 9, 3, 12), steps=4,
+           max_len=256)
+PAD_NORM = (4, 1, 5120)
+PAD_DECODE = (4, 48, 48, 128, 256)
+COMPRESS_ARCH = "qwen2-0.5b"
+PARALLEL_CONTROLS = ("drop_expert", "gates_not_renormalised",
+                     "no_normaliser", "skip_last_slot", "skip_microbatch")
+
+
+def held(what: str, reading: float, limit, hold: bool) -> str:
+    """``reading`` against ``limit``: fails above it where ``hold``."""
+    if limit is None or not hold:
+        return f"{what} {reading:.3e} (read, not held)"
+    if not reading <= limit:
+        fail(f"parallel: {what} {reading:.3e} beyond {limit}")
+    return f"{what} {reading:.3e} (limit {limit})"
+
+
+def holds(dtype_name: str, control, limits_run: bool) -> bool:
+    """A reading is held unless it is a control's, or bf16 in a limits
+    run (which reads the bf16 limits)."""
+    return control is None and not (limits_run and dtype_name == "bfloat16")
+
+
+@contextlib.contextmanager
+def parallel_control(kind):
+    """A broken variant of one parallel function, for ``--limits
+    parallel``: ``drop_expert`` (expert 0's outputs never come back),
+    ``gates_not_renormalised`` (top-k of the softmax over every expert),
+    ``no_normaliser`` (SP decode returns the weighted sum without
+    dividing by the summed softmax denominators), ``skip_last_slot``
+    (SP decode masks each row's last valid slot), ``skip_microbatch``
+    (the stage passes microbatch 1 through untouched)."""
+    from repro_torch.layers import moe
+    from repro_torch.parallel import ep, sp_decode
+    if kind is None:
+        yield None
+    elif kind == "drop_expert":
+        bucket = ep._bucket_by_expert
+
+        def dropping(x, idx, n_exp, cap):
+            buffers, where, drops = bucket(x, idx, n_exp, cap)
+            tok, e_idx, s_idx, kept = where
+            return buffers, (tok, e_idx, s_idx, kept & (e_idx != 0)), drops
+
+        with mock.patch.object(ep, "_bucket_by_expert", dropping):
+            yield None
+    elif kind == "gates_not_renormalised":
+        def unnormalised(params, x, top_k, router_noise=None):
+            _, experts = moe.route(params, x, top_k, router_noise)
+            probs = (x.float() @ params["router"]).softmax(-1)
+            return probs.gather(-1, experts), experts
+
+        with mock.patch.object(ep, "route", unnormalised):
+            yield None
+    elif kind == "no_normaliser":
+        with mock.patch.object(sp_decode.torch, "clamp_min",
+                               lambda den, lo: den.new_ones(den.shape)):
+            yield None
+    elif kind == "skip_last_slot":
+        partial = sp_decode._partial_softmax
+
+        def skipping(q, k, v, valid):
+            last = valid.int().cumsum(-1) == valid.sum(-1, keepdim=True)
+            return partial(q, k, v, valid & ~(last & valid))
+
+        with mock.patch.object(sp_decode, "_partial_softmax", skipping):
+            yield None
+    else:
+        yield "skip_microbatch"
+
+
+def ep_case(torch, arch: str, shape, dtype_name: str, mesh, seed: int,
+            timed: bool, control=None, limits_run=False) -> dict:
+    """One MoE FFN of ``arch`` at full width through ``moe_ep_forward``
+    (world size 1: the all-to-alls over NCCL) against the dense
+    ``moe_forward``: at capacity factor 8 (no drops) held to PARALLEL_*;
+    at 1.25 its drop fraction must equal the overflow of a per-expert
+    count of the same routes (``bincount``, less the capacity, clamped at
+    0), and the port's own bucketing of those routes on the CPU (which
+    tells the card's sort and search from the CPU's, not a wrong route).
+    bf16 also times EP (1.25) and dense (printed; no claim)."""
+    from repro_torch import configs as C
+    from repro_torch.layers.moe import init_moe, moe_forward, route
+    from repro_torch.parallel import ep
+    cfg = C.get_config(arch)
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    p = init_moe(gen, cfg.d_model, cfg.d_ff_expert, cfg.n_routed,
+                 cfg.top_k, cfg.n_shared, cfg.ffn_gated, dtype=dt,
+                 device=DEVICE)
+    # tokens share a mean direction, as hidden states do, so the router's
+    # load is uneven and capacity factor 1.25 drops assignments
+    x = (torch.randn(*shape, cfg.d_model, generator=gen, device=DEVICE)
+         + 0.5 * torch.randn(cfg.d_model, generator=gen, device=DEVICE)
+         ).to(dt)
+    k = cfg.top_k
+    with torch.no_grad():
+        dense = moe_forward(p, x, k)
+        with parallel_control(control):
+            y, drop = ep.moe_ep_forward(p, x, k, mesh, cap_factor=8.0)
+        y125, drop125 = ep.moe_ep_forward(p, x, k, mesh, cap_factor=1.25)
+        sync(torch)
+        T = x.shape[0] * x.shape[1]
+        _, idx = route(p, x.reshape(T, -1), k)
+        cap = max(1, int(1.25 * T * k / cfg.n_routed))
+        _, _, cpu_drops = ep._bucket_by_expert(x.reshape(T, -1).cpu(),
+                                               idx.cpu(), cfg.n_routed, cap)
+        load = torch.bincount(idx.reshape(-1), minlength=cfg.n_routed)
+        overflow = int((load - cap).clamp_min(0).sum())
+    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(y125)
+                                                   .all())):
+        fail(f"parallel: EP {arch} {dtype_name}: non-finite output")
+    if float(drop) != 0.0 and control is None:
+        fail(f"parallel: EP {arch} at capacity factor 8 dropped {float(drop)}")
+    want_drop = overflow / (T * k)
+    # the fraction is fp32: compare the assignments it counts
+    if (round(float(drop125) * T * k) != overflow
+            or int(cpu_drops) != overflow or overflow == 0):
+        fail(f"parallel: EP {arch} drop fraction {float(drop125)} at "
+             f"capacity factor 1.25; the routes' overflow {want_drop} "
+             f"({overflow} of {T * k}), the CPU bucketing's "
+             f"{int(cpu_drops)}")
+    err = float((y.float() - dense.float()).abs().max())
+    limit = (PARALLEL_FP32 if dtype_name == "float32" else PARALLEL_BF16)["ep"]
+    text = held("EP (cap 8) vs dense max_abs_err", err, limit,
+                holds(dtype_name, control, limits_run))
+    r = dict(err=err, drop=want_drop)
+    if timed:
+        r["ep_ms"] = time_ms(torch, lambda: ep.moe_ep_forward(
+            p, x, k, mesh, cap_factor=1.25), inner=5, reps=5)
+        r["dense_ms"] = time_ms(torch, lambda: moe_forward(p, x, k),
+                                inner=5, reps=5)
+        text += (f" | EP (cap 1.25, {cap} slots an expert) "
+                 f"{r['ep_ms']:.3f} ms, dense {r['dense_ms']:.3f} ms")
+    say("parallel", f"EP {arch} FFN (d {cfg.d_model}, f {cfg.d_ff_expert}, "
+        f"{cfg.n_routed} experts top {k}, {cfg.n_shared} shared) x "
+        f"{tuple(x.shape)} {dtype_name} seed {seed}"
+        f"{f' control {control}' if control else ''}: {text} (max|y| "
+        f"{float(dense.float().abs().max()):.3e}) | drop fraction at cap "
+        f"1.25 {want_drop:.4%} (= the routes' per-expert overflow at "
+        f"{cap} slots, = the CPU bucketing)")
+    return r
+
+
+def sp_case(torch, dtype_name: str, mesh, seed: int, timed: bool,
+            control=None, limits_run=False) -> dict:
+    """``sp_decode_attention`` at qwen1.5-32b's decode heads over a long
+    cache (world size 1: the MAX and SUM combines over NCCL) against
+    ``decode_attention_plain`` and the decode kernel on the same cache."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.parallel import sp_decode
+    B, Hq, Hkv, D, smax = SP_DECODE
+    dt = getattr(torch, dtype_name)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, k, v, lens = attention_inputs(torch, B, Hq, Hkv, D, smax,
+                                     DECODE_LONG_LENGTHS, dt, gen)
+    with parallel_control(control):
+        out = sp_decode.sp_decode_attention(q, k, v, lens, mesh)
+    plain = da.decode_attention_plain(q, k, v, lens)
+    kern = da.decode_attention(q, k, v, lens)
+    sync(torch)
+    if not bool(torch.isfinite(out).all()):
+        fail("parallel: SP decode: non-finite output")
+    errs = [float((out.float() - w.float()).abs().max())
+            for w in (plain, kern)]
+    limit = (PARALLEL_FP32 if dtype_name == "float32" else PARALLEL_BF16)["sp"]
+    text = "; ".join(held(f"vs {w} max_abs_err", e, limit,
+                          holds(dtype_name, control, limits_run))
+                     for w, e in zip(("plain", "kernel"), errs))
+    r = dict(err=max(errs))
+    if timed:
+        r["sp_ms"] = time_ms(torch, lambda: sp_decode.sp_decode_attention(
+            q, k, v, lens, mesh), inner=3, reps=5)
+        r["kernel_ms"] = time_ms(torch, lambda: da.decode_attention(
+            q, k, v, lens), inner=5, reps=5)
+        text += (f" | SP {r['sp_ms']:.4f} ms, decode kernel "
+                 f"{r['kernel_ms']:.4f} ms")
+    say("parallel", f"SP decode q {(B, Hq, D)} k/v {(B, smax, Hkv, D)} "
+        f"lengths {DECODE_LONG_LENGTHS} {dtype_name} seed {seed}"
+        f"{f' control {control}' if control else ''}: {text}")
+    return r
+
+
+def pipeline_case(torch, dtype_name: str, mesh, seed: int, control=None,
+                  limits_run=False) -> dict:
+    """``pipeline_forward`` with qwen2-0.5b FULL's 24 decoder layers as
+    the one stage (RMSNorm and flash kernels), 4 microbatches of (2,
+    1024).  Two comparisons with the same layers run without the
+    pipeline:
+
+    * the schedule check, against the layers run over each microbatch in
+      turn.  At world size 1 this makes the same stage calls on the same
+      microbatches, so it reads 0 unless the schedule loses, repeats or
+      reorders a microbatch (the skip_microbatch control); fp32 at the
+      CPU test's rtol = atol = 2e-5 elementwise.
+    * against the layers run once over the whole batch.  The CPU tests
+      hold this at 2e-5 elementwise.  On the card the plain layers miss
+      it too, between two plain runs (the whole batch against each
+      microbatch in turn): cuBLAS takes other fp32 algorithms for 4x the
+      rows in some products (on an H100, h @ wk and h @ wv, N 128, and
+      the down projection, K 4864, differ bitwise in ~95% of elements;
+      RMSNorm, flash and the other products are bit-equal).  So fp32
+      holds the pipeline's share of elements beyond 2e-5 to the plain
+      microbatches' share, and max_abs_err / max|x| to
+      PARALLEL_*["pipeline_whole"], a limit of the card's own.  The
+      plain reading and the bitwise shares, op by op of the first layer
+      and for the whole layer, are printed beside it.
+
+    Returns the pipeline run's launches."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch import configs as C
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.layers import rms_norm
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.pipeline import pipeline_forward
+    cfg = dataclasses.replace(C.get_config(PIPE["arch"]), dtype=dtype_name)
+    n_micro, mb, S = PIPE["n_micro"], PIPE["mb"], PIPE["seq"]
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = T.init_params(gen, cfg, device=DEVICE)
+    toks = torch.randint(0, cfg.vocab_size, (n_micro * mb, S), generator=gen,
+                         device=DEVICE)
+    calls = [0]
+
+    def layers(blocks, h):
+        calls[0] += 1
+        if control == "skip_microbatch" and calls[0] == 2:
+            return h
+        pos = torch.arange(S, device=DEVICE).expand(h.shape[0], S)
+        for blk in blocks:
+            h = T._block_apply(cfg, blk, h, pos)
+        return h
+
+    def beyond(a, b, lim):
+        """The share of elements of ``a`` beyond rtol = atol = ``lim`` of
+        ``b``."""
+        return float(((a - b).abs() > lim + lim * b.abs()).float().mean())
+
+    with torch.no_grad():
+        x = params.embed[toks].reshape(n_micro, mb, S, -1)
+        reset_counts()
+        with parallel_control(control):
+            out = pipeline_forward(layers, params.blocks, x, mesh, 1)
+        sync(torch)
+        launched = counts()
+        each = torch.stack([layers(params.blocks, xm) for xm in x])
+        whole = layers(params.blocks, x.reshape(n_micro * mb, S, -1)
+                       ).reshape(out.shape)
+        # which op of the first layer depends on the number of rows
+        blk = params.blocks[0]
+        lay, a = blk["l0"], blk["l0"].attn
+        xw = x.reshape(n_micro * mb, S, -1)
+        hw = rms_norm(xw, lay.norm1)
+        qkv = [(hw @ a[w] + a["b" + w[1]]).reshape(
+            n_micro * mb, S, -1, cfg.resolved_head_dim) for w in
+            ("wq", "wk", "wv")]
+        act = F.silu(hw @ lay.ffn["w_gate"]) * (hw @ lay.ffn["w_up"])
+        ops = {"rmsnorm": (lambda t: rms_norm(t, lay.norm1), [xw])}
+        ops.update({f"h @ {w}": ((lambda t, w=w: t @ a[w]), [hw])
+                    for w in ("wq", "wk", "wv", "wo")})
+        ops.update({f"h @ {w}": ((lambda t, w=w: t @ lay.ffn[w]), [hw])
+                    for w in ("w_gate", "w_up")})
+        ops["a @ w_down"] = (lambda t: t @ lay.ffn["w_down"], [act])
+        ops["flash"] = (lambda *t: flash_attention(*t, causal=True)[0], qkv)
+        ops["layer 0"] = (lambda t: layers(params.blocks[:1], t), [xw])
+        bitwise = {name: float((f(*ts) != torch.cat([
+            f(*(t[i:i + mb] for t in ts)) for i in range(0, n_micro * mb,
+                                                         mb)]))
+            .float().mean()) for name, (f, ts) in ops.items()}
+    want = (2 * cfg.block_repeat * n_micro, 0, cfg.block_repeat * n_micro,
+            0)
+    if launched != want and control is None:
+        fail(f"parallel: pipeline launches {launched}, expected {want}")
+    if not bool(torch.isfinite(out).all()):
+        fail("parallel: pipeline: non-finite output")
+    scale = float(whole.float().abs().max())
+    hold = holds(dtype_name, control, limits_run)
+    err = float((out.float() - each.float()).abs().max())
+    fp32 = dtype_name == "float32"
+    if fp32 and hold:
+        lim = PARALLEL_FP32["pipeline"]
+        share = beyond(out, each, lim)
+        if share:
+            fail(f"parallel: pipeline schedule check fp32: {share:.2e} of "
+                 f"elements beyond rtol = atol = {lim} of the microbatches "
+                 f"run in turn")
+        text = (f"schedule check (vs each microbatch in turn) max_abs_err "
+                f"{err:.3e} within rtol = atol = {lim} elementwise")
+    else:
+        text = held("schedule check (vs each microbatch in turn) "
+                    "max_abs_err / max|x|", err / scale,
+                    PARALLEL_BF16["pipeline"], hold)
+    rel = float((out.float() - whole.float()).abs().max()) / scale
+    plain_rel = float((each.float() - whole.float()).abs().max()) / scale
+    limits = PARALLEL_FP32 if fp32 else PARALLEL_BF16
+    text += "; " + held("vs the whole batch in one run max_abs_err / "
+                        "max|x|", rel, limits["pipeline_whole"], hold)
+    text += (f" (two plain runs, whole batch vs each microbatch: "
+             f"{plain_rel:.3e})")
+    if fp32:
+        lim = PARALLEL_FP32["pipeline"]
+        piped, plain = beyond(out, whole, lim), beyond(each, whole, lim)
+        if hold and piped > plain:
+            fail(f"parallel: pipeline fp32: {piped:.4%} of elements beyond "
+                 f"rtol = atol = {lim} of the whole batch, the plain "
+                 f"microbatches {plain:.4%}")
+        text += (f" | beyond the CPU tests' rtol = atol = {lim} of the whole "
+                 f"batch: pipeline {piped:.4%}"
+                 f"{' (limit: the plain microbatches)' if hold else ''}, "
+                 f"plain microbatches {plain:.4%} | not "
+                 f"bit-equal, whole batch vs microbatches, first layer: "
+                 + ", ".join(f"{k} {v:.4%}" for k, v in bitwise.items()))
+    say("parallel", f"pipeline {PIPE['arch']} FULL {cfg.block_repeat} layers "
+        f"as one stage, {n_micro} microbatches of ({mb}, {S}) {dtype_name} "
+        f"seed {seed}{f' control {control}' if control else ''}: {text} "
+        f"(max|x| {scale:.3e}) | launches rmsnorm {launched[0]}, flash "
+        f"{launched[2]}")
+    return dict(err=rel, launched=launched)
+
+
+def padding_case(torch, dtype_name: str, seed: int) -> tuple:
+    """qwen1.5-32b FULL width at depth 2, its 40 heads padded to 48
+    (``pad_attention_heads``): prompts replayed by ``prefill``, then
+    decode steps, padded against unpadded, both through the kernels, held
+    to LOGIT_TOL and ARGMAX_FLOOR.  Returns the padded run's launches."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.padding import pad_attention_heads
+    cfg = dataclasses.replace(C.at_depth(C.get_config(PAD["arch"]),
+                                         PAD["depth"]), dtype=dtype_name)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    params = T.init_params(gen, cfg, device=DEVICE)
+    padded, pcfg = pad_attention_heads(params, cfg)
+    lens = torch.tensor(PAD["lengths"], dtype=torch.int32, device=DEVICE)
+    B, S = len(PAD["lengths"]), max(PAD["lengths"])
+    toks = torch.randint(0, cfg.vocab_size, (B, S + PAD["steps"]),
+                         generator=gen, device=DEVICE, dtype=torch.int32)
+    runs = []
+    for p, c in ((params, cfg), (padded, pcfg)):
+        reset_counts()
+        logits, cache = T.prefill(p, c, toks[:, :S], PAD["max_len"],
+                                  lengths=lens)
+        seen = [logits]
+        for s in range(PAD["steps"]):
+            logits, cache = T.decode_step(p, c, toks[:, S + s:S + s + 1],
+                                          cache)
+            seen.append(logits)
+        sync(torch)
+        runs.append((torch.stack(seen).float(), counts()))
+    (plain, _), (pad, launched) = runs
+    steps = S + PAD["steps"]
+    want = (steps * (2 * cfg.n_layers + 1), steps * cfg.n_layers, 0, 0)
+    if launched != want:
+        fail(f"parallel: padded decode launches {launched}, expected {want}")
+    if not bool(torch.isfinite(pad).all()):
+        fail("parallel: padded decode: non-finite logits")
+    err = float((pad - plain).abs().max())
+    agree = int((pad.argmax(-1) == plain.argmax(-1)).sum())
+    rows = pad.shape[0] * pad.shape[1]
+    if err > LOGIT_TOL[dtype_name] or agree < ARGMAX_FLOOR[dtype_name] * rows:
+        fail(f"parallel: padded logits {err:.3e} (tol "
+             f"{LOGIT_TOL[dtype_name]}), argmax {agree}/{rows}")
+    say("parallel", f"padding {PAD['arch']} FULL width depth "
+        f"{PAD['depth']} ({cfg.n_heads} -> {pcfg.n_heads} q / "
+        f"{cfg.n_kv_heads} -> {pcfg.n_kv_heads} kv heads) {dtype_name}: "
+        f"{B} prompts (lengths {PAD['lengths']}) replayed, {PAD['steps']} "
+        f"steps | logits padded vs unpadded max_abs_err {err:.3e} (tol "
+        f"{LOGIT_TOL[dtype_name]}, max|logit| {float(plain.abs().max()):.3e})"
+        f", argmax agree {agree}/{rows} | padded run launches rmsnorm "
+        f"{launched[0]}, decode {launched[1]} (group "
+        f"{pcfg.n_heads // pcfg.n_kv_heads}, D {pcfg.resolved_head_dim})")
+    return launched
+
+
+def compress_case(torch, smi: str) -> None:
+    """A full-width fp32 gradient tree (qwen2-0.5b FULL's parameter
+    shapes) through ``compress_tree``: every leaf's error within its
+    scale (+ 1e-7, the CPU test's bound); one leaf's mean over 64 draws
+    within the reference test's unbiasedness bound; the bytes ratio."""
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.training import compress
+    cfg = C.get_config(COMPRESS_ARCH)
+    shapes = {n: t.shape for n, t in T.init_params(
+        torch.Generator(), cfg, device="meta").named_parameters()}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    grads = {n: torch.randn(s, generator=gen, device=DEVICE) * 1e-2
+             for n, s in shapes.items()}
+    n_values = sum(g.numel() for g in grads.values())
+    sync(torch)
+    t0 = time.perf_counter()
+    codes, scales = compress.compress_tree(grads, gen)
+    sync(torch)
+    ms = (time.perf_counter() - t0) * 1e3
+    back = compress.decompress_tree(codes, scales)
+    worst = 0.0
+    for n, g in grads.items():
+        e = float((back[n] - g).abs().max())
+        s = float(scales[n])
+        if not e <= s + 1e-7:
+            fail(f"parallel: compress {n}: error {e:.3e} beyond scale {s:.3e}")
+        worst = max(worst, e / s)
+    del back
+    name = "blocks.0.l0.ffn.w_up"
+    x = grads[name]
+    acc = torch.zeros_like(x)
+    for _ in range(64):
+        q, s = compress.quantize_int8(x, gen)
+        acc += compress.dequantize_int8(q, s)
+    bias = float((acc / 64 - x).abs().max())
+    scale = float(x.abs().max()) / 127.0
+    limit = 4 * scale / math.sqrt(64) + 1e-6
+    if not bias < limit:
+        fail(f"parallel: compress {name}: mean of 64 draws off by "
+             f"{bias:.3e}, limit {limit:.3e}")
+    sent = sum(c.numel() for c in codes.values()) + 4 * len(scales)
+    say("parallel", f"compress {COMPRESS_ARCH} FULL gradient tree "
+        f"({len(grads)} leaves, {n_values} values) fp32 on {smi}: "
+        f"compress_tree {ms:.1f} ms wall | worst error / scale {worst:.4f} "
+        f"(limit 1 + 1e-7 / scale) | {name} {tuple(x.shape)} mean of 64 "
+        f"draws off by {bias:.3e} (limit {limit:.3e}) | bytes {sent} vs "
+        f"fp32 {4 * n_values} ({sent / (4 * n_values):.4f}) and bf16 "
+        f"{2 * n_values} ({sent / (2 * n_values):.4f})")
+
+
+def plan_elastic_case(torch) -> None:
+    """``plan_to_shardings`` of a world-size-1 scheme (mesh {"data": 1,
+    "model": 1}; an 8-device scheme must raise), then qwen2-0.5b FULL's
+    parameters through ``reshard_state`` onto the plan's CUDA mesh and
+    again (the second gathers the DTensors first), bit-exact."""
+    import types
+
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.plan_sharding import plan_to_shardings
+    from repro_torch.parallel.sharding import axis_sizes
+    from repro_torch.training.elastic import reshard_state
+    cfg = C.get_config(COMPRESS_ARCH)
+    params = T.init_params(torch.Generator(device=DEVICE).manual_seed(0),
+                           cfg, device=DEVICE)
+    one = types.SimpleNamespace(model_dp=1, pp_stages=1, stage_devices=1,
+                                total_devices=1)
+    mat = plan_to_shardings(one, cfg, params, device=DEVICE)
+    if axis_sizes(mat.mesh) != {"data": 1, "model": 1} or \
+            mat.needs_pipeline or mat.mesh.device_type != DEVICE:
+        fail(f"parallel: plan mesh {mat.mesh}")
+    try:
+        plan_to_shardings(types.SimpleNamespace(
+            model_dp=2, pp_stages=1, stage_devices=4, total_devices=8),
+            cfg, params, device=DEVICE)
+        fail("parallel: an 8-device plan did not raise on one rank")
+    except ValueError as e:
+        refused = str(e)
+    state = {n: p.detach() for n, p in params.named_parameters()}
+    t0 = time.perf_counter()
+    on = reshard_state(state, mat.param_specs, mat.mesh)
+    again = reshard_state(on, mat.param_specs, mat.mesh)
+    sync(torch)
+    ms = (time.perf_counter() - t0) * 1e3
+    bad = [n for n, t in state.items()
+           if not torch.equal(again[n].full_tensor(), t)]
+    if bad:
+        fail(f"parallel: elastic round trip changed {bad[:3]}")
+    say("parallel", f"plan/elastic: world-size-1 scheme -> mesh "
+        f"{axis_sizes(mat.mesh)} on {mat.mesh.device_type}, "
+        f"{len(mat.param_specs)} specs; 8-device scheme refused ("
+        f"{refused.split(' — ')[0]}) | {COMPRESS_ARCH} FULL's "
+        f"{len(state)} parameters onto the mesh and again in "
+        f"{ms:.1f} ms wall, bit-exact")
+
+
+def parallel_phase(torch, F, smi: str, limits_run: bool = False) -> tuple:
+    """The parallel layer (``repro_torch.parallel``, ``training.compress``
+    and ``elastic``) at world size 1 through NCCL on the card: EP, SP
+    decode, pipeline, padding, compression, plan and elastic resharding
+    (one line per case).  ``limits_run`` (``--limits parallel``) reads
+    seeds 0-2 and the controls of PARALLEL_CONTROLS in both dtypes and
+    holds nothing in bf16.  Destroys its process group at the end.
+    Returns (results, the pipeline run's launches, the padded decode
+    run's launches)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import make_pp_mesh
+    t0 = time.perf_counter()
+    cuda = DEVICE == "cuda"
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device(DEVICE, 0) if cuda
+                            else None,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), DEVICE)
+        pp_mesh = make_pp_mesh(1, tp=1, device=DEVICE)
+        seeds = range(3) if limits_run else range(1)
+        runs = [(s, None) for s in seeds] + (
+            [(0, c) for c in PARALLEL_CONTROLS] if limits_run else [])
+        for dtype_name in ("float32", "bfloat16"):
+            for seed, control in runs:
+                timed = (dtype_name == "bfloat16" and seed == 0
+                         and control is None and not limits_run)
+                kw = dict(seed=seed, control=control, limits_run=limits_run)
+                if control in (None, "drop_expert",
+                               "gates_not_renormalised"):
+                    for arch, shape in EP_CASES:
+                        ep_case(torch, arch, shape, dtype_name, mesh,
+                                timed=timed, **kw)
+                if control in (None, "no_normaliser", "skip_last_slot"):
+                    sp_case(torch, dtype_name, mesh, timed=timed, **kw)
+                if control in (None, "skip_microbatch"):
+                    r = pipeline_case(torch, dtype_name, pp_mesh, **kw)
+                    if control is None and seed == 0:
+                        piped = r["launched"]
+                torch.cuda.empty_cache()
+            padded = padding_case(torch, dtype_name, 0)
+            torch.cuda.empty_cache()
+        compress_case(torch, smi)
+        plan_elastic_case(torch)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    results = {}
+    if not limits_run:
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        results[("rmsnorm", PIPE_NORM, "bfloat16")] = rmsnorm_case(
+            torch, F, PIPE_NORM, "bfloat16", gen)
+        results[(PIPE_FLASH, "bfloat16")] = flash_case(
+            torch, F, PIPE_FLASH, "bfloat16", gen)
+        results[("rmsnorm", PAD_NORM, "bfloat16")] = rmsnorm_case(
+            torch, F, PAD_NORM, "bfloat16", gen)
+        results[("decode_attention", PAD_DECODE, "bfloat16")] = \
+            attention_case(torch, F, PAD_DECODE,
+                           [n + PAD["steps"] for n in PAD["lengths"]],
+                           "bfloat16", gen)
+    say("parallel", f"phase {time.perf_counter() - t0:.1f} s on {smi}")
+    return results, piped, padded
+
+
 def main() -> int:
     try:
         import torch
@@ -3040,6 +3647,9 @@ def main() -> int:
 
     smi = probe(torch)
     build_phase()
+    if sys.argv[1:3] == ["--limits", "parallel"]:
+        parallel_phase(torch, F, smi, limits_run=True)
+        return 0
     if sys.argv[1:2] == ["--limits"]:
         limits_phase(torch, *sys.argv[2:3])
         return 0
@@ -3069,6 +3679,8 @@ def main() -> int:
     seamless_served, seamless_trained = seamless_phase(torch, smi)
     zamba_served, zamba_trained = zamba2_phase(torch, smi)
     deepseek_trained = deepseek_train_phase(torch, smi)
+    parallel_results, piped, padded = parallel_phase(torch, F, smi)
+    results.update(parallel_results)
 
     # one entry per kernel and path: the path's launches, read right after
     # its run, beside the kernel's numbers at that path's bf16 shape
@@ -3196,6 +3808,11 @@ def main() -> int:
          deepseek_trained[0]),
         ("flash_attention", "deepseek-train", (DEEPSEEK_FLASH, "mla"),
          deepseek_trained[2]),
+        ("rmsnorm", "parallel-pipeline", ("rmsnorm", PIPE_NORM), piped[0]),
+        ("flash_attention", "parallel-pipeline", (PIPE_FLASH,), piped[2]),
+        ("rmsnorm", "parallel-padding", ("rmsnorm", PAD_NORM), padded[0]),
+        ("decode_attention", "parallel-padding",
+         ("decode_attention", PAD_DECODE), padded[1]),
     )
     kernels = []
     for name, path, key, n in paths:

@@ -232,13 +232,17 @@ def from_jax_layout(tree: Mapping, names: Iterable[str]) -> dict:
     return out
 
 
-def map_tree(fn: Callable, tree):
-    """``fn`` applied to every leaf of a tree of nested dicts and lists."""
+def map_tree(fn: Callable, tree, *rest):
+    """``fn`` applied to every leaf of a tree of nested dicts and lists;
+    with ``rest``, trees of the same structure, ``fn`` takes the leaf and
+    the matching leaf of each."""
     if isinstance(tree, Mapping):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, list):
-        return [map_tree(fn, v) for v in tree]
-    return fn(tree)
+        return [map_tree(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

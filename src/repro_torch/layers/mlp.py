@@ -16,7 +16,11 @@ from torch import nn
 def normal_param(gen: torch.Generator, shape, scale: float,
                  dtype: torch.dtype, device) -> nn.Parameter:
     """A trainable N(0, scale^2) parameter, drawn in fp32 on ``gen``'s
-    device, then moved to ``device`` and cast to ``dtype``."""
+    device, then moved to ``device`` and cast to ``dtype``.  On the meta
+    device nothing is drawn: the parameter has the shape and dtype only
+    (a model's layout at full size, for the sharding rules)."""
+    if device is not None and torch.device(device).type == "meta":
+        return nn.Parameter(torch.empty(shape, dtype=dtype, device="meta"))
     w = torch.randn(shape, generator=gen, device=gen.device) * scale
     return nn.Parameter(w.to(device=device, dtype=dtype))
 

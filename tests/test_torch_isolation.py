@@ -33,7 +33,17 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.configs.mamba2_2_7b",
                  "repro_torch.layers.moe",
                  "repro_torch.configs.mixtral_8x7b",
-                 "repro_torch.configs.gemma3_12b"):
+                 "repro_torch.configs.gemma3_12b",
+                 "repro_torch.training.compress",
+                 "repro_torch.training.elastic",
+                 "repro_torch.parallel.padding",
+                 "repro_torch.parallel.sharding",
+                 "repro_torch.parallel.plan_sharding",
+                 "repro_torch.parallel.sp_decode",
+                 "repro_torch.parallel.ep",
+                 "repro_torch.parallel.pipeline",
+                 "repro_torch.layers.hints",
+                 "repro_torch.launch.mesh"):
         assert name in mods
     code = (
         "import importlib, sys\n"
