@@ -154,8 +154,8 @@ Phases, one line each (the kernels phases print one line per case):
                profiled bf16 step (device ms by family, the MoE FFNs'
                products and the padding copies apart, beside the weights'
                read-once bound); ``forward`` in bf16 at 2 layers, B 2 x S
-               256, kernels vs plain; 4 chat requests (prompts cut to 64,
-               outputs to 16) served at all 27 layers in 4 slots of 512,
+               256, kernels vs plain; 4 chat requests (prompts cut to 32,
+               outputs to 8) served at all 27 layers in 4 slots of 512,
                with 55 RMSNorms and 27 decode attentions a step, all on
                the D 256, group 1 instance.
   14. qwen2-vl -- qwen2-vl-7b (M-RoPE, fed patch embeddings) at full
@@ -201,7 +201,9 @@ Phases, one line each (the kernels phases print one line per case):
                equal to the CPU's bucketing of the same routes, EP and
                dense timed; ``sp_decode_attention`` at qwen1.5-32b's
                decode heads over a 32768-slot cache against the plain
-               version and the decode kernel; ``pipeline_forward`` with
+               version and the decode kernel (one decode-kernel launch,
+               its log-sum-exp against the plain version's);
+               ``pipeline_forward`` with
                qwen2-0.5b FULL's 24 layers as one stage over 4
                microbatches of (2, 1024) against the layers run over each
                microbatch in turn and over the whole batch (192 RMSNorm
@@ -215,6 +217,26 @@ Phases, one line each (the kernels phases print one line per case):
                (an 8-device plan refused) and qwen2-0.5b FULL's
                parameters through ``reshard_state`` and back, bit-exact.
                Limits: PARALLEL_FP32 and PARALLEL_BF16.
+ 19. fp8     -- the decode kernel's e4m3 instance (q and output bf16,
+               k/v float8_e4m3fn, head dim 128) against its plain version
+               on the same e4m3 bits (bf16 TOL): groups 1/5/8 at Smax
+               4096 and cold at 32768, timed beside the bf16 instance on
+               the exact upcast and, as context, SDPA on that upcast;
+               the split grid's edges (run in the kernels phase).  Then
+               ``fp8-serve``: qwen1.5-32b at full width (40 / 40 heads of
+               128, group 1) and depth 8 with an e4m3 cache of batch 8 x
+               Smax 32768 (21.5 GB): 4 ``decode_step``s kernels vs plain
+               held to LOGIT_TOL and ARGMAX_FLOOR, every decode launch on
+               the (128, 1, e4m3) instance; the step's device ms beside a
+               bf16 cache's (43 GB) and the fp8-vs-bf16 logits difference
+               printed, not held.
+ 20. dryrun  -- ``launch.dryrun.lower_cell`` for qwen2-0.5b FULL training
+               (batch 8 x 2048) on a (1, 1) NCCL mesh, then that step run
+               for real through the kernels as DTensors on the mesh: the
+               dry-run's per-device bytes beside max_memory_allocated
+               (printed), its dot FLOPs over the step's device time
+               against the bf16 peak, and the step's launches equal to the
+               wrapper calls of the trace.
 
 Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
 entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
@@ -235,8 +257,12 @@ entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 ``flash_attention/zamba2-train``, ``ssd_scan/zamba2-train``,
 ``rmsnorm/deepseek-train``, ``flash_attention/deepseek-train``,
 ``rmsnorm/parallel-pipeline``, ``flash_attention/parallel-pipeline``,
-``rmsnorm/parallel-padding``, ``decode_attention/parallel-padding``, each
-with that path's
+``rmsnorm/parallel-padding``, ``decode_attention/parallel-padding``,
+``decode_attention/parallel-sp`` (SP decode's kernel call, which returns
+the log-sum-exp too), ``rmsnorm/fp8-serve``,
+``decode_attention/fp8-serve`` (the e4m3 instance; its library time is
+none), ``rmsnorm/dryrun-train``,
+``flash_attention/dryrun-train``, each with that path's
 launches and the kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -432,6 +458,9 @@ def kernel_label(mangled: str) -> str:
             if rest.startswith("13__nv_bfloat16"):
                 args.append("bf16")
                 rest = rest[15:]
+            elif rest.startswith("13__nv_fp8_e4m3"):
+                args.append("e4m3")
+                rest = rest[15:]
             elif rest[0] == "f":
                 args.append("fp32")
                 rest = rest[1:]
@@ -441,6 +470,8 @@ def kernel_label(mangled: str) -> str:
                 rest = rest[end + 1:]
             else:
                 break
+        if len(args) == 4 and args[3] == args[0]:
+            args.pop()          # the cache type where it is q's own
         return f"{name}<{', '.join(args)}>"
 
 
@@ -2331,8 +2362,8 @@ def ssm_serve_phase(torch, smi: str, arch: str = "mamba2-2.7b",
                     phase: str = "ssm-serve", instance=None):
     """``arch`` FULL (mamba2-2.7b: 64 layers; zamba2-7b: 78 and the
     shared block 13 times) served by ``ServingEngine``: ``spec``'s chat
-    requests (4; prompts cut to 64 tokens, zamba2's to 32; outputs to
-    16), 4 slots, the last request admitted into a reused slot.  In
+    requests (4; prompts cut to 64 tokens, outputs to 16; zamba2's to
+    16 and 8), 4 slots, the last request admitted into a reused slot.  In
     bf16: every request finishes with its token count and every step
     launches its kernels (``norms``: the RMSNorm shapes of a step, with
     their launches), every decode attention on the kernel ``instance``
@@ -2518,7 +2549,11 @@ DEEPSEEK_DEPTHS = {"float32": 4, "bfloat16": None}
 # forward (the flash kernel with q/k 192 wide, v 128) at the prefix and one
 # MoE layer, bf16
 DEEPSEEK_FORWARD = dict(depth=2, batch=2, seq=256)
-DEEPSEEK_SERVE = dict(requests=4, prompt_cap=64, gen_cap=16, max_len=512)
+# prompts cut to 32 and outputs to 8 (64 and 16 before the fp8 and
+# dry-run phases needed the time: the host-bound steps of this run took
+# ~260 ms of wall each on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+# section 5)
+DEEPSEEK_SERVE = dict(requests=4, prompt_cap=32, gen_cap=8, max_len=512)
 # decode attention at the serve run's shape: q (4, 16, 192) against the
 # expanded keys (4, 512, 16, 192) and values (4, 512, 16, 128), Hkv = H
 # (group 1); the wrapper pads all three to 256.  RMSNorm at d 2048
@@ -2886,7 +2921,11 @@ ZAMBA_LIMIT_DEPTHS = ({"float32": 2, "bfloat16": 2},
 ZAMBA_INSTANCE = (128, 1)          # head dim 112 padded to 128, group 1
 # forward through the SSD kernel at P 112 and the flash kernel at D 112
 ZAMBA_FORWARD = dict(depth=2, batch=2, seq=256)
-ZAMBA_SERVE = dict(requests=4, prompt_cap=32, gen_cap=16, max_batch=4,
+# prompts cut to 16 and outputs to 8 (32 and 16 before the fp8 and
+# dry-run phases needed the time: the host-bound steps of this run took
+# 95-145 ms of wall each on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
+# section 5)
+ZAMBA_SERVE = dict(requests=4, prompt_cap=16, gen_cap=8, max_batch=4,
                    max_len=512)
 # its RMSNorms per decode step: norm1 of 78 layers, the shared block's two
 # norms 13 times and the final norm at d 3584; the gated norm of 78 layers
@@ -3058,7 +3097,11 @@ def deepseek_train_phase(torch, smi: str):
 # (mixtral) and 3.1e-2 (deepseek: one bf16 ulp at |y| ~ 5), controls >=
 # 1.41 (an expert dropped: 2.60 / 1.76; gates not renormalised: 1.62 /
 # 1.41); SP decode bf16 1.5e-5 to 1.2e-4, controls 3.88 (each row's last
-# valid slot masked) and 38.0 (the normaliser left out); pipeline bf16 0
+# valid slot masked) and 38.0 (the normaliser left out), read when its
+# partials were plain PyTorch (they are the decode kernel's now, merged by
+# its log-sum-exp, which at world size 1 weighs by e^0: the normaliser's
+# control runs on 8 gloo ranks, tests/test_torch_parallel_ranks.py);
+# pipeline bf16 0
 # against both, fp32 against the whole batch 2.8e-6 to 3.8e-6, microbatch
 # 1 passed through the stage untouched 0.99.  At world size 1 every
 # collective is the identity, so a left-out all-reduce cannot show here;
@@ -3071,6 +3114,10 @@ PARALLEL_BF16 = {"ep": 0.1, "sp": 1e-3, "pipeline": 1e-2,
 EP_CASES = (("mixtral-8x7b", (4, 512)), (DEEPSEEK, (4, 512)))
 # qwen1.5-32b's decode heads over the kernels phase's long cache
 SP_DECODE = (4, 40, 40, 128, 32768)
+# the decode kernel's log-sum-exp against its plain version's, fp32 both
+# ways: about 100 fp32 ulps at the ~11 a row of 32768 slots reads; the
+# two sum the same exponentials in other orders
+SP_LSE_TOL = 1e-4
 # qwen2-0.5b FULL's 24 layers as one stage: 4 microbatches of (2, 1024)
 PIPE = dict(arch="qwen2-0.5b", n_micro=4, mb=2, seq=1024)
 PIPE_FLASH = (2, 1024, 1024, 14, 2, 64, None, 0)
@@ -3083,7 +3130,7 @@ PAD_NORM = (4, 1, 5120)
 PAD_DECODE = (4, 48, 48, 128, 256)
 COMPRESS_ARCH = "qwen2-0.5b"
 PARALLEL_CONTROLS = ("drop_expert", "gates_not_renormalised",
-                     "no_normaliser", "skip_last_slot", "skip_microbatch")
+                     "skip_last_slot", "skip_microbatch")
 
 
 def held(what: str, reading: float, limit, hold: bool) -> str:
@@ -3106,10 +3153,12 @@ def parallel_control(kind):
     """A broken variant of one parallel function, for ``--limits
     parallel``: ``drop_expert`` (expert 0's outputs never come back),
     ``gates_not_renormalised`` (top-k of the softmax over every expert),
-    ``no_normaliser`` (SP decode returns the weighted sum without
-    dividing by the summed softmax denominators), ``skip_last_slot``
-    (SP decode masks each row's last valid slot), ``skip_microbatch``
-    (the stage passes microbatch 1 through untouched)."""
+    ``skip_last_slot`` (SP decode's kernel call leaves out each rank's
+    last valid slot), ``skip_microbatch`` (the stage passes microbatch 1
+    through untouched).  SP decode's merge by log-sum-exp is the
+    identity at world size 1 (each weight is e^0), so its controls (the
+    all-reduces or the normaliser left out) run on 8 gloo ranks in
+    tests/test_torch_parallel_ranks.py."""
     from repro_torch.layers import moe
     from repro_torch.parallel import ep, sp_decode
     if kind is None:
@@ -3132,18 +3181,13 @@ def parallel_control(kind):
 
         with mock.patch.object(ep, "route", unnormalised):
             yield None
-    elif kind == "no_normaliser":
-        with mock.patch.object(sp_decode.torch, "clamp_min",
-                               lambda den, lo: den.new_ones(den.shape)):
-            yield None
     elif kind == "skip_last_slot":
-        partial = sp_decode._partial_softmax
+        partial = sp_decode._partial
 
-        def skipping(q, k, v, valid):
-            last = valid.int().cumsum(-1) == valid.sum(-1, keepdim=True)
-            return partial(q, k, v, valid & ~(last & valid))
+        def skipping(q, k, v, n):
+            return partial(q, k, v, (n - 1).clamp_min(0).to(n.dtype))
 
-        with mock.patch.object(sp_decode, "_partial_softmax", skipping):
+        with mock.patch.object(sp_decode, "_partial", skipping):
             yield None
     else:
         yield "skip_microbatch"
@@ -3222,11 +3266,17 @@ def ep_case(torch, arch: str, shape, dtype_name: str, mesh, seed: int,
     return r
 
 
-def sp_case(torch, dtype_name: str, mesh, seed: int, timed: bool,
+def sp_case(torch, F, dtype_name: str, mesh, seed: int, timed: bool,
             control=None, limits_run=False) -> dict:
     """``sp_decode_attention`` at qwen1.5-32b's decode heads over a long
     cache (world size 1: the MAX and SUM combines over NCCL) against
-    ``decode_attention_plain`` and the decode kernel on the same cache."""
+    ``decode_attention_plain`` and the decode kernel on the same cache.
+    Its one decode-kernel launch (counted) asks for each row's
+    log-sum-exp as well, which the kernel and the plain version must
+    give alike (fp32, SP_LSE_TOL).  Timed (bf16), the numbers of the
+    record's ``decode_attention/parallel-sp``: the kernel call with the
+    log-sum-exp beside its plain version, its bound, and SDPA on the
+    same cache; and the SP call's time beside it."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.parallel import sp_decode
     B, Hq, Hkv, D, smax = SP_DECODE
@@ -3234,27 +3284,56 @@ def sp_case(torch, dtype_name: str, mesh, seed: int, timed: bool,
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     q, k, v, lens = attention_inputs(torch, B, Hq, Hkv, D, smax,
                                      DECODE_LONG_LENGTHS, dt, gen)
+    reset_counts()
     with parallel_control(control):
         out = sp_decode.sp_decode_attention(q, k, v, lens, mesh)
-    plain = da.decode_attention_plain(q, k, v, lens)
-    kern = da.decode_attention(q, k, v, lens)
+    sync(torch)
+    launched = counts()
+    if launched != (0, 1, 0, 0):
+        fail(f"parallel: SP decode launched {launched} (rmsnorm, decode, "
+             f"flash, ssd), not one decode attention")
+    plain, plain_lse = da.decode_attention_plain(q, k, v, lens,
+                                                 with_lse=True)
+    kern, lse = da.decode_attention(q, k, v, lens, with_lse=True)
     sync(torch)
     if not bool(torch.isfinite(out).all()):
         fail("parallel: SP decode: non-finite output")
     errs = [float((out.float() - w.float()).abs().max())
             for w in (plain, kern)]
     limit = (PARALLEL_FP32 if dtype_name == "float32" else PARALLEL_BF16)["sp"]
-    text = "; ".join(held(f"vs {w} max_abs_err", e, limit,
-                          holds(dtype_name, control, limits_run))
+    hold = holds(dtype_name, control, limits_run)
+    text = "; ".join(held(f"vs {w} max_abs_err", e, limit, hold)
                      for w, e in zip(("plain", "kernel"), errs))
-    r = dict(err=max(errs))
+    lse_err = float((lse - plain_lse).abs().max())
+    text += "; " + held("kernel lse vs plain lse max_abs_err", lse_err,
+                        SP_LSE_TOL, control is None)
+    r = dict(err=max(errs), launched=launched[1])
     if timed:
         r["sp_ms"] = time_ms(torch, lambda: sp_decode.sp_decode_attention(
             q, k, v, lens, mesh), inner=3, reps=5)
-        r["kernel_ms"] = time_ms(torch, lambda: da.decode_attention(
-            q, k, v, lens), inner=5, reps=5)
-        text += (f" | SP {r['sp_ms']:.4f} ms, decode kernel "
-                 f"{r['kernel_ms']:.4f} ms")
+        ms = time_ms(torch, lambda: da.decode_attention(
+            q, k, v, lens, with_lse=True), inner=5, reps=5)
+        plain_ms = time_ms(torch, lambda: da.decode_attention_plain(
+            q, k, v, lens, with_lse=True), inner=2, reps=5)
+        mask = (torch.arange(smax, device="cuda")[None, :]
+                < lens[:, None])[:, None, None, :]
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (k, v))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kt, vt, attn_mask=mask), inner=2, reps=5)
+        del kt, vt
+        es = q.element_size()
+        n_kv = sum(min(max(n, 0), smax) for n in DECODE_LONG_LENGTHS)
+        nbytes = (n_kv * Hkv * 2 * D * es + 2 * q.numel() * es
+                  + 4 * B * Hq + 4 * B)
+        bound_ms, bound_by = bound(nbytes, n_kv * Hq * 4.0 * D)
+        r.update(max_abs_err=float((kern.float() - plain.float()).abs()
+                                   .max()),
+                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                 bound_ms=bound_ms, bound_by=bound_by)
+        text += (f" | SP {r['sp_ms']:.4f} ms, its decode kernel call (with "
+                 f"the lse) {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                 f"library(SDPA, no lse) {library_ms:.4f} ms, bound "
+                 f"{bound_ms:.5f} ms ({bound_by}, {nbytes} B)")
     say("parallel", f"SP decode q {(B, Hq, D)} k/v {(B, smax, Hkv, D)} "
         f"lengths {DECODE_LONG_LENGTHS} {dtype_name} seed {seed}"
         f"{f' control {control}' if control else ''}: {text}")
@@ -3561,7 +3640,7 @@ def parallel_phase(torch, F, smi: str, limits_run: bool = False) -> tuple:
     seeds 0-2 and the controls of PARALLEL_CONTROLS in both dtypes and
     holds nothing in bf16.  Destroys its process group at the end.
     Returns (results, the pipeline run's launches, the padded decode
-    run's launches)."""
+    run's launches, the SP decode run's decode launches)."""
     import datetime
 
     import torch.distributed as dist
@@ -3581,6 +3660,7 @@ def parallel_phase(torch, F, smi: str, limits_run: bool = False) -> tuple:
         mesh = make_mesh((1, 1), ("data", "model"), DEVICE)
         pp_mesh = make_pp_mesh(1, tp=1, device=DEVICE)
         seeds = range(3) if limits_run else range(1)
+        sp = None
         runs = [(s, None) for s in seeds] + (
             [(0, c) for c in PARALLEL_CONTROLS] if limits_run else [])
         for dtype_name in ("float32", "bfloat16"):
@@ -3593,8 +3673,11 @@ def parallel_phase(torch, F, smi: str, limits_run: bool = False) -> tuple:
                     for arch, shape in EP_CASES:
                         ep_case(torch, arch, shape, dtype_name, mesh,
                                 timed=timed, **kw)
-                if control in (None, "no_normaliser", "skip_last_slot"):
-                    sp_case(torch, dtype_name, mesh, timed=timed, **kw)
+                if control in (None, "skip_last_slot"):
+                    r = sp_case(torch, F, dtype_name, mesh, timed=timed,
+                                **kw)
+                    if timed:
+                        sp = r
                 if control in (None, "skip_microbatch"):
                     r = pipeline_case(torch, dtype_name, pp_mesh, **kw)
                     if control is None and seed == 0:
@@ -3610,6 +3693,7 @@ def parallel_phase(torch, F, smi: str, limits_run: bool = False) -> tuple:
     results = {}
     if not limits_run:
         gen = torch.Generator(device=DEVICE).manual_seed(0)
+        results[("decode_attention", SP_DECODE, "sp", "bfloat16")] = sp
         results[("rmsnorm", PIPE_NORM, "bfloat16")] = rmsnorm_case(
             torch, F, PIPE_NORM, "bfloat16", gen)
         results[(PIPE_FLASH, "bfloat16")] = flash_case(
@@ -3621,7 +3705,394 @@ def parallel_phase(torch, F, smi: str, limits_run: bool = False) -> tuple:
                            [n + PAD["steps"] for n in PAD["lengths"]],
                            "bfloat16", gen)
     say("parallel", f"phase {time.perf_counter() - t0:.1f} s on {smi}")
-    return results, piped, padded
+    return results, piped, padded, None if sp is None else sp["launched"]
+
+
+# -- 19. fp8 KV caches --------------------------------------------------------
+
+# the e4m3 decode instance (q and output bf16, k/v float8_e4m3fn, head
+# dim 128): groups 1/5/8 over 4 slots of 4096, and cold over 32768
+FP8_DECODE = tuple((4, 8 * g, 8, 128, 4096) for g in (1, 5, 8))
+FP8_DECODE_LONG = tuple((4, 8 * g, 8, 128, 32768) for g in (1, 5, 8))
+FP8_LENGTHS = [1, 77, 3000, 4096]
+# qwen1.5-32b at full width (d 5120, 40 q and 40 kv heads of 128: group
+# 1) served through an fp8 cache of batch 8 x Smax 32768 at 8 layers:
+# 21.5 GB of e4m3 K/V (43 GB in bf16), the weights 11.3 GB; the rows'
+# lengths spread over the cache, seeded random K/V below them
+FP8_SERVE = dict(arch="qwen1.5-32b", depth=8, batch=8, smax=32768,
+                 lengths=[32760, 30000, 24576, 16384, 8192, 4096, 1024, 1],
+                 steps=4)
+FP8_SERVE_DECODE = (8, 40, 40, 128, 32768)
+FP8_SERVE_NORM = (8, 1, 5120)
+
+
+def fp8_attention_case(torch, F, shape, lengths, gen, timed: bool = True,
+                       copies: int = 1) -> dict:
+    """The e4m3 instance against ``decode_attention_plain`` on the same
+    e4m3 bits (seeded K/V cast by ``to_cache_dtype``), held to the bf16
+    TOL.  Timed: the kernel beside its plain version, the bf16 instance
+    on the exact bf16 upcast of the same cache, and, as context only (no
+    PyTorch attention takes e4m3 K/V, so the record's library time is
+    none), SDPA on that upcast repeated to Hq heads.  The bound reads the
+    cache at one byte a value."""
+    from repro_torch.device import to_cache_dtype
+    from repro_torch.kernels import decode_attention as da
+    B, Hq, Hkv, D, smax = shape
+    q, k, v, lens = attention_inputs(torch, B, Hq, Hkv, D, smax, lengths,
+                                     torch.bfloat16, gen)
+    fp8 = torch.float8_e4m3fn
+    k, v = to_cache_dtype(k, fp8), to_cache_dtype(v, fp8)
+    before = dict(da.variant_launches)
+    got = da.decode_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    key = (D, Hq // Hkv, "e4m3")
+    if da.variant_launches.get(key, 0) != before.get(key, 0) + 1:
+        fail(f"fp8 decode {shape}: no launch on the {key} instance")
+    what = f"decode_attention e4m3 {shape} lengths {lengths}"
+    err, differ = compare(torch, got,
+                          da.decode_attention_plain(q, k, v, lens),
+                          "bfloat16", what)
+    if not timed:
+        return dict(max_abs_err=err, differ=differ)
+    kvs = [(k, v)] + [tuple(to_cache_dtype(torch.randn(
+        t.shape, generator=gen, device="cuda"), fp8) for t in (k, v))
+        for _ in range(copies - 1)]
+    ms = time_ms(torch, in_turn(
+        lambda kk, vv: da.decode_attention(q, kk, vv, lens), kvs))
+    # the plain version and SDPA take up to ~30 ms a call here: fewer
+    # samples keep the phase short (they are context, not the kernel)
+    plain_ms = time_ms(torch, in_turn(
+        lambda kk, vv: da.decode_attention_plain(q, kk, vv, lens), kvs),
+        inner=2, reps=5)
+    up = [tuple(t.to(torch.bfloat16) for t in pair) for pair in kvs]
+    bf16_ms = time_ms(torch, in_turn(
+        lambda kk, vv: da.decode_attention(q, kk, vv, lens), up))
+    rep = Hq // Hkv
+    sdpa_kvs = [tuple(t.repeat_interleave(rep, dim=2).transpose(1, 2)
+                      .contiguous() for t in pair) for pair in up]
+    del up
+    mask = (torch.arange(smax, device="cuda")[None, :]
+            < lens[:, None])[:, None, None, :]
+    sdpa_ms = time_ms(torch, in_turn(
+        lambda ks, vs: F.scaled_dot_product_attention(
+            q[:, :, None, :], ks, vs, attn_mask=mask), sdpa_kvs),
+        inner=2, reps=5)
+    del kvs, sdpa_kvs
+    n_kv = sum(min(max(n, 0), smax) for n in lengths)
+    nbytes = n_kv * Hkv * 2 * D + 2 * 2 * B * Hq * D + 4 * B
+    bound_ms, bound_by = bound(nbytes, n_kv * Hq * 4.0 * D)
+    cold = f"; {copies} caches in turn, read cold" if copies > 1 else ""
+    say("fp8", f"decode_attention e4m3 q {(B, Hq, D)} k/v "
+        f"{(B, smax, Hkv, D)} lengths {lengths}: max_abs_err {err:.3e} "
+        f"({tol_text('bfloat16')}), not bit-equal {differ:.2e} | kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms, bf16 instance on the upcast "
+        f"{bf16_ms:.4f} ms, library none (SDPA on the bf16 upcast, context "
+        f"only: {sdpa_ms:.4f} ms) bound {bound_ms:.5f} ms ({bound_by}, "
+        f"{nbytes} B at 1 B a K/V value{cold})")
+    return dict(max_abs_err=err, differ=differ, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+                bf16_ms=bf16_ms, sdpa_upcast_ms=sdpa_ms)
+
+
+def fp8_kernel_cases(torch, F) -> dict:
+    """The e4m3 instance at groups 1/5/8: Smax 4096 and cold 32768, timed;
+    the split grid's edges at Smax 1000 and the serve shape, untimed."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {}
+    for shape in FP8_DECODE:
+        results[("decode_attention", shape, "fp8")] = fp8_attention_case(
+            torch, F, shape, FP8_LENGTHS, gen)
+    for shape in FP8_DECODE_LONG:
+        results[("decode_attention", shape, "fp8")] = fp8_attention_case(
+            torch, F, shape, DECODE_LONG_LENGTHS, gen, copies=3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst, n = 0.0, 0
+    for group in (1, 5, 8):
+        span, _ = da.split_plan(DECODE_EDGE_SMAX, 8, sms)
+        r = fp8_attention_case(torch, F, (4, 2 * group, 2, 128,
+                                          DECODE_EDGE_SMAX),
+                               [span, span + 1, 3 * span, DECODE_EDGE_SMAX],
+                               gen, timed=False)
+        worst, n = max(worst, r["max_abs_err"]), n + 1
+    say("fp8", f"decode_attention e4m3 split edges: {n} cases (group "
+        f"1/5/8, Smax {DECODE_EDGE_SMAX}, lengths span, span + 1, 3 span, "
+        f"Smax) all within tolerance, worst max_abs_err {worst:.3e}")
+    return results
+
+
+def fp8_fill(torch, cache: dict, gen, dtype) -> None:
+    """Seeded N(0, 1) K/V in every layer of ``cache``, cast by
+    ``to_cache_dtype`` one batch row at a time (a row of one layer is
+    168 MB of e4m3 here)."""
+    from repro_torch.device import to_cache_dtype
+    for t in cache_leaves(cache):
+        for r in range(t.shape[0]):
+            for b in range(t.shape[1]):
+                t[r, b].copy_(to_cache_dtype(torch.randn(
+                    t.shape[2:], generator=gen, device=DEVICE), dtype))
+
+
+def fp8_serve_phase(torch, F, smi: str) -> tuple:
+    """qwen1.5-32b at full width through an e4m3 KV cache (FP8_SERVE):
+    the kernel at the serve shape timed; ``decode_step`` kernels vs plain
+    versions on the same cache, held to LOGIT_TOL and ARGMAX_FLOOR, every
+    decode launch on the e4m3 instance; the step's device time beside
+    that of a bf16 cache of the same shape; the fp8-vs-bf16 cache
+    difference of the logits printed, not held.  Returns (results, the
+    kernel run's launches)."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    spec = FP8_SERVE
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    results = {("decode_attention", FP8_SERVE_DECODE, "fp8"):
+               fp8_attention_case(torch, F, FP8_SERVE_DECODE,
+                                  spec["lengths"], gen)}
+    results[("rmsnorm", FP8_SERVE_NORM, "bfloat16")] = rmsnorm_case(
+        torch, F, FP8_SERVE_NORM, "bfloat16", gen)
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(
+        C.at_depth(C.get_config(spec["arch"]), spec["depth"]),
+        dtype="bfloat16")
+    params = T.init_params(gen, cfg, device=DEVICE)
+    B, steps = spec["batch"], spec["steps"]
+    lengths = torch.tensor(spec["lengths"], dtype=torch.int32, device=DEVICE)
+    toks = torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    per_step = decode_launches_per_step(cfg)
+    # (head dim, group, cache type): (128, 1, "e4m3") at full width
+    instance = (cfg.resolved_head_dim, cfg.n_heads // cfg.n_kv_heads, "e4m3")
+    runs = {}
+    for cache_dtype in (torch.float8_e4m3fn, torch.bfloat16):
+        cache = T.init_cache(cfg, B, spec["smax"], device=DEVICE,
+                             cache_dtype=cache_dtype)
+        fp8_fill(torch, cache, torch.Generator(device=DEVICE).manual_seed(1),
+                 cache_dtype)
+        gb = sum(t.numel() * t.element_size()
+                 for t in cache_leaves(cache)) / 1e9
+        out = {}
+        for mode in (("kernels", "plain") if cache_dtype ==
+                     torch.float8_e4m3fn else ("kernels",)):
+            cache["len"] = lengths.clone()
+            reset_counts()
+            logits = []
+            with (plain_kernels() if mode == "plain"
+                  else contextlib.nullcontext()):
+                for s in range(steps):
+                    lg, cache = T.decode_step(params, cfg, toks[s], cache)
+                    logits.append(lg.float())
+            sync(torch)
+            if mode == "kernels":
+                launched = counts()
+                want = tuple(steps * n for n in per_step)
+                if launched != want:
+                    fail(f"fp8-serve: launches {launched}, expected {want}")
+                inst = decode_instances()
+                if cache_dtype == torch.float8_e4m3fn and set(inst) != {
+                        instance}:
+                    fail(f"fp8-serve: decode launches {inst}, expected all "
+                         f"on {instance}")
+            elif any(counts()):
+                fail("fp8-serve: the plain run launched a kernel")
+            out[mode] = torch.stack(logits)
+        cache["len"] = lengths.clone()
+        step_ms = time_ms(torch, lambda: T.decode_step(params, cfg, toks[0],
+                                                       cache),
+                          inner=2, reps=3)
+        runs[cache_dtype] = dict(out, ms=step_ms, gb=gb, launched=launched)
+        del cache
+        torch.cuda.empty_cache()
+    f8, b16 = runs[torch.float8_e4m3fn], runs[torch.bfloat16]
+    kern, plain = f8["kernels"], f8["plain"]
+    if not bool(torch.isfinite(kern).all()):
+        fail("fp8-serve: non-finite logits")
+    err = float((kern - plain).abs().max())
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    if err > LOGIT_TOL["bfloat16"] or agree < ARGMAX_FLOOR["bfloat16"]:
+        fail(f"fp8-serve: logits kernels vs plain max abs {err:.3e} (limit "
+             f"{LOGIT_TOL['bfloat16']}), argmax agreement {agree:.3f} "
+             f"(floor {ARGMAX_FLOOR['bfloat16']})")
+    q_err = float((kern - b16["kernels"]).abs().max())
+    q_agree = float((kern.argmax(-1) == b16["kernels"].argmax(-1))
+                    .float().mean())
+    weights_gb = sum(p.numel() * p.element_size()
+                     for p in params.parameters()) / 1e9
+    # a decode step reads the weights once and each row's valid K/V
+    n_kv = sum(min(n + 1, spec["smax"]) for n in spec["lengths"])
+    kv_gb = n_kv * cfg.n_kv_heads * cfg.resolved_head_dim * 2 * \
+        cfg.n_layers / 1e9
+    say("fp8-serve", f"{spec['arch']} FULL width ({cfg.n_layers} of "
+        f"{C.get_config(spec['arch']).n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads "
+        f"of {cfg.resolved_head_dim}) bf16, batch {B} x Smax "
+        f"{spec['smax']}, lengths {spec['lengths']}: e4m3 cache "
+        f"{f8['gb']:.1f} GB (bf16 {b16['gb']:.1f} GB), weights "
+        f"{weights_gb:.1f} GB | {steps} decode steps kernels vs plain: "
+        f"logits max abs {err:.3e} (limit {LOGIT_TOL['bfloat16']}), argmax "
+        f"agreement {agree:.3f} (floor {ARGMAX_FLOOR['bfloat16']}); "
+        f"launches {f8['launched']} ({steps} steps), every decode attention "
+        f"on {instance} | fp8 vs bf16 cache (not held): logits max abs "
+        f"{q_err:.3e}, argmax agreement {q_agree:.3f} | decode step device "
+        f"{f8['ms']:.3f} ms (e4m3 cache) vs {b16['ms']:.3f} ms (bf16 cache); "
+        f"reading the weights and the valid K/V once takes "
+        f"{(weights_gb + kv_gb) * 1e9 / HBM_BYTES_PER_S * 1e3:.3f} ms "
+        f"(e4m3) and "
+        f"{(weights_gb + 2 * kv_gb) * 1e9 / HBM_BYTES_PER_S * 1e3:.3f} ms "
+        f"(bf16) | phase {time.perf_counter() - t0:.1f} s on {smi}")
+    del params
+    torch.cuda.empty_cache()
+    return results, f8["launched"]
+
+
+# -- 20. dry-run --------------------------------------------------------------
+
+# the dry-run cell the card runs for real: qwen2-0.5b FULL training at
+# batch 8 x 2048 (one microbatch, as the dry-run trains it), on a (1, 1)
+# mesh of one NCCL rank
+DRYRUN_CELL = dict(arch="qwen2-0.5b", seq=2048, batch=8)
+DRYRUN_NORM = (8, 2048, 896)
+DRYRUN_FLASH = (8, 2048, 2048, 14, 2, 64, None, 0)
+
+
+def event_ms(torch, fn) -> float:
+    """Device ms of one call between two CUDA events (wall ms on the
+    CPU)."""
+    if DEVICE != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+@contextlib.contextmanager
+def wrapper_calls(calls: dict):
+    """Count the calls of each kernel wrapper (also on meta tensors, where
+    nothing launches), by module name."""
+    mods = kernel_modules()
+    names = ("rms_norm", "decode_attention", "flash_attention", "ssd_scan")
+    with contextlib.ExitStack() as stack:
+        for mod, name in zip(mods, names):
+            fn = getattr(mod, name)
+
+            def counting(*a, _fn=fn, _key=mod.__name__, **k):
+                calls[_key] = calls.get(_key, 0) + 1
+                return _fn(*a, **k)
+
+            stack.enter_context(mock.patch.object(mod, name, counting))
+        yield calls
+
+
+def dryrun_phase(torch, F, smi: str) -> tuple:
+    """``launch.dryrun.lower_cell`` at world size 1 (NCCL, a (1, 1) mesh)
+    for DRYRUN_CELL, then the same step run for real on the card through
+    the kernels, as DTensors on that mesh: the dry-run's per-device bytes
+    beside ``max_memory_allocated``, its dot FLOPs beside the step's
+    device time (achieved TFLOP/s against the bf16 peak), and the step's
+    kernel launches against the wrapper calls the trace made.  The memory
+    model's error is printed, not held.  Returns the real step's
+    launches and the timed kernel cases at its shapes."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch import configs as C
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh, mesh_context
+    from repro_torch.launch.shapes import ShapeCell, input_specs
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as T
+    from repro_torch.parallel.sharding import (distribute_params,
+                                               param_pspecs,
+                                               spec_to_placements)
+    from repro_torch.training.optimizer import adamw_init
+    t0 = time.perf_counter()
+    cuda = DEVICE == "cuda"
+    torch.cuda.empty_cache()
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device(DEVICE, 0) if cuda
+                            else None,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), DEVICE)
+        spec = DRYRUN_CELL
+        cell = ShapeCell("train_smoke", spec["seq"], spec["batch"], "train")
+        traced = {}
+        reset_counts()
+        with wrapper_calls(traced):
+            rec = dryrun.lower_cell(spec["arch"], cell.name, mesh, cell=cell,
+                                    device_bytes=None if cuda else 80e9)
+        if any(counts()):
+            fail(f"dryrun: the trace launched kernels {counts()}")
+        cfg = C.get_config(spec["arch"])
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        params = T.init_params(gen, cfg, device=DEVICE)
+        distribute_params(params, param_pspecs(params, cfg, mesh, fsdp=True),
+                          mesh)
+        opt = adamw_init(params)
+        specs = input_specs(cfg, cell)
+        from torch.distributed.tensor import distribute_tensor
+        batch = {k: distribute_tensor(torch.randint(
+            0, cfg.vocab_size, x.shape, generator=gen, device=DEVICE,
+            dtype=x.dtype), mesh, spec_to_placements(("data", None), mesh))
+            for k, x in specs.items()}
+        step = make_train_step(cfg, microbatches=1, remat=True)
+        with mesh_context(mesh):
+            params, opt, m = step(params, opt, batch)       # warm-up
+            sync(torch)
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            step_ms = event_ms(torch, lambda: step(params, opt, batch))
+        peak = torch.cuda.max_memory_allocated()
+        launched = counts()
+        loss = float(m["loss"].full_tensor())
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        timed = {("rmsnorm", DRYRUN_NORM, "bfloat16"): rmsnorm_case(
+            torch, F, DRYRUN_NORM, "bfloat16", gen),
+            (DRYRUN_FLASH, "bfloat16"): flash_case(
+                torch, F, DRYRUN_FLASH, "bfloat16", gen)} if cuda else {}
+        if not math.isfinite(loss):
+            fail(f"dryrun: the real step's loss is {loss}")
+        names = [mod.__name__ for mod in kernel_modules()]
+        seen = tuple(traced.get(n, 0) for n in names)
+        # the trace reaches each wrapper once a call; a real step launches
+        # once a call too (the backward is plain PyTorch)
+        if launched != seen:
+            fail(f"dryrun: the real step launched {launched} (rmsnorm, "
+                 f"decode, flash, ssd), the trace called the wrappers "
+                 f"{seen} times")
+        del params, opt, batch
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    tflops = rec["dot_flops"] / (step_ms * 1e-3) / 1e12
+    say("dryrun", f"lower_cell {spec['arch']} train B {spec['batch']} x S "
+        f"{spec['seq']} on a (1, 1) NCCL mesh: trace {rec['trace_s']} s, "
+        f"dot_flops {rec['dot_flops']:.4e}, argument bytes "
+        f"{rec['argument_bytes'] / 1e9:.3f} GB + workspace model "
+        f"{rec['workspace_model'] / 1e9:.3f} GB = per-device "
+        f"{rec['per_device_bytes'] / 1e9:.3f} GB (fits "
+        f"{rec['device_bytes'] / 1e9:.1f} GB: {rec['fits']}) | the step on "
+        f"the card: loss {loss:.4f}, max_memory_allocated "
+        f"{peak / 1e9:.3f} GB (the model's error "
+        f"{(rec['per_device_bytes'] - peak) / peak:+.1%}), device "
+        f"{step_ms:.1f} ms, so {tflops:.1f} TFLOP/s of matrix products, "
+        f"{tflops / (BF16_FLOPS / 1e12):.1%} of the {BF16_FLOPS / 1e12:.0f} "
+        f"TFLOP/s bf16 peak; launches {launched} = the trace's wrapper "
+        f"calls | phase {time.perf_counter() - t0:.1f} s on {smi}")
+    return launched, timed
 
 
 def main() -> int:
@@ -3654,6 +4125,7 @@ def main() -> int:
         limits_phase(torch, *sys.argv[2:3])
         return 0
     results = kernels_phase(torch, F)
+    results.update(fp8_kernel_cases(torch, F))
     model_phase(torch)
     served = serve_phase(torch, smi)
     reduced_phase(torch, smi)
@@ -3679,8 +4151,13 @@ def main() -> int:
     seamless_served, seamless_trained = seamless_phase(torch, smi)
     zamba_served, zamba_trained = zamba2_phase(torch, smi)
     deepseek_trained = deepseek_train_phase(torch, smi)
-    parallel_results, piped, padded = parallel_phase(torch, F, smi)
+    parallel_results, piped, padded, sp_launched = parallel_phase(
+        torch, F, smi)
     results.update(parallel_results)
+    fp8_results, fp8_served = fp8_serve_phase(torch, F, smi)
+    results.update(fp8_results)
+    dry_launched, dry_results = dryrun_phase(torch, F, smi)
+    results.update(dry_results)
 
     # one entry per kernel and path: the path's launches, read right after
     # its run, beside the kernel's numbers at that path's bf16 shape
@@ -3813,11 +4290,23 @@ def main() -> int:
         ("rmsnorm", "parallel-padding", ("rmsnorm", PAD_NORM), padded[0]),
         ("decode_attention", "parallel-padding",
          ("decode_attention", PAD_DECODE), padded[1]),
+        ("decode_attention", "parallel-sp",
+         ("decode_attention", SP_DECODE, "sp"), sp_launched),
+        ("rmsnorm", "fp8-serve", ("rmsnorm", FP8_SERVE_NORM), fp8_served[0]),
+        ("decode_attention", "fp8-serve",
+         ("decode_attention", FP8_SERVE_DECODE, "fp8"), fp8_served[1]),
+        ("rmsnorm", "dryrun-train", ("rmsnorm", DRYRUN_NORM),
+         dry_launched[0]),
+        ("flash_attention", "dryrun-train", (DRYRUN_FLASH,),
+         dry_launched[2]),
     )
     kernels = []
     for name, path, key, n in paths:
-        r = results[(*key, "bfloat16")]
+        # the bf16 entry at the path's shape; the fp8 path's own key
+        r = results[key] if key[-1] == "fp8" else results[(*key, "bfloat16")]
         source, replaces = meta[name]
+        if key[-1] == "fp8":              # the e4m3 instance's own file
+            source = "src/repro_torch/kernels/csrc/decode_attention_fp8.cu"
         kernels.append(dict(
             name=f"{name}/{path}", route="cuda", source=source,
             replaces=replaces, launches=n, max_abs_err=r["max_abs_err"],

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from repro_torch.models.config import ModelConfig
 
@@ -63,6 +63,11 @@ def get_config(name: str) -> ModelConfig:
 
 def get_reduced(name: str) -> ModelConfig:
     return _module(name).REDUCED
+
+
+def shape_skips(name: str) -> Dict[str, str]:
+    """shape id -> reason, for the dry-run cells this arch skips."""
+    return getattr(_module(name), "SKIP_SHAPES", {})
 
 
 def at_depth(cfg: ModelConfig, depth: Optional[int]) -> ModelConfig:

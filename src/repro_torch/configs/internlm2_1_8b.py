@@ -30,3 +30,5 @@ REDUCED = ModelConfig(
     head_dim=16,
     d_ff=192,
 )
+
+SKIP_SHAPES = {"long_500k": "pure full-attention arch (DESIGN.md rule)"}

@@ -31,3 +31,5 @@ REDUCED = ModelConfig(
     qkv_bias=True,
     d_ff=256,
 )
+
+SKIP_SHAPES = {"long_500k": "pure full-attention arch (DESIGN.md rule)"}

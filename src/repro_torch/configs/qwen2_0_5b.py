@@ -36,3 +36,5 @@ REDUCED = ModelConfig(
     d_ff=128,
     tie_embeddings=True,
 )
+
+SKIP_SHAPES = {"long_500k": "pure full-attention arch (DESIGN.md rule)"}

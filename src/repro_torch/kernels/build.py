@@ -34,6 +34,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # from the driver through cudaGetDriverEntryPointByVersion, not -lcuda.
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
+# Devices on which a wrapper runs its kernel's plain version: the CPU,
+# and meta tensors, which hold no data for a kernel to read (a shape
+# trace such as ``launch.dryrun`` goes through the plain version).
+PLAIN_DEVICES = ("cpu", "meta")
+
 _lib: Optional[ctypes.CDLL] = None
 _fns: dict = {}
 _lock = threading.Lock()

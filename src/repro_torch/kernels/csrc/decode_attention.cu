@@ -9,13 +9,17 @@
 // The grid is (splits, hkv, batch) with span * splits >= smax and splits
 // <= 64.  ws: fp32, batch * hkv * splits * group * (D + 2) values, unused
 // (may be null) when splits == 1; tickets: batch * hkv int32 zeros, left
-// zero.  Returns cudaGetLastError() after the launch.
+// zero.  lse: null, or fp32 (batch, hkv * group), which then receives each
+// row's log-sum-exp of its scaled scores (-1e30 for a row with no valid
+// slot), so that partial results over disjoint slot ranges can be merged.
+// Returns cudaGetLastError() after the launch.
 extern "C" int apex_decode_attention(const void* q, const void* k,
                                      const void* v, const void* lengths,
                                      void* out, void* ws, void* tickets,
-                                     int batch, int hkv, int group, int smax,
-                                     int head_dim, int span, int splits,
-                                     int dtype, float scale, void* stream) {
+                                     void* lse, int batch, int hkv,
+                                     int group, int smax, int head_dim,
+                                     int span, int splits, int dtype,
+                                     float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (group < 1 || group > kMaxGroup || splits < 1 || splits > kMaxSplits ||
       span < 1 || static_cast<long long>(span) * splits < smax ||
@@ -28,33 +32,35 @@ extern "C" int apex_decode_attention(const void* q, const void* k,
   }
   if (head_dim == 64) {
     if (bf16) {
-      launch<__nv_bfloat16, 64>(q, k, v, lengths, out, ws, tickets, batch,
-                                hkv, group, smax, span, splits, scale, s);
+      launch<__nv_bfloat16, 64>(q, k, v, lengths, out, ws, tickets, lse,
+                                batch, hkv, group, smax, span, splits, scale,
+                                s);
     } else {
-      launch<float, 64>(q, k, v, lengths, out, ws, tickets, batch, hkv,
+      launch<float, 64>(q, k, v, lengths, out, ws, tickets, lse, batch, hkv,
                         group, smax, span, splits, scale, s);
     }
   } else if (head_dim == 128) {
     if (bf16) {
-      launch<__nv_bfloat16, 128>(q, k, v, lengths, out, ws, tickets, batch,
-                                 hkv, group, smax, span, splits, scale, s);
+      launch<__nv_bfloat16, 128>(q, k, v, lengths, out, ws, tickets, lse,
+                                 batch, hkv, group, smax, span, splits, scale,
+                                 s);
     } else {
-      launch<float, 128>(q, k, v, lengths, out, ws, tickets, batch, hkv,
+      launch<float, 128>(q, k, v, lengths, out, ws, tickets, lse, batch, hkv,
                          group, smax, span, splits, scale, s);
     }
   } else if (head_dim == 256) {
     if (bf16) {
-      apex::launch_decode_d256_bf16(q, k, v, lengths, out, ws, tickets,
+      apex::launch_decode_d256_bf16(q, k, v, lengths, out, ws, tickets, lse,
                                     batch, hkv, group, smax, span, splits,
                                     scale, s);
     } else {
-      apex::launch_decode_d256_f32(q, k, v, lengths, out, ws, tickets,
+      apex::launch_decode_d256_f32(q, k, v, lengths, out, ws, tickets, lse,
                                    batch, hkv, group, smax, span, splits,
                                    scale, s);
     }
   } else if (head_dim == 512) {
     const int err = apex::launch_decode_d512(q, k, v, lengths, out, ws,
-                                             tickets, batch, hkv, group,
+                                             tickets, lse, batch, hkv, group,
                                              smax, span, splits, bf16, scale,
                                              s);
     if (err != 0) return err;

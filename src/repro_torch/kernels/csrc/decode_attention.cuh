@@ -37,15 +37,25 @@
 // (b, kv head) to finish, found by a ticket (atomicAdd on a per-(b, kv
 // head) counter after __threadfence), merges the live spans with the LSE
 // rule exp(m_s - M) and resets the counter to 0: one launch per call.  A
-// span with no valid slot has m = -1e30 and l = 0 and adds 0.
+// span with no valid slot has m = -1e30 and l = 0 and adds 0.  Where the
+// caller passes `lse`, the block that writes a row's output also writes
+// its log-sum-exp M + log L (-1e30 where L = 0): ranks that each attend
+// over their own shard of a sequence-sharded cache merge their outputs by
+// it (parallel/sp_decode.py), so the kernel serves that path too.
 //
 // This header holds the kernel and its launcher; decode_attention.cu has
 // the C entry point and the instances of head dims 64 and 128,
-// decode_attention_d256_{f32,bf16}.cu those of head dim 256, and
-// decode_attention_d512.cu the group-1 ones of head dim 512: nvcc builds
-// the four in parallel (the D = 256 instances, fully unrolled over 8
+// decode_attention_d256_{f32,bf16}.cu those of head dim 256,
+// decode_attention_d512.cu the group-1 ones of head dim 512, and
+// decode_attention_fp8.cu the instance over e4m3 caches (bf16 q and
+// output, head dim 128; the cache type TK is a template parameter of its
+// own, read 16 values a load and converted in registers): nvcc builds
+// the five in parallel (the D = 256 instances, fully unrolled over 8
 // groups, took 80 of the 121 s of one file's build on an H100 host).
 #pragma once
+
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 
 #include "common.cuh"
 
@@ -75,6 +85,20 @@ __device__ __forceinline__ void unpack16(const uint4& x, float (&o)[8]) {
   }
 }
 
+// ... or 16 e4m3 values: Hopper's packed cvt, e4m3x2 -> f16x2, then to
+// float; both steps are exact.
+__device__ __forceinline__ void unpack16(const uint4& x, float (&o)[16]) {
+  const __nv_fp8x2_storage_t* p =
+      reinterpret_cast<const __nv_fp8x2_storage_t*>(&x);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 f =
+        __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(p[i], __NV_E4M3)));
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+
 __device__ __forceinline__ uint4 load16(const void* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
@@ -90,16 +114,18 @@ __device__ __forceinline__ float warp_max(float v) {
 // ws: the workspace of the split grid, fp32, [B][hkv][splits] blocks of
 // group * D accumulator values, then as many (group) maxima, then sums.
 // G = group, the query heads of a kv head, is a template parameter: the
-// loops over heads unroll without branches.
-template <typename T, int D, int G>
+// loops over heads unroll without branches.  T is the type of q and the
+// output, TK that of the K/V cache.
+template <typename T, int D, int G, typename TK = T>
 __global__ void __launch_bounds__(kThreads)
-    decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
+    decode_attention_kernel(const T* __restrict__ q, const TK* __restrict__ k,
+                            const TK* __restrict__ v,
                             const int* __restrict__ lengths,
                             T* __restrict__ out, float* __restrict__ ws,
-                            int* __restrict__ tickets, int smax, int hkv,
+                            int* __restrict__ tickets,
+                            float* __restrict__ lse, int smax, int hkv,
                             int span, float scale) {
-  constexpr int kVec = 16 / sizeof(T);      // elements per 16-byte load
+  constexpr int kVec = 16 / sizeof(TK);     // elements per 16-byte load
   constexpr int kChunks = D / kVec;         // 16-byte chunks of a row
   // In P V a lane owns kOwn chunks of a row, kLanes chunks apart: one
   // chunk, except above 32 chunks (fp32 D = 256: two per lane; D = 512:
@@ -171,12 +197,12 @@ __global__ void __launch_bounds__(kThreads)
 
   // consecutive slots of one (b, h) are hkv * D elements apart
   const size_t slot_stride = static_cast<size_t>(hkv) * D;
-  const T* kb = k + (static_cast<size_t>(b) * smax * hkv + h) * D;
-  const T* vb = v + (static_cast<size_t>(b) * smax * hkv + h) * D;
+  const TK* kb = k + (static_cast<size_t>(b) * smax * hkv + h) * D;
+  const TK* vb = v + (static_cast<size_t>(b) * smax * hkv + h) * D;
 
   for (int t0 = lo + warp * kTile; t0 < hi; t0 += kWarps * kTile) {
     const bool live_slot = t0 + lane < hi;
-    const T* kr = kb + static_cast<size_t>(t0 + lane) * slot_stride;
+    const TK* kr = kb + static_cast<size_t>(t0 + lane) * slot_stride;
     uint4 kraw[kPass];
     uint4 vraw[kEarlyV ? kRowsPV * kOwn : 1];
     if (live_slot) {
@@ -186,7 +212,7 @@ __global__ void __launch_bounds__(kThreads)
     // chunk `chunk + o * kLanes` of V row `sub + r * kSub` of the tile
     auto load_v = [&](int r, int o) {
       const int slot = t0 + sub + r * kSub;
-      const T* vr = vb + static_cast<size_t>(slot) * slot_stride;
+      const TK* vr = vb + static_cast<size_t>(slot) * slot_stride;
       return slot < hi ? load16(vr + (chunk + o * kLanes) * kVec)
                        : make_uint4(0, 0, 0, 0);
     };
@@ -309,6 +335,10 @@ __global__ void __launch_bounds__(kThreads)
     }
     if (live == 1) {
       ob[i] = apex::from_float<T>(a / fmaxf(lsum, 1e-30f));
+      if (lse != nullptr && d == 0) {
+        lse[static_cast<size_t>(b) * hq + h * G + g] =
+            lsum > 0.f ? mx + logf(lsum) : kNegInf;
+      }
     } else {
       ws_acc[part * G * D + i] = a;
       if (d == 0) {
@@ -347,7 +377,13 @@ __global__ void __launch_bounds__(kThreads)
       lsum += sm_ls[s][g] * c;
     }
     lsum = apex::warp_sum(lsum);
-    if (lane == 0) sm_lsum[g] = lsum;
+    if (lane == 0) {
+      sm_lsum[g] = lsum;
+      if (lse != nullptr) {
+        lse[static_cast<size_t>(b) * hq + h * G + g] =
+            lsum > 0.f ? mx + logf(lsum) : kNegInf;
+      }
+    }
   }
   __syncthreads();
   // 16-byte loads, 16 spans in flight per thread
@@ -386,33 +422,35 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) tickets[row] = 0;
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, typename TK = T>
 void launch_group(const void* q, const void* k, const void* v,
                   const void* lengths, void* out, void* ws, void* tickets,
-                  int batch, int hkv, int smax, int span, int splits,
-                  float scale, cudaStream_t stream) {
+                  void* lse, int batch, int hkv, int smax, int span,
+                  int splits, float scale, cudaStream_t stream) {
   const dim3 grid(splits, hkv, batch);
-  decode_attention_kernel<T, D, G><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(lengths),
+  decode_attention_kernel<T, D, G, TK><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const TK*>(k),
+      static_cast<const TK*>(v), static_cast<const int*>(lengths),
       static_cast<T*>(out), static_cast<float*>(ws),
-      static_cast<int*>(tickets), smax, hkv, span, scale);
+      static_cast<int*>(tickets), static_cast<float*>(lse), smax, hkv, span,
+      scale);
 }
 
-template <typename T, int D>
+template <typename T, int D, typename TK = T>
 void launch(const void* q, const void* k, const void* v, const void* lengths,
-            void* out, void* ws, void* tickets, int batch, int hkv, int group,
-            int smax, int span, int splits, float scale,
+            void* out, void* ws, void* tickets, void* lse, int batch, int hkv,
+            int group, int smax, int span, int splits, float scale,
             cudaStream_t stream) {
   using Fn = void (*)(const void*, const void*, const void*, const void*,
-                      void*, void*, void*, int, int, int, int, int, float,
-                      cudaStream_t);
+                      void*, void*, void*, void*, int, int, int, int, int,
+                      float, cudaStream_t);
   constexpr Fn by_group[kMaxGroup] = {
-      launch_group<T, D, 1>, launch_group<T, D, 2>, launch_group<T, D, 3>,
-      launch_group<T, D, 4>, launch_group<T, D, 5>, launch_group<T, D, 6>,
-      launch_group<T, D, 7>, launch_group<T, D, 8>};
-  by_group[group - 1](q, k, v, lengths, out, ws, tickets, batch, hkv, smax,
-                      span, splits, scale, stream);
+      launch_group<T, D, 1, TK>, launch_group<T, D, 2, TK>,
+      launch_group<T, D, 3, TK>, launch_group<T, D, 4, TK>,
+      launch_group<T, D, 5, TK>, launch_group<T, D, 6, TK>,
+      launch_group<T, D, 7, TK>, launch_group<T, D, 8, TK>};
+  by_group[group - 1](q, k, v, lengths, out, ws, tickets, lse, batch, hkv,
+                      smax, span, splits, scale, stream);
 }
 
 }  // namespace
@@ -423,20 +461,20 @@ namespace apex {
 // launch<float, 256> and launch<__nv_bfloat16, 256>.
 void launch_decode_d256_f32(const void* q, const void* k, const void* v,
                             const void* lengths, void* out, void* ws,
-                            void* tickets, int batch, int hkv, int group,
-                            int smax, int span, int splits, float scale,
-                            cudaStream_t stream);
+                            void* tickets, void* lse, int batch, int hkv,
+                            int group, int smax, int span, int splits,
+                            float scale, cudaStream_t stream);
 void launch_decode_d256_bf16(const void* q, const void* k, const void* v,
                              const void* lengths, void* out, void* ws,
-                             void* tickets, int batch, int hkv, int group,
-                             int smax, int span, int splits, float scale,
-                             cudaStream_t stream);
+                             void* tickets, void* lse, int batch, int hkv,
+                             int group, int smax, int span, int splits,
+                             float scale, cudaStream_t stream);
 // Head dim 512, group 1 only (decode_attention_d512.cu): returns
 // cudaErrorInvalidValue for any other group, else 0.
 int launch_decode_d512(const void* q, const void* k, const void* v,
                        const void* lengths, void* out, void* ws,
-                       void* tickets, int batch, int hkv, int group,
-                       int smax, int span, int splits, bool bf16,
+                       void* tickets, void* lse, int batch, int hkv,
+                       int group, int smax, int span, int splits, bool bf16,
                        float scale, cudaStream_t stream);
 
 }  // namespace apex

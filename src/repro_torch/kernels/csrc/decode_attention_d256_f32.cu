@@ -5,9 +5,9 @@
 void apex::launch_decode_d256_f32(const void* q, const void* k,
                                   const void* v, const void* lengths,
                                   void* out, void* ws, void* tickets,
-                                  int batch, int hkv, int group, int smax,
-                                  int span, int splits, float scale,
+                                  void* lse, int batch, int hkv, int group,
+                                  int smax, int span, int splits, float scale,
                                   cudaStream_t stream) {
-  launch<float, 256>(q, k, v, lengths, out, ws, tickets, batch, hkv, group,
-                     smax, span, splits, scale, stream);
+  launch<float, 256>(q, k, v, lengths, out, ws, tickets, lse, batch, hkv,
+                     group, smax, span, splits, scale, stream);
 }

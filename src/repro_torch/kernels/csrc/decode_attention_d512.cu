@@ -8,17 +8,18 @@
 
 int apex::launch_decode_d512(const void* q, const void* k, const void* v,
                              const void* lengths, void* out, void* ws,
-                             void* tickets, int batch, int hkv, int group,
-                             int smax, int span, int splits, bool bf16,
-                             float scale, cudaStream_t stream) {
+                             void* tickets, void* lse, int batch, int hkv,
+                             int group, int smax, int span, int splits,
+                             bool bf16, float scale, cudaStream_t stream) {
   if (group != 1) return static_cast<int>(cudaErrorInvalidValue);
   if (bf16) {
     launch_group<__nv_bfloat16, 512, 1>(q, k, v, lengths, out, ws, tickets,
-                                        batch, hkv, smax, span, splits,
+                                        lse, batch, hkv, smax, span, splits,
                                         scale, stream);
   } else {
-    launch_group<float, 512, 1>(q, k, v, lengths, out, ws, tickets, batch,
-                                hkv, smax, span, splits, scale, stream);
+    launch_group<float, 512, 1>(q, k, v, lengths, out, ws, tickets, lse,
+                                batch, hkv, smax, span, splits, scale,
+                                stream);
   }
   return 0;
 }

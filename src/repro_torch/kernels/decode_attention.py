@@ -27,6 +27,22 @@ to 256); the other FULL configs' head dims (64, 128, gemma3's 256) copy
 nothing.  Head dim 512, the latent width at which the simulator prices
 MLA's decode (``core.profiles``), is built for group 1 only
 (``max_group``); a head dim above 512 raises.
+
+An fp8 cache (k and v ``float8_e4m3fn``, the serving mode of
+``init_cache(cache_dtype=torch.float8_e4m3fn)``) takes an instance of
+its own, ``csrc/decode_attention_fp8.cu``: q and the output bf16, head
+dim 128 (``FP8_HEAD_DIMS``), groups 1-8.  It reads each e4m3 value once
+and converts it in registers; the reference upcasts the cache to the
+compute dtype before its einsums, and e4m3 -> bf16 -> fp32 is exact, so
+the function is the same.  The plain version's ``.float()`` of an e4m3
+tensor is exact too.  Any other mix of dtypes with an fp8 cache raises,
+and nothing is padded for it.  ``variant_launches`` counts its launches
+under ``(128, group, "e4m3")``.
+
+``with_lse`` asks every instance for each row's log-sum-exp beside its
+output: where a cache's sequence is sharded, each rank runs the kernel
+over its own slots and the ranks merge the outputs by it
+(``parallel.sp_decode``).
 """
 
 from __future__ import annotations
@@ -40,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .build import PLAIN_DEVICES
 
 launches = 0
 # launches by the kernel instance they took, (head dim as launched,
@@ -53,7 +70,11 @@ MAX_GROUP = 8
 # 86 KB of static shared memory, past the 48 KB allowed
 WIDE_HEAD_DIM = 512
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 8 + (
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 8 + (
+    ctypes.c_float, ctypes.c_void_p)
+FP8 = torch.float8_e4m3fn
+FP8_HEAD_DIMS = (128,)
+_FP8_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 7 + (
     ctypes.c_float, ctypes.c_void_p)
 SPAN_QUANTUM = 128  # 4 warps x 32-slot tiles: every warp gets whole tiles
 MAX_SPLITS = 64     # spans the last block of a row merges (kMaxSplits)
@@ -104,14 +125,20 @@ def _ticket_buffer(device: torch.device, stream: int,
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, lengths: torch.Tensor,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           with_lse: bool = False):
     """fp32 softmax attention over the first ``lengths[b]`` slots
     (``repro/kernels/decode_attention/ref.py``), scores scaled by
-    ``scale`` (``1/sqrt(D)`` unless given).  Returns (B, Hq, Dv).
+    ``scale`` (``1/sqrt(D)`` unless given).  Returns (B, Hq, Dv), and
+    with ``with_lse`` also each row's log-sum-exp of its scaled scores,
+    fp32 (B, Hq).
 
     Agrees with the kernel for ``lengths >= 1``, all that decoding gives
     it.  A row with no valid slot yields the mean of V here, as in the
-    reference, and 0 in the kernel, as in the TPU kernel."""
+    reference, and 0 in the kernel, as in the TPU kernel; its log-sum-exp
+    is -1e30 in both (here -1e30 + log Smax, the same float), so a merge
+    by log-sum-exp gives it no weight beside a row that has a valid
+    slot."""
     B, Hq, D = q.shape
     _, Smax, Hkv, Dv = v.shape
     rep = Hq // Hkv
@@ -123,8 +150,8 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     valid = torch.arange(Smax, device=q.device)[None, :] < lengths[:, None]
     s = s.masked_fill(~valid[:, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhk,bkhd->bhd", p, vr.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bhk,bkhd->bhd", p, vr.float()).to(q.dtype)
+    return (out, torch.logsumexp(s, dim=-1)) if with_lse else out
 
 
 def max_group(d: int) -> int:
@@ -150,16 +177,20 @@ def attend_padded(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   lengths: torch.Tensor) -> torch.Tensor:
     """``fn(q, k, v, lengths, scale=1/sqrt(D))`` on q and k zero-padded
     along D, and v along its own head dim Dv, to one width,
-    ``padded_head_dim(max(D, Dv))``; the output sliced back to Dv.  No
-    copy where D == Dv is the kernel's own."""
+    ``padded_head_dim(max(D, Dv))``; the output sliced back to Dv (the
+    first of ``fn``'s outputs where it returns a tuple).  No copy where
+    D == Dv is the kernel's own."""
     D, Dv = q.shape[-1], v.shape[-1]
     width = padded_head_dim(max(D, Dv))
     if width != D:
         q, k = (F.pad(t, (0, width - D)) for t in (q, k))
     if width != Dv:
         v = F.pad(v, (0, width - Dv))
-    out = fn(q, k, v, lengths, scale=1.0 / math.sqrt(D))
-    return out[..., :Dv].contiguous() if width != Dv else out
+    res = fn(q, k, v, lengths, scale=1.0 / math.sqrt(D))
+    out, *rest = res if isinstance(res, tuple) else (res,)
+    if width != Dv:
+        out = out[..., :Dv].contiguous()
+    return (out, *rest) if rest else out
 
 
 def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -184,14 +215,21 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if D not in HEAD_DIMS:
         raise ValueError(f"decode_attention kernel: head dim {D} not in "
                          f"{HEAD_DIMS}")
-    if not 1 <= B <= 65535:
-        raise ValueError(f"decode_attention kernel: batch {B} outside "
-                         f"[1, 65535]")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+    if k.dtype == FP8 or v.dtype == FP8:
+        if q.dtype != torch.bfloat16 or k.dtype != FP8 or v.dtype != FP8 \
+                or D not in FP8_HEAD_DIMS:
+            raise ValueError(f"decode_attention kernel: the fp8 instance "
+                             f"takes q bf16, k/v {FP8} at head dim "
+                             f"{FP8_HEAD_DIMS}; got q/k/v "
+                             f"{q.dtype}/{k.dtype}/{v.dtype} at {D}")
+    elif q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"decode_attention kernel: q/k/v dtypes "
                          f"{q.dtype}/{k.dtype}/{v.dtype} must be one of "
                          f"{sorted(map(str, _DTYPE_CODES))}")
+    if not 1 <= B <= 65535:
+        raise ValueError(f"decode_attention kernel: batch {B} outside "
+                         f"[1, 65535]")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (B,):
         raise ValueError(f"decode_attention kernel: lengths must be int32 "
                          f"({B},), got {lengths.dtype} "
@@ -209,19 +247,26 @@ def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, with_lse: bool = False):
     """Attention of q (B, Hq, D) over the first lengths[b] slots of
     k (B, Smax, Hkv, D) and v (B, Smax, Hkv, Dv).  Returns (B, Hq, Dv) in
-    q's dtype."""
-    if q.device.type == "cpu":
-        return decode_attention_plain(q, k, v, lengths)
+    q's dtype; with ``with_lse`` also each row's log-sum-exp of its
+    scaled scores, fp32 (B, Hq), by which outputs over disjoint slot
+    ranges merge (``parallel.sp_decode``)."""
+    if q.device.type in PLAIN_DEVICES:
+        return decode_attention_plain(q, k, v, lengths, with_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return attend_padded(_launch, q, k, v, lengths)
+    if k.dtype == FP8:
+        # the fp8 instance's head dim is the cache's own: nothing pads
+        return _launch(q, k, v, lengths, scale=1.0 / math.sqrt(q.shape[-1]),
+                       with_lse=with_lse)
+    return attend_padded(functools.partial(_launch, with_lse=with_lse),
+                         q, k, v, lengths)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            lengths: torch.Tensor, scale: float) -> torch.Tensor:
+            lengths: torch.Tensor, scale: float, with_lse: bool = False):
     global launches
     check_kernel_args(q, k, v, lengths)
     B, Hq, D = q.shape
@@ -230,17 +275,26 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     span, splits = split_plan(Smax, B * Hkv, _sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
+    lse = torch.empty(B, Hq, dtype=torch.float32, device=q.device) \
+        if with_lse else None
     ws = tickets = None
     if splits > 1:
         ws = torch.empty(B * Hkv * splits * group * (D + 2),
                          dtype=torch.float32, device=q.device)
         tickets = _ticket_buffer(q.device, stream, B * Hkv)
-    fn = build.kernel("apex_decode_attention", _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-             out.data_ptr(), None if ws is None else ws.data_ptr(),
-             None if tickets is None else tickets.data_ptr(), B, Hkv, group,
-             Smax, D, span, splits, _DTYPE_CODES[q.dtype], scale, stream)
-    build.check(err, "apex_decode_attention")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr(), None if ws is None else ws.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Hkv, group, Smax, D,
+            span, splits)
+    if k.dtype == FP8:
+        name, key = "apex_decode_attention_fp8", (D, group, "e4m3")
+        err = build.kernel(name, _FP8_ARGTYPES)(*ptrs, scale, stream)
+    else:
+        name, key = "apex_decode_attention", (D, group)
+        err = build.kernel(name, _ARGTYPES)(*ptrs, _DTYPE_CODES[q.dtype],
+                                            scale, stream)
+    build.check(err, name)
     launches += 1
-    variant_launches[D, group] = variant_launches.get((D, group), 0) + 1
-    return out
+    variant_launches[key] = variant_launches.get(key, 0) + 1
+    return (out, lse) if with_lse else out

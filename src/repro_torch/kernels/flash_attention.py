@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .build import PLAIN_DEVICES
 
 launches = 0
 
@@ -205,7 +206,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention of q (B, Sq, Hq, D) over k (B, Skv, Hkv, D) and v (B,
     Skv, Hkv, Dv).  Returns ``(out (B, Sq, Hq, Dv) in q's dtype, lse (B,
     Hq, Sq) fp32)``."""
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
     if q.device.type != "cuda":

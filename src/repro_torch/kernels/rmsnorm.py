@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 
 from . import build
+from .build import PLAIN_DEVICES
 
 launches = 0
 
@@ -123,7 +124,7 @@ class _RMSNormKernel(torch.autograd.Function):
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm of ``x (..., d)`` by ``weight (d,)``, in x's dtype."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return rms_norm_plain(x, weight, eps)
     if x.device.type != "cuda":
         raise ValueError(f"rms_norm: unsupported device {x.device}")

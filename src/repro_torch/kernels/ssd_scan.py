@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .build import PLAIN_DEVICES
 
 launches = 0
 # launches by kernel, so a run can show which one its path took
@@ -271,7 +272,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
              chunk: int = 128) -> torch.Tensor:
     """The SSD scan of ``x (B, S, H, P)``; returns y (B, S, H, P) in x's
     dtype, without the D-skip term."""
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return ssd_scan_plain(x, dt, a_log, b, c, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: unsupported device {x.device}")

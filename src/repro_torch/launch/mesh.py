@@ -11,6 +11,7 @@ the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import contextlib
+from typing import Mapping
 
 from repro_torch.layers.hints import ACTIVE_MESH, data_axes
 from repro_torch.parallel.sharding import make_mesh
@@ -34,9 +35,20 @@ def make_production_mesh(*, multi_pod: bool = False, device=None):
 
 @contextlib.contextmanager
 def mesh_context(mesh):
-    """Activate ``mesh`` for ``layers.hints`` inside the ``with`` block."""
+    """Activate ``mesh`` for ``layers.hints`` inside the ``with`` block.
+
+    For a ``DeviceMesh`` the block also runs under DTensor's
+    ``implicit_replication``: a plain tensor the model builds beside its
+    DTensors (positions, RoPE tables, masks) is the same on every rank
+    and is taken as replicated."""
     token = ACTIVE_MESH.set(mesh)
     try:
-        yield mesh
+        if isinstance(mesh, Mapping):
+            yield mesh
+        else:
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+            with implicit_replication():
+                yield mesh
     finally:
         ACTIVE_MESH.reset(token)

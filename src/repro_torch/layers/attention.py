@@ -27,9 +27,12 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from repro_torch.device import to_cache_dtype
 from repro_torch.kernels import decode_attention as _attn_kernel
 from repro_torch.kernels import flash_attention as _flash
+from .hints import is_dtensor, on_shards, shard_offset, split_last
 from .mlp import normal_param
 from .rope import apply_mrope, apply_rope
 
@@ -70,9 +73,9 @@ def _project_qkv(params: nn.ParameterDict, x: torch.Tensor, n_heads: int,
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return (q.reshape(B, S, n_heads, head_dim),
-            k.reshape(B, S, n_kv_heads, head_dim),
-            v.reshape(B, S, n_kv_heads, head_dim))
+    return (split_last(q, B, S, n_heads, head_dim),
+            split_last(k, B, S, n_kv_heads, head_dim),
+            split_last(v, B, S, n_kv_heads, head_dim))
 
 
 class _BlockwiseAttention(torch.autograd.Function):
@@ -162,9 +165,16 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q_offset``: absolute position of q[:, 0] relative to k[:, 0].
     Returns (B, Sq, Hq, D) in q's dtype.  ``q_block``/``kv_block`` tile
     the backward pass; the forward is the flash kernel's own tiling.
-    Differentiable: the backward recomputes p from the saved lse."""
-    return _BlockwiseAttention.apply(q, k, v, causal, window, q_block,
-                                     kv_block, q_offset)
+    Differentiable: the backward recomputes p from the saved lse.
+
+    On DTensors it runs on each rank's local shards (``on_shards``): the
+    batch keeps its sharding, the heads theirs where the mesh dims on
+    them divide Hq and Hkv alike, and every other dim is gathered."""
+    roles = {"batch": 0, "heads": 2}
+    return on_shards(
+        lambda qs, ks, vs: _BlockwiseAttention.apply(
+            qs, ks, vs, causal, window, q_block, kv_block, q_offset),
+        (q, k, v), (roles, roles, roles), roles)
 
 
 def gqa_attention(params: nn.ParameterDict, x: torch.Tensor,
@@ -221,14 +231,98 @@ def gqa_decode_step(params: nn.ParameterDict, x: torch.Tensor,
         raise NotImplementedError(f"rope={rope!r} is not ported yet")
     ring = window is not None and Smax <= window + 16
     idx = cache_len % Smax if ring else cache_len.clamp(0, Smax - 1)
-    rows = torch.arange(B, device=x.device)
-    cache_k[rows, idx] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, idx] = v[:, 0].to(cache_v.dtype)
+    write_cache_rows(cache_k, k[:, 0], idx)
+    write_cache_rows(cache_v, v[:, 0], idx)
     n_valid = torch.clamp(cache_len + 1, max=Smax).to(torch.int32)
-    out = _attn_kernel.decode_attention(q[:, 0].contiguous(), cache_k,
-                                        cache_v, n_valid)
+    out = attend_decode(q[:, 0].contiguous(), cache_k, cache_v, n_valid)
     y = out.reshape(B, 1, n_heads * head_dim) @ params["wo"]
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# the decode step's cache writes and attention, on one device or a mesh
+# ---------------------------------------------------------------------------
+
+def _batch_local(t: torch.Tensor, like) -> torch.Tensor:
+    """This rank's rows of ``t`` (B, ...), a DTensor or a plain tensor
+    that every rank holds whole, cut as the DTensor ``like`` cuts its
+    batch dim 0."""
+    mesh = like.device_mesh
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    want = [Shard(0) if p == Shard(0) else Replicate()
+            for p in like.placements]
+    return t.redistribute(mesh, want).to_local()
+
+
+def write_cache_rows(cache: torch.Tensor, new: torch.Tensor,
+                     idx: torch.Tensor) -> None:
+    """``cache[b, idx[b]] = new[b]`` in place, for every row b, cast by
+    ``to_cache_dtype``: cache (B, Smax, ...), new (B, ...), idx (B,).
+
+    On a DTensor cache each rank writes its own shard (its batch rows
+    whose slot falls in its sequence shard), in place; a cache sharded
+    along any other dim raises.  The write is a ``where`` at a clamped
+    slot, not a masked index, so meta tensors go through too."""
+    if not is_dtensor(cache):
+        rows = torch.arange(cache.shape[0], device=cache.device)
+        cache[rows, idx] = to_cache_dtype(new, cache.dtype)
+        return
+    for p in cache.placements:
+        if not (isinstance(p, Replicate)
+                or (isinstance(p, Shard) and p.dim in (0, 1))):
+            raise ValueError(f"write_cache_rows: cache placements "
+                             f"{cache.placements}: only the batch and "
+                             f"sequence dims may be sharded")
+    local = cache.to_local()
+    new_l = _batch_local(new, cache)
+    j = _batch_local(idx, cache) - shard_offset(cache, 1)[1]
+    mine = (j >= 0) & (j < local.shape[1])
+    j = j.clamp(0, local.shape[1] - 1)
+    rows = torch.arange(local.shape[0], device=local.device)
+    keep = mine.reshape(-1, *([1] * (new_l.dim() - 1)))
+    local[rows, j] = torch.where(keep, to_cache_dtype(new_l, local.dtype),
+                                 local[rows, j])
+
+
+def attend_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+    """Decode attention of q (B, Hq, D) over the first ``lengths[b]``
+    slots of k (B, Smax, Hkv, D), v (B, Smax, Hkv, Dv):
+    ``kernels.decode_attention`` on plain tensors.
+
+    On DTensors it runs on each rank's local shards (``on_shards``, the
+    cache's placements first): the batch keeps its sharding, and so do
+    the heads where the mesh dims on them divide Hq and Hkv.  Where the
+    cache's sequence is sharded (``parallel.sharding.cache_pspecs`` puts
+    it on "model"), the kernel runs over each rank's own slots and
+    returns each row's log-sum-exp beside its output, by which the ranks
+    merge their outputs (``parallel.sp_decode``, the reference's
+    flash-decoding combine).  Elsewhere the kernel runs on the local
+    shard."""
+    if not is_dtensor(k):
+        return _attn_kernel.decode_attention(q, k, v, lengths)
+    seq_at, _ = shard_offset(k, 1)
+    if len(seq_at) > 1:
+        raise NotImplementedError("decode attention over a sequence "
+                                  "sharded on more than one mesh dim")
+    mesh = k.device_mesh
+
+    def attend(qs, ks, vs, ls):
+        if not seq_at:
+            return _attn_kernel.decode_attention(qs, ks, vs, ls)
+        from repro_torch.parallel.sp_decode import sp_decode_attention
+        return sp_decode_attention(qs, ks, vs, ls, mesh,
+                                   mesh.mesh_dim_names[seq_at[0]])
+
+    # the cache first: its placements pick the roles, so it is never
+    # gathered to suit q
+    kv = {"batch": 0, "seq": 1, "heads": 2}
+    return on_shards(lambda ks, vs, qs, ls: attend(qs, ks, vs, ls),
+                     (k, v, q, lengths),
+                     (kv, kv, {"batch": 0, "heads": 1}, {"batch": 0}),
+                     {"batch": 0, "heads": 1})
 
 
 # ---------------------------------------------------------------------------
@@ -265,7 +359,16 @@ def _mla_expand(params: nn.ParameterDict, c_kv: torch.Tensor, n_heads: int,
     """Latents (B, S, r) -> per-head ``k_nope`` (B, S, H, dn) and ``v``
     (B, S, H, dv): one product with ``wukv``, then views of it."""
     B, S, _ = c_kv.shape
-    u = (c_kv @ params["wukv"]).reshape(B, S, n_heads, qk_nope + v_dim)
+    if is_dtensor(c_kv) and shard_offset(c_kv, 1)[0]:
+        # a sequence-sharded latent cache expands on each rank's own
+        # slots (the product's (B S, r) view cannot flatten a sharded
+        # sequence, torch 2.11)
+        slots = {"batch": 0, "seq": 1}
+        u = on_shards(torch.matmul, (c_kv, params["wukv"]), (slots, {}),
+                      slots)
+    else:
+        u = c_kv @ params["wukv"]
+    u = split_last(u, B, S, n_heads, qk_nope + v_dim)
     return u[..., :qk_nope], u[..., qk_nope:]
 
 
@@ -288,7 +391,7 @@ def mla_attention(params: nn.ParameterDict, x: torch.Tensor,
     scale ``1/sqrt(dn + dr)``."""
     B, S, _ = x.shape
     qk_head = qk_nope_head_dim + qk_rope_head_dim
-    q = (x @ params["wq"]).reshape(B, S, n_heads, qk_head)
+    q = split_last(x @ params["wq"], B, S, n_heads, qk_head)
     q_nope, q_pe = q[..., :qk_nope_head_dim], q[..., qk_nope_head_dim:]
     dkv = x @ params["wdkv"]                               # (B, S, r + dr)
     c_kv, k_pe = dkv[..., :kv_lora_rank], dkv[..., kv_lora_rank:]
@@ -327,21 +430,20 @@ def mla_decode_step(params: nn.ParameterDict, x: torch.Tensor,
     B = x.shape[0]
     Smax = cache_c.shape[1]
     qk_head = qk_nope_head_dim + qk_rope_head_dim
-    q = (x @ params["wq"]).reshape(B, 1, n_heads, qk_head)
+    q = split_last(x @ params["wq"], B, 1, n_heads, qk_head)
     q_nope, q_pe = q[..., :qk_nope_head_dim], q[..., qk_nope_head_dim:]
     dkv = x @ params["wdkv"]
     c_new, kpe_new = dkv[..., :kv_lora_rank], dkv[..., kv_lora_rank:]
     q_pe, kpe_rot = apply_rope(q_pe, kpe_new[:, :, None, :],
                                cache_len[:, None], rope_theta)
     idx = cache_len.clamp(0, Smax - 1)
-    rows = torch.arange(B, device=x.device)
-    cache_c[rows, idx] = c_new[:, 0].to(cache_c.dtype)
-    cache_kpe[rows, idx] = kpe_rot[:, 0, 0].to(cache_kpe.dtype)
+    write_cache_rows(cache_c, c_new[:, 0], idx)
+    write_cache_rows(cache_kpe, kpe_rot[:, 0, 0], idx)
     k_nope, v = _mla_expand(params, cache_c.to(x.dtype), n_heads,
                             qk_nope_head_dim, v_head_dim)
     k = _mla_keys(k_nope, cache_kpe.to(x.dtype))
     q = torch.cat([q_nope, q_pe], dim=-1)[:, 0]
     n_valid = torch.clamp(cache_len + 1, max=Smax).to(torch.int32)
-    out = _attn_kernel.decode_attention(q, k, v, n_valid)
+    out = attend_decode(q, k, v, n_valid)
     y = out.reshape(B, 1, n_heads * v_head_dim) @ params["wo"]
     return y, cache_c, cache_kpe

@@ -1,7 +1,10 @@
 """Normalization layers (``repro/layers/norms.py``).
 
 ``rms_norm`` is the RMSNorm kernel's wrapper: a CUDA tensor launches the
-hand-written kernel, a CPU tensor runs the plain fp32 version.
+hand-written kernel, a CPU tensor runs the plain fp32 version.  A
+``DTensor`` runs it on each rank's local rows (``hints.on_shards``): a
+row dim stays sharded, while the last dim, which the norm reduces over,
+and a ``Partial`` sum are gathered first, and the weight is replicated.
 """
 
 from __future__ import annotations
@@ -9,9 +12,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import rmsnorm as _rmsnorm
+from .hints import on_shards
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm over the last axis; compute in fp32, cast back."""
-    return _rmsnorm.rms_norm(x, weight, eps)
+    rows = {i: i for i in range(x.dim() - 1)}
+    return on_shards(lambda xs, w: _rmsnorm.rms_norm(xs, w, eps),
+                     (x, weight), (rows, {}), rows)

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.kernels import ssd_scan as _ssd
+from .hints import on_shards, split_last
 from .mlp import normal_param
 from .norms import rms_norm
 
@@ -81,13 +82,21 @@ def softplus(v: torch.Tensor) -> torch.Tensor:
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv1d + SiLU.  x: (B, S, C); w: (K, C).  The K
-    shifted products are summed from tap 0 on, as the reference does."""
-    K, S = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, K - 1, 0))
-    out = xp[:, 0:S, :] * w[0]
-    for i in range(1, K):
-        out = out + xp[:, i:i + S, :] * w[i]
-    return F.silu(out + b)
+    shifted products are summed from tap 0 on, as the reference does.
+    On DTensors each rank convolves its own batch rows and channels
+    (``on_shards``; the sequence is gathered): DTensor's rule for the
+    padding fails in torch 2.11."""
+    def conv(x, w, b):
+        K, S = w.shape[0], x.shape[1]
+        xp = F.pad(x, (0, 0, K - 1, 0))
+        out = xp[:, 0:S, :] * w[0]
+        for i in range(1, K):
+            out = out + xp[:, i:i + S, :] * w[i]
+        return F.silu(out + b)
+
+    chans = {"batch": 0, "chan": 2}
+    return on_shards(conv, (x, w, b), (chans, {"chan": 1}, {"chan": 0}),
+                     chans)
 
 
 def _project(params: nn.ParameterDict, x: torch.Tensor, d_state: int,
@@ -112,8 +121,14 @@ def mamba2_forward(params: nn.ParameterDict, x: torch.Tensor, *,
     bc = _causal_conv(bc, params["conv_bc"], params["conv_bc_b"])
     b, c = bc[..., :gn].contiguous(), bc[..., gn:].contiguous()
     dt = softplus(dt.float() + params["dt_bias"])          # (B, S, H) fp32
-    xh = xi.reshape(B, S, n_heads, P)
-    y = _ssd.ssd_scan(xh, dt, params["a_log"], b, c, chunk=chunk)
+    xh = split_last(xi, B, S, n_heads, P)
+    # on DTensors: each rank scans its batch rows and, where the mesh
+    # dims on them divide H, its heads (B and C are every head's)
+    heads = {"batch": 0, "heads": 2}
+    y = on_shards(lambda *t: _ssd.ssd_scan(*t, chunk=chunk),
+                  (xh, dt, params["a_log"], b, c),
+                  (heads, heads, {"heads": 0}, {"batch": 0},
+                   {"batch": 0}), heads)
     y = y + xh * params["d_skip"][None, None, :, None].to(xh.dtype)
     y = y.reshape(B, S, d_inner)
     y = rms_norm(y * F.silu(z), params["norm_w"])
@@ -150,7 +165,7 @@ def mamba2_decode_step(params: nn.ParameterDict, x: torch.Tensor,
     dt = softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["a_log"])
     a = torch.exp(dt[:, 0, :] * A)                         # (B, H)
-    xh = xi.reshape(B, n_heads, P)
+    xh = split_last(xi, B, n_heads, P)
     upd = (dt[:, 0, :, None, None] * xh[..., None].float()
            * b[:, 0, None, None, :].float())               # (B, H, P, N)
     new_state = ssm_state * a[..., None, None] + upd

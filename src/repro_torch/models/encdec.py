@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import torch_dtype
 from repro_torch.layers import (blockwise_attention, init_attention,
                                 init_mlp, mlp_forward, rms_norm)
+from repro_torch.layers.hints import split_last
 from .config import EncoderConfig, ModelConfig
 from . import transformer as T
 
@@ -99,7 +100,7 @@ def _encoder_layer_apply(enc: EncoderConfig, lp: EncoderLayer,
     h = rms_norm(x, lp.norm1)
     B, S, _ = h.shape
     hd = enc.d_model // enc.n_heads
-    q, k, v = ((h @ lp.attn[w]).reshape(B, S, enc.n_heads, hd)
+    q, k, v = (split_last(h @ lp.attn[w], B, S, enc.n_heads, hd)
                for w in ("wq", "wk", "wv"))
     out = blockwise_attention(q, k, v, causal=False)
     x = x + out.reshape(B, S, enc.n_heads * hd) @ lp.attn["wo"]
@@ -145,8 +146,8 @@ def _project_cross_kv(params: T.Transformer, cfg: ModelConfig,
     for i in range(len(cfg.block_pattern)):
         xs = [blk[f"l{i}"].xattn for blk in params.blocks]
         out[f"l{i}"] = {
-            name: torch.stack([(memory @ xp[w]).reshape(
-                B, Se, cfg.n_kv_heads, hd) for xp in xs])
+            name: torch.stack([split_last(
+                memory @ xp[w], B, Se, cfg.n_kv_heads, hd) for xp in xs])
             for name, w in (("xk", "wk"), ("xv", "wv"))}
     return out
 

@@ -69,14 +69,16 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import torch_dtype
-from repro_torch.kernels import decode_attention as _decode_attention
+from repro_torch.device import to_cache_dtype, torch_dtype
+from repro_torch.layers.attention import attend_decode
 from repro_torch.layers import (blockwise_attention, gqa_attention,
                                 gqa_decode_step, init_attention,
                                 init_mamba2, init_mla, init_mlp, init_moe,
                                 mamba2_decode_step, mamba2_forward,
                                 mla_attention, mla_decode_step,
                                 mlp_forward, moe_forward, rms_norm)
+from repro_torch.layers.hints import (data_axis_names, mesh_axis_size,
+                                     shard_hint, split_last, table_rows)
 from repro_torch.layers.mlp import normal_param
 from .config import LayerSpec, ModelConfig
 
@@ -329,19 +331,31 @@ def _layer_apply(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
                                   n_heads=cfg.n_ssd_heads,
                                   n_groups=cfg.n_ssm_groups)
     h = rms_norm(x, p.norm1)
+    # Archs whose head count does not divide the model axis (qwen2-0.5b
+    # 14, qwen1.5-32b 40, qwen2-vl 28) keep their attention projections
+    # replicated; the batch is resharded over the data axes and "model"
+    # around attention instead, as in the reference (no-ops off a mesh,
+    # and per dim where the batch does not divide).
+    m_sz = mesh_axis_size("model")
+    reshard = m_sz > 1 and cfg.n_heads % m_sz != 0
+    if reshard:
+        h = shard_hint(h, data_axis_names() + ("model",), None, None)
     if cfg.attn_kind == "mla":
-        x = x + mla_attention(p.attn, h, positions, n_heads=cfg.n_heads,
-                              kv_lora_rank=cfg.kv_lora_rank,
-                              qk_nope_head_dim=cfg.qk_nope_head_dim,
-                              qk_rope_head_dim=cfg.qk_rope_head_dim,
-                              v_head_dim=cfg.v_head_dim,
-                              rope_theta=cfg.rope_theta)
+        attn = mla_attention(p.attn, h, positions, n_heads=cfg.n_heads,
+                             kv_lora_rank=cfg.kv_lora_rank,
+                             qk_nope_head_dim=cfg.qk_nope_head_dim,
+                             qk_rope_head_dim=cfg.qk_rope_head_dim,
+                             v_head_dim=cfg.v_head_dim,
+                             rope_theta=cfg.rope_theta)
     else:
-        x = x + gqa_attention(p.attn, h, positions, n_heads=cfg.n_heads,
-                              n_kv_heads=cfg.n_kv_heads,
-                              head_dim=cfg.resolved_head_dim,
-                              window=spec.window, rope=cfg.rope,
-                              rope_theta=cfg.rope_theta)
+        attn = gqa_attention(p.attn, h, positions, n_heads=cfg.n_heads,
+                             n_kv_heads=cfg.n_kv_heads,
+                             head_dim=cfg.resolved_head_dim,
+                             window=spec.window, rope=cfg.rope,
+                             rope_theta=cfg.rope_theta)
+    if reshard:
+        attn = shard_hint(attn, data_axis_names() or None, None, None)
+    x = x + attn
     if cfg.cross_attn and enc_memory is not None:
         x = x + _cross_attention(cfg, p.xattn, rms_norm(x, p.norm_x),
                                  enc_memory)
@@ -356,9 +370,9 @@ def _cross_attention(cfg: ModelConfig, xp: nn.ParameterDict,
     B, S, _ = h.shape
     Se = memory.shape[1]
     hd = cfg.resolved_head_dim
-    q = (h @ xp["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (memory @ xp["wk"]).reshape(B, Se, cfg.n_kv_heads, hd)
-    v = (memory @ xp["wv"]).reshape(B, Se, cfg.n_kv_heads, hd)
+    q = split_last(h @ xp["wq"], B, S, cfg.n_heads, hd)
+    k = split_last(memory @ xp["wk"], B, Se, cfg.n_kv_heads, hd)
+    v = split_last(memory @ xp["wv"], B, Se, cfg.n_kv_heads, hd)
     out = blockwise_attention(q, k, v, causal=False)
     return out.reshape(B, S, cfg.n_heads * hd) @ xp["wo"]
 
@@ -423,7 +437,7 @@ def _embed(params: Transformer, cfg: ModelConfig,
     the embedding rows of ``tokens``."""
     if embeds is not None:
         return embeds.to(torch_dtype(cfg.dtype)).contiguous()
-    return params.embed[tokens]
+    return table_rows(params.embed, tokens)
 
 
 def forward(params: Transformer, cfg: ModelConfig,
@@ -495,8 +509,9 @@ def _layer_decode(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
             d_inner=cfg.d_inner, d_state=cfg.d_state,
             n_heads=cfg.n_ssd_heads, n_groups=cfg.n_ssm_groups)
         lc["ssm"][r].copy_(state)
-        lc["conv_x"][r].copy_(conv["x"])
-        lc["conv_bc"][r].copy_(conv["bc"])
+        lc["conv_x"][r].copy_(to_cache_dtype(conv["x"], lc["conv_x"].dtype))
+        lc["conv_bc"][r].copy_(to_cache_dtype(conv["bc"],
+                                              lc["conv_bc"].dtype))
         return x + y
     if cfg.attn_kind == "mla":
         y, _, _ = mla_decode_step(
@@ -527,8 +542,8 @@ def _cross_decode(cfg: ModelConfig, xp: nn.ParameterDict, h: torch.Tensor,
     softmax over the cache, the function the kernel computes."""
     B = h.shape[0]
     hd = cfg.resolved_head_dim
-    q = (h @ xp["wq"]).reshape(B, cfg.n_heads, hd)
-    out = _decode_attention.decode_attention(q, xk, xv, cross_len)
+    q = split_last(h @ xp["wq"], B, cfg.n_heads, hd)
+    out = attend_decode(q, xk, xv, cross_len)
     return out.reshape(B, 1, cfg.n_heads * hd) @ xp["wo"]
 
 

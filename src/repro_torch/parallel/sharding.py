@@ -226,3 +226,22 @@ def cache_pspecs(cache, cfg: ModelConfig, mesh: MeshLike):
 def to_shardings(spec_tree, mesh):
     """Every spec of a tree (dicts, lists) as its placements on ``mesh``."""
     return map_tree(lambda s: spec_to_placements(s, mesh), spec_tree)
+
+
+def distribute_params(params: nn.Module, pspecs: Mapping[str, Spec],
+                      mesh) -> nn.Module:
+    """Every parameter of ``params`` replaced, in place, by a parameter
+    holding a ``DTensor`` on ``mesh`` under its spec in ``pspecs``
+    (``param_pspecs``); meta parameters stay meta.  Returns ``params``."""
+    from torch.distributed.tensor import distribute_tensor
+    for name, p in list(params.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        mod = params.get_submodule(owner) if owner else params
+        new = nn.Parameter(distribute_tensor(
+            p.detach(), mesh, spec_to_placements(pspecs[name], mesh)),
+            requires_grad=p.requires_grad)
+        if isinstance(mod, nn.ParameterDict):
+            mod[leaf] = new
+        else:
+            setattr(mod, leaf, new)
+    return params

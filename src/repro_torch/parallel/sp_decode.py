@@ -2,49 +2,36 @@
 the flash-decoding combine across the "model" axis.
 
 KV caches are sequence-sharded over "model" (``parallel/sharding.py``).
-Each rank computes a PARTIAL online softmax over its own slice of the
-cache, and the ranks combine with a log-sum-exp reduction:
+Each rank attends over its own slice of the cache with the decode
+kernel (``kernels.decode_attention``, its plain version on CPU tensors),
+which also returns each row's log-sum-exp ``lse_i`` of its scaled
+scores, and the ranks combine with a log-sum-exp reduction:
 
-    m* = max_i m_i,  out = sum_i(acc_i e^{m_i - m*}) / sum_i(l_i e^{m_i - m*})
+    L* = max_i lse_i,  out = sum_i(out_i e^{lse_i - L*}) / sum_i e^{lse_i - L*}
 
 so a step moves O(B Hq D) reduced bytes instead of gathering O(S kv_dim)
-cache bytes.  The partial is plain torch, as the reference's is plain
-XLA: fp32 scores and accumulators over the rank's slots.
+cache bytes.  The reference's partial is plain XLA over fp32 (m, l, acc)
+states; ``out_i e^{lse_i}`` is its ``acc_i e^{m_i}``, so the combine is
+the same function.  The partial outputs come back in q's dtype: a bf16
+call rounds each rank's output once before the fp32 combine.
 
-A rank whose slice holds no valid slot gives m = NEG_INF, l = s_local and
-acc = sum of its v rows (every score is the same -1e30).  This is
-harmless only because its weight e^{m - m*} is 0 once any rank holds a
-valid slot; the port mirrors the reference here and does not special-case
-it.
+A rank whose slice holds no valid slot gives lse = -1e30 (the kernel
+writes 0 for its output, the plain version the mean of its v rows): its
+weight e^{lse - L*} is 0 once any rank holds a valid slot.
 """
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.distributed as dist
 
-NEG_INF = -1e30
+from repro_torch.kernels import decode_attention as _kernel
 
 
-def _partial_softmax(q, k, v, valid):
-    """Per-rank partial attention.  q: (B, Hq, D); k/v: (B, Sl, Hkv, D);
-    valid: (B, Sl) bool.  Returns (m (B, Hq), l (B, Hq), acc (B, Hq,
-    Dv)), fp32; q head h reads kv head h // (Hq // Hkv)."""
-    B, Hq, D = q.shape
-    Sl, Hkv = k.shape[1], k.shape[2]
-    rep = Hq // Hkv
-    qg = q.float().reshape(B, Hkv, rep, D)
-    s = torch.einsum("bgrd,bkgd->bgrk", qg, k.float()) / math.sqrt(D)
-    s = s.reshape(B, Hq, Sl)
-    s = torch.where(valid[:, None, :], s, NEG_INF)
-    m = s.amax(dim=-1)                                     # (B, Hq)
-    p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bgrk,bkgd->bgrd", p.reshape(B, Hkv, rep, Sl),
-                       v.float())
-    return m, l, acc.reshape(B, Hq, v.shape[-1])
+def _partial(q, k, v, n):
+    """One rank's attention over its slots: (out (B, Hq, Dv) in q's
+    dtype, lse (B, Hq) fp32), ``n`` (B,) int32 its valid slots."""
+    return _kernel.decode_attention(q, k, v, n, with_lse=True)
 
 
 def sp_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
@@ -59,15 +46,15 @@ def sp_decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     in q's dtype, the same on every rank of ``axis``."""
     s_local = cache_k.shape[1]
     base = mesh.get_local_rank(axis) * s_local
-    slots = base + torch.arange(s_local, device=q.device)[None, :]
-    valid = slots < lengths[:, None]
-    m, l, acc = _partial_softmax(q, cache_k, cache_v, valid)
+    n = (lengths - base).clamp(0, s_local).to(torch.int32)
+    out, lse = _partial(q.contiguous(), cache_k.contiguous(),
+                        cache_v.contiguous(), n)
     group = mesh.get_group(axis)
-    m_star = m.clone()
-    dist.all_reduce(m_star, op=dist.ReduceOp.MAX, group=group)
-    alpha = torch.exp(m - m_star)
-    num = acc * alpha[..., None]
-    den = l * alpha
+    lse_star = lse.clone()
+    dist.all_reduce(lse_star, op=dist.ReduceOp.MAX, group=group)
+    w = torch.exp(lse - lse_star)
+    num = out.float() * w[..., None]
+    den = w
     dist.all_reduce(num, op=dist.ReduceOp.SUM, group=group)
     dist.all_reduce(den, op=dist.ReduceOp.SUM, group=group)
     out = num / torch.clamp_min(den, 1e-30)[..., None]

@@ -43,7 +43,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.parallel.ep",
                  "repro_torch.parallel.pipeline",
                  "repro_torch.layers.hints",
-                 "repro_torch.launch.mesh"):
+                 "repro_torch.launch.mesh",
+                 "repro_torch.launch.shapes",
+                 "repro_torch.launch.op_counts",
+                 "repro_torch.launch.dryrun"):
         assert name in mods
     code = (
         "import importlib, sys\n"

@@ -343,5 +343,5 @@ def test_source_hash_tracks_sources(tmp_path):
     assert {p.name for p in build.sources()} == {
         "decode_attention.cu", "decode_attention_d256_bf16.cu",
         "decode_attention_d256_f32.cu", "decode_attention_d512.cu",
-        "errors.cu", "flash_attention.cu",
+        "decode_attention_fp8.cu", "errors.cu", "flash_attention.cu",
         "rmsnorm.cu", "ssd_scan.cu"}

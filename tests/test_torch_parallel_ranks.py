@@ -108,6 +108,11 @@ try:
     # own slots only)
     with mock.patch.object(dist, "all_reduce", lambda *a, **k: None):
         out["sp_no_combine"] = sp_decode_attention(*sp_args)
+    # control: the normaliser left out (the ranks' outputs summed by their
+    # weights e^(lse - max lse), undivided)
+    with mock.patch.object(torch, "clamp_min",
+                           lambda den, lo: den.new_ones(den.shape)):
+        out["sp_no_normaliser"] = sp_decode_attention(*sp_args)
 
     # GPipe: 4 stages x tp 2, one (d, d) weight a stage
     pp = make_pp_mesh(4, tp=2, device="cpu")
@@ -340,6 +345,17 @@ def test_sp_decode_without_the_combine_misses_the_ref(ranks):
         di, _ = _coords(r)
         want = ranks["oracle"]["sp"][2 * di:2 * di + 2]
         assert np.abs(out["sp_no_combine"] - want).max() > 2e-4 + \
+            2e-4 * np.abs(want).max()
+
+
+def test_sp_decode_without_the_normaliser_misses_the_ref(ranks):
+    """The normaliser's control, which the card cannot show either (at
+    world size 1 each weight is e^0): every rank holds a row whose valid
+    slots span several ranks, and its output leaves the tolerance."""
+    for r, out in enumerate(ranks["outs"]):
+        di, _ = _coords(r)
+        want = ranks["oracle"]["sp"][2 * di:2 * di + 2]
+        assert np.abs(out["sp_no_normaliser"] - want).max() > 2e-4 + \
             2e-4 * np.abs(want).max()
 
 
