@@ -63,9 +63,18 @@ Phases, one line each (the kernels phases print one line per case):
                sample beside the bound of the work the simulator charges
                it.  Fails on a time that is not finite or below its
                bound, or unless the decode, flash and SSD kernels
-               launched exactly once per profiled call.  Then those
-               three kernels against their plain versions at the
-               profile's largest shapes (decode also at (16, 512)).
+               launched exactly once per profiled call.  Then the same
+               for every other table the simulator prices the engine's
+               other archs with at FULL (``arch_tables``: internlm2,
+               qwen1.5-32b, mixtral's expert and router GEMMs and its
+               attention (8, 128) / (32, 128), gemma3's D 256, deepseek's
+               MLA projections, experts and prefill (16, 192), mamba2,
+               zamba2's SSD scan (7168, 64) and shared block) at x = 1,
+               16, 256 and 4096, each table once, with its own launch
+               count.  Then those three kernels against their plain
+               versions at the profile's largest shapes (decode also at
+               (16, 512)) and at the largest shapes of the other archs'
+               tables.
   6. flash   -- the flash-attention kernel's ``out`` and ``lse`` against
                ``flash_attention_plain`` on the card, fp32 and bf16: the
                training shape of qwen2-0.5b, internlm2-1.8b's heads, a
@@ -243,7 +252,8 @@ entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 ``rmsnorm/train``, ``flash_attention/train``, ``rmsnorm/mamba2_train``,
 ``ssd_scan/mamba2_train``, ``decode_attention/profile``,
 ``flash_attention/profile``, ``ssd_scan/profile``,
-``rmsnorm/mixtral-serve``, ``decode_attention/mixtral-serve``,
+``decode_attention/profile-archs``, ``flash_attention/profile-archs``,
+``ssd_scan/profile-archs``, ``rmsnorm/mixtral-serve``, ``decode_attention/mixtral-serve``,
 ``rmsnorm/ssm-serve``, ``rmsnorm/gemma3-serve``,
 ``decode_attention/gemma3-serve``, ``rmsnorm/gemma3-train``,
 ``flash_attention/gemma3-train``, ``rmsnorm/deepseek-serve``,
@@ -276,7 +286,7 @@ simulator (``repro.core``) and the port; this script imports neither it
 nor ``repro``.  Its two entry points run on the card, or on the CPU with
 ``--device cpu``::
 
-    PYTHONPATH=src python3 -m apex_bridge.fig6 --size full
+    PYTHONPATH=src python3 -m apex_bridge.fig6 --arch mixtral-8x7b --size full
     PYTHONPATH=src python3 -m apex_bridge.fig6 --size reduced --device cpu
     PYTHONPATH=src python3 -m apex_bridge.serve --arch qwen2-0.5b
     PYTHONPATH=src python3 -m apex_bridge.serve --size reduced --device cpu
@@ -1541,48 +1551,96 @@ PROFILE_DECODE = (1, 2, 2, 64, 4096)
 PROFILE_MLA_DECODE = (1, 16, 16, 512, 4096)
 PROFILE_FLASH = (1, 90, 90, 14, 14, 64, None, 0)
 PROFILE_SSD = (1, 4096, 80, 64, 128, 128)
+# the other archs the engine serves: every table the simulator prices
+# them with at FULL and qwen2-0.5b's keys above lack, at these x
+PROFILE_ARCHS = ("internlm2-1.8b", "qwen1.5-32b", "mixtral-8x7b",
+                 "gemma3-12b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+                 "zamba2-7b")
+ARCH_PROFILE_X = (1, 16, 256, 4096)
+# the record's cases at the largest of those tables: qwen1.5-32b's decode
+# (40, 128) and prefill (40, 128) attention, zamba2's SSD scan (7168, 64)
+PROFILE_ARCHS_DECODE = (1, 40, 40, 128, 4096)
+PROFILE_ARCHS_FLASH = (1, 90, 90, 40, 40, 128, None, 0)
+PROFILE_ARCHS_SSD = (1, 4096, 112, 64, 64, 128)
 
 
 def profile_keys(cfg, ssm_cfg, grid):
     """``(op, axes, xs)`` of every table the simulator prices ``cfg`` (a
-    dense GQA decoder) with, by the arithmetic of ``repro/core/ir.py``:
-    per layer the fused QKV, output, gated up and down products, the LM
-    head (``ModelIR.lm_head_opcall``), decode and prefill attention, all
-    over ``grid``; then ``ssm_cfg``'s SSD scan at ``SSD_PROFILE_X``, and
+    dense GQA decoder) with (``arch_tables``) over ``grid``; then
+    ``ssm_cfg``'s SSD scan at ``SSD_PROFILE_X``, and
     deepseek-v2-lite-16b's MLA decode sample (MLA_DECODE_AXES) at
     MLA_PROFILE_X."""
-    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
-    d, q, kv = cfg.d_model, cfg.n_heads * hd, cfg.n_kv_heads * hd
-    up = (2 if cfg.ffn_gated else 1) * cfg.d_ff
-    keys = [("gemm", (n, k, "bf16"), grid)
-            for n, k in ((q + 2 * kv, d), (d, q), (up, d), (d, cfg.d_ff),
-                         (cfg.vocab_size, d))]
-    keys.append(("attn_decode", (cfg.n_kv_heads, hd, "bf16"), grid))
-    keys.append(("attn_prefill", (cfg.n_heads, hd, "bf16"), grid))
+    keys = [(op, axes, grid) for op, axes in arch_tables(cfg)]
     keys.append(("ssd_scan", (ssm_cfg.d_inner, ssm_cfg.d_state, "bf16"),
                  SSD_PROFILE_X))
     keys.append(("attn_decode", MLA_DECODE_AXES, MLA_PROFILE_X))
     return keys
 
 
-def profile_phase(torch, F):
-    """The port's op profiler (``repro_torch.core.profiles``) over every
-    table qwen2-0.5b FULL needs, mamba2-2.7b's SSD scan and deepseek's
-    MLA decode sample: wall and device time of each sample, each at or
-    above its bound (the work the simulator charges the sample,
-    ``_op_work``), and exactly one kernel launch per profiled attention
-    or scan call, the MLA samples' on the decode kernel's D 512 instance.
-    Returns the launches (the decode launches split into the D 512
-    instance's and the others') and the kernels' cases at the profile's
-    largest shapes."""
-    from repro_torch import configs as C
-    from repro_torch.core.profiles import _GRID, MeasuredBackend, _op_work
-    timer = MeasuredBackend(DEVICE, repeats=3)
-    grid = [x for x in _GRID if x <= PROFILE_X_MAX]
-    keys = profile_keys(C.get_config("qwen2-0.5b"),
-                        C.get_config("mamba2-2.7b"), grid)
-    reset_counts()
-    t0 = time.perf_counter()
+def arch_tables(cfg) -> list:
+    """``(op, axes)`` of every table the simulator prices ``cfg`` with
+    (an arch the engine serves), by the arithmetic of ``repro/core/ir.py``
+    and ``templates.moe_expert_gemms`` on one device in bf16: per cell of
+    the block its projections (MLA: W_q, W_dkv, W_ukv, W_o; SSM: in and
+    out), prefill and decode attention (MLA's decode over the latent),
+    the SSD scan, the MLP or the MoE router and expert (routed and shared
+    alike) GEMMs; zamba2's shared attention and MLP cells; the LM head.
+    deepseek's dense first layer is not in the IR (``to_ir`` ignores
+    ``first_k_dense``), so neither is its MLP."""
+    d, dt = cfg.d_model, "bf16"
+    keys = []
+
+    def gemm(n, k):
+        keys.append(("gemm", (n, k, dt)))
+
+    def mlp(d_ff):
+        gemm((2 if cfg.ffn_gated else 1) * d_ff, d)
+        gemm(d, d_ff)
+
+    def attention():
+        hd = cfg.head_dim or d // cfg.n_heads
+        q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+        gemm(q + 2 * kv, d)
+        gemm(d, q)
+        keys.append(("attn_prefill", (cfg.n_heads, hd, dt)))
+        keys.append(("attn_decode", (cfg.n_kv_heads, hd, dt)))
+
+    for spec in cfg.block_pattern:
+        if spec.kind == "ssm":
+            gemm(2 * cfg.d_inner + 2 * cfg.n_ssm_groups * cfg.d_state
+                 + cfg.n_ssd_heads, d)
+            gemm(d, cfg.d_inner)
+            keys.append(("ssd_scan", (cfg.d_inner, cfg.d_state, dt)))
+            continue
+        if cfg.attn_kind == "mla":
+            h, r = cfg.n_heads, cfg.kv_lora_rank
+            qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+            gemm(h * qk, d)
+            gemm(r + cfg.qk_rope_head_dim, d)
+            gemm(h * (cfg.qk_nope_head_dim + cfg.v_head_dim), r)
+            gemm(d, h * cfg.v_head_dim)
+            keys.append(("attn_prefill", (h, qk, dt)))
+            keys.append(("attn_decode", (h, r, dt)))
+        else:
+            attention()
+        if cfg.ffn_kind == "moe":
+            gemm(cfg.n_routed, d)
+            mlp(cfg.d_ff_expert)
+        elif cfg.ffn_kind == "dense":
+            mlp(cfg.d_ff)
+    if cfg.shared_attn:
+        attention()
+        mlp(cfg.shared_d_ff or cfg.d_ff)
+    gemm(cfg.vocab_size, d)
+    return list(dict.fromkeys(keys))
+
+
+def sample_tables(timer, keys) -> None:
+    """Each ``(op, axes, xs)`` table through ``timer`` (a
+    ``MeasuredBackend``): one line a table, each sample's wall and device
+    ms beside the bound of the work the simulator charges it; fails on a
+    time that is not finite or below its bound."""
+    from repro_torch.core.profiles import _op_work
     for op, axes, xs in keys:
         readings = []
         for x in xs:
@@ -1598,15 +1656,45 @@ def profile_phase(torch, F):
                      f"the bound")
             readings.append(text)
         say("profile", f"op table {op} {axes}: " + "; ".join(readings))
-    secs = time.perf_counter() - t0
-    launched = counts()
-    wide = decode_instances().get((MLA_DECODE_AXES[1], 1), 0)
+
+
+def expected_launches(timer) -> tuple:
+    """(rmsnorm, decode, flash, ssd) launches of ``timer``'s calls: one
+    kernel launch per profiled attention or scan call, no RMSNorm."""
     want = [0, 0, 0, 0]
     for op, i in PROFILE_KERNELS.items():
         want[i] = timer.calls[op]
-    if launched != tuple(want):
-        fail(f"profile: launches {launched}, expected {tuple(want)} from "
-             f"the profiler's calls {timer.calls}")
+    return tuple(want)
+
+
+def profile_phase(torch, F):
+    """The port's op profiler (``repro_torch.core.profiles``) over every
+    table qwen2-0.5b FULL needs, mamba2-2.7b's SSD scan and deepseek's
+    MLA decode sample: wall and device time of each sample, each at or
+    above its bound (the work the simulator charges the sample,
+    ``_op_work``), and exactly one kernel launch per profiled attention
+    or scan call, the MLA samples' on the decode kernel's D 512 instance;
+    then the same over the other engine archs' tables (``arch_tables``)
+    that those lack, at ``ARCH_PROFILE_X``.  Returns the launches (the
+    four kernels', the D 512 instance's, then the four kernels' in the
+    other archs' tables) and the kernels' cases at the largest shapes of
+    both."""
+    from repro_torch import configs as C
+    from repro_torch.core.profiles import _GRID, MeasuredBackend
+    timer = MeasuredBackend(DEVICE, repeats=3)
+    grid = [x for x in _GRID if x <= PROFILE_X_MAX]
+    keys = profile_keys(C.get_config("qwen2-0.5b"),
+                        C.get_config("mamba2-2.7b"), grid)
+    reset_counts()
+    t0 = time.perf_counter()
+    sample_tables(timer, keys)
+    secs = time.perf_counter() - t0
+    launched = counts()
+    wide = decode_instances().get((MLA_DECODE_AXES[1], 1), 0)
+    if launched != expected_launches(timer):
+        fail(f"profile: launches {launched}, expected "
+             f"{expected_launches(timer)} from the profiler's calls "
+             f"{timer.calls}")
     mla = len(MLA_PROFILE_X) * (1 + 2 * timer.repeats)
     if wide != mla:
         fail(f"profile: {wide} decode launches at D "
@@ -1619,6 +1707,26 @@ def profile_phase(torch, F):
         f"{launched[1]} ({wide} on the D {MLA_DECODE_AXES[1]} instance) "
         f"flash_attention {launched[2]} ssd_scan {launched[3]} rmsnorm "
         f"{launched[0]}")
+    done = {(op, axes) for op, axes, _ in keys}
+    arch_keys = [(op, axes, ARCH_PROFILE_X) for op, axes in dict.fromkeys(
+        k for arch in PROFILE_ARCHS for k in arch_tables(C.get_config(arch)))
+        if (op, axes) not in done]
+    arch_timer = MeasuredBackend(DEVICE, repeats=3)
+    reset_counts()
+    t0 = time.perf_counter()
+    sample_tables(arch_timer, arch_keys)
+    secs = time.perf_counter() - t0
+    arch_launched = counts()
+    if arch_launched != expected_launches(arch_timer):
+        fail(f"profile: the other archs' tables launched {arch_launched}, "
+             f"expected {expected_launches(arch_timer)} from the "
+             f"profiler's calls {arch_timer.calls}")
+    say("profile", f"{', '.join(PROFILE_ARCHS)}: {len(arch_keys)} more "
+        f"tables, {len(arch_keys) * len(ARCH_PROFILE_X)} samples in "
+        f"{secs:.1f} s | calls {arch_timer.calls} | launches "
+        f"decode_attention {arch_launched[1]} flash_attention "
+        f"{arch_launched[2]} ssd_scan {arch_launched[3]} rmsnorm "
+        f"{arch_launched[0]}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {
         ("decode_attention", PROFILE_DECODE, "bfloat16"): attention_case(
@@ -1630,11 +1738,18 @@ def profile_phase(torch, F):
         (PROFILE_FLASH, "bfloat16"): flash_case(torch, F, PROFILE_FLASH,
                                                 "bfloat16", gen),
         ("ssd_scan", PROFILE_SSD, "bfloat16"): ssd_case(
-            torch, PROFILE_SSD, "bfloat16", gen)}
+            torch, PROFILE_SSD, "bfloat16", gen),
+        ("decode_attention", PROFILE_ARCHS_DECODE, "bfloat16"):
+            attention_case(torch, F, PROFILE_ARCHS_DECODE,
+                           [PROFILE_ARCHS_DECODE[-1]], "bfloat16", gen),
+        (PROFILE_ARCHS_FLASH, "bfloat16"): flash_case(
+            torch, F, PROFILE_ARCHS_FLASH, "bfloat16", gen),
+        ("ssd_scan", PROFILE_ARCHS_SSD, "bfloat16"): ssd_case(
+            torch, PROFILE_ARCHS_SSD, "bfloat16", gen)}
     # fp32, ragged lengths over a batch of 3
     attention_case(torch, F, (3, *PROFILE_MLA_DECODE[1:]),
                    [1, 1000, 4096], "float32", gen, timed=False)
-    return (*launched, wide), results
+    return (*launched, wide, *arch_launched), results
 
 
 # -- 6. flash -----------------------------------------------------------------
@@ -4124,6 +4239,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--limits"]:
         limits_phase(torch, *sys.argv[2:3])
         return 0
+    if sys.argv[1:2] == ["--profile"]:
+        profile_phase(torch, F)
+        return 0
     results = kernels_phase(torch, F)
     results.update(fp8_kernel_cases(torch, F))
     model_phase(torch)
@@ -4236,6 +4354,12 @@ def main() -> int:
          ("decode_attention", PROFILE_MLA_DECODE), profiled[4]),
         ("flash_attention", "profile", (PROFILE_FLASH,), profiled[2]),
         ("ssd_scan", "profile", ("ssd_scan", PROFILE_SSD), profiled[3]),
+        ("decode_attention", "profile-archs",
+         ("decode_attention", PROFILE_ARCHS_DECODE), profiled[6]),
+        ("flash_attention", "profile-archs", (PROFILE_ARCHS_FLASH,),
+         profiled[7]),
+        ("ssd_scan", "profile-archs", ("ssd_scan", PROFILE_ARCHS_SSD),
+         profiled[8]),
         ("rmsnorm", "mixtral-serve", ("rmsnorm", (4, 1, 4096)), mixtral[0]),
         ("decode_attention", "mixtral-serve",
          ("decode_attention", MIXTRAL_DECODE), mixtral[1]),

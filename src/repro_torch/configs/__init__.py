@@ -65,6 +65,11 @@ def get_reduced(name: str) -> ModelConfig:
     return _module(name).REDUCED
 
 
+def all_configs() -> Dict[str, ModelConfig]:
+    """Module name -> FULL config of every architecture."""
+    return {a: get_config(a) for a in ARCHS}
+
+
 def shape_skips(name: str) -> Dict[str, str]:
     """shape id -> reason, for the dry-run cells this arch skips."""
     return getattr(_module(name), "SKIP_SHAPES", {})

@@ -15,13 +15,13 @@ from .attention import (blockwise_attention, gqa_attention,
                         mla_attention, mla_decode_step)
 from .mlp import init_mlp, mlp_forward
 from .moe import MoEParams, init_moe, moe_forward
-from .norms import rms_norm
+from .norms import layer_norm, rms_norm
 from .rope import apply_mrope, apply_rope, rope_angles
 from .ssm import init_mamba2, mamba2_decode_step, mamba2_forward
 
 __all__ = ["MoEParams", "apply_mrope", "apply_rope", "blockwise_attention",
            "gqa_attention", "gqa_decode_step", "init_attention",
            "init_mamba2", "init_mla", "init_mlp", "init_moe",
-           "mamba2_decode_step", "mamba2_forward", "mla_attention",
+           "layer_norm", "mamba2_decode_step", "mamba2_forward", "mla_attention",
            "mla_decode_step", "mlp_forward", "moe_forward", "rms_norm",
            "rope_angles"]

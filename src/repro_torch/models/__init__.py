@@ -4,7 +4,8 @@ encoder-decoder in ``encdec``."""
 
 from .config import EncoderConfig, LayerSpec, ModelConfig
 from .transformer import (decode_step, forward, init_cache, init_params,
-                          prefill, ring_size)
+                          param_count, prefill, ring_size)
 
 __all__ = ["EncoderConfig", "LayerSpec", "ModelConfig", "decode_step",
-           "forward", "init_cache", "init_params", "prefill", "ring_size"]
+           "forward", "init_cache", "init_params", "param_count", "prefill",
+           "ring_size"]

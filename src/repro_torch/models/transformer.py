@@ -253,6 +253,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
                        shared=shared)
 
 
+def param_count(params: nn.Module) -> int:
+    """The number of parameter values; zamba2's one shared block counts
+    once, as its one set of leaves does in the reference's pytree."""
+    return sum(p.numel() for p in params.parameters())
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None, cache_dtype=None, source_len: int = 0) -> dict:
     """All-zero cache: per GQA slot ``k``/``v`` (R, B, Smax, Hkv, D),
