@@ -38,10 +38,16 @@ Phases, one line each (the kernels phases print one line per case):
                through the kernels and through the plain versions on the
                same seeded weights and cache; logits compared, launches
                counted per step.
-  5. serve   -- ``ServingEngine`` on qwen2-0.5b FULL in bf16 serves 8
-               chat-trace requests through the port's serving entry
-               point; every request must finish with its token count, and
-               every decode step must have launched both decode kernels.
+  5. serve   -- the port's search-then-serve entry point
+               (``launch.serve.plan_and_serve``): APEX's plan search for
+               qwen2-0.5b FULL on ``h100x8`` on the port's simulator
+               (analytic tables; the baseline and best plan labels, their
+               end-to-end seconds, the plans priced and the search's
+               seconds; at least one plan priced and a finite best time
+               above 0), then ``ServingEngine`` on qwen2-0.5b FULL in
+               bf16 serves 8 chat-trace requests; every request must
+               finish with its token count, and every decode step must
+               have launched both decode kernels.
      reduced -- qwen2-0.5b REDUCED (head dim 8, which both attention
                wrappers zero-pad) and mixtral-8x7b REDUCED (head dim 16,
                window 16: rings of 32 slots, which the served prompts
@@ -75,6 +81,12 @@ Phases, one line each (the kernels phases print one line per case):
                versions at the profile's largest shapes (decode also at
                (16, 512)) and at the largest shapes of the other archs'
                tables.
+     predict -- the serve phase's engine run as the port's
+               ``PlanSimulator`` predicts it on ``h100_node(1)`` at its 4
+               slots (``launch.fig6.predictions``), on the profile phase's
+               tables (wall and device clock, nothing timed again) and on
+               the analytic tables: total, TTFT and TPOT means beside the
+               engine's.  Printed, not held.
   6. flash   -- the flash-attention kernel's ``out`` and ``lse`` against
                ``flash_attention_plain`` on the card, fp32 and bf16: the
                training shape of qwen2-0.5b, internlm2-1.8b's heads, a
@@ -279,17 +291,16 @@ line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, the script exits 1 at once.
 
-The profile phase runs the port's side of APEX's fidelity loop only.  The
-loop itself, the simulator scored against the engine, lives in the
-package ``src/apex_bridge``, the only code that imports both the
-simulator (``repro.core``) and the port; this script imports neither it
-nor ``repro``.  Its two entry points run on the card, or on the CPU with
-``--device cpu``::
+The serve, profile and predict phases run APEX's loop on the port alone:
+the simulator is the port's copy (``repro_torch.core``), and this script
+imports nothing of ``repro``.  The whole fidelity experiment (Fig. 6 over
+batch-size caps) and the search-then-serve entry point run on the card,
+or on the CPU with ``--device cpu``::
 
-    PYTHONPATH=src python3 -m apex_bridge.fig6 --arch mixtral-8x7b --size full
-    PYTHONPATH=src python3 -m apex_bridge.fig6 --size reduced --device cpu
-    PYTHONPATH=src python3 -m apex_bridge.serve --arch qwen2-0.5b
-    PYTHONPATH=src python3 -m apex_bridge.serve --size reduced --device cpu
+    PYTHONPATH=src python3 -m repro_torch.launch.fig6 --arch mixtral-8x7b --size full
+    PYTHONPATH=src python3 -m repro_torch.launch.fig6 --size reduced --device cpu
+    PYTHONPATH=src python3 -m repro_torch.launch.serve --arch qwen2-0.5b
+    PYTHONPATH=src python3 -m repro_torch.launch.serve --size reduced --device cpu
 """
 
 from __future__ import annotations
@@ -1452,31 +1463,58 @@ def profile_steps(torch, T, params, cfg, cache, toks) -> None:
 
 # -- 5. serve -----------------------------------------------------------------
 
+SEARCH_CLUSTER = "h100x8"
+
+
+def search_text(base, best) -> str:
+    """The plan search's baseline and best plan, held to a priced plan and
+    a finite best time above 0."""
+    e2e = best.best.e2e_latency
+    if best.num_schemes < 1 or not (math.isfinite(e2e) and e2e > 0):
+        fail(f"serve: the plan search priced {best.num_schemes} plans, "
+             f"best e2e {e2e}")
+    return (f"plan search for the FULL model on {SEARCH_CLUSTER} (the "
+            f"port's simulator, analytic tables): baseline "
+            f"{base.plan_label} e2e {base.e2e_latency:.3f} s, best "
+            f"{best.best.plan_label} e2e {e2e:.3f} s "
+            f"({base.e2e_latency / e2e:.3f}x), {best.num_schemes} plans "
+            f"priced ({best.num_feasible} feasible) in "
+            f"{best.search_seconds:.2f} s")
+
+
 def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
                 arch: str = "qwen2-0.5b", depth=None, max_len: int = 512,
                 requests: int = 8, prompt_cap: int = 128,
-                gen_cap: int = 64, instances=None):
+                gen_cap: int = 64, instances=None, search: bool = False):
     """``requests`` chat-trace requests (prompts cut to ``prompt_cap``,
     outputs to ``gen_cap``) served through ``launch.serve.serve`` in
     bf16 (at ``depth`` blocks if given) with caches of ``max_len``
     slots; every request must finish with its token count, and every
     step must launch exactly its kernels; with ``instances`` ((head dim,
     group) of the decode kernel), every decode attention on that
-    instance."""
+    instance.  With ``search``, through ``launch.serve.plan_and_serve``:
+    APEX's plan search for ``arch`` FULL on ``SEARCH_CLUSTER`` first.
+    Returns the launches, the engine's report and the requests served."""
     import dataclasses
 
-    from repro_torch.launch.serve import serve
+    from repro_torch.launch.serve import plan_and_serve, serve
     from repro_torch import configs as C
     cfg = (C.get_config if size == "full" else C.get_reduced)(arch)
     cfg = dataclasses.replace(cfg, block_repeat=depth or cfg.block_repeat)
     vocab = cfg.vocab_size
     torch.cuda.empty_cache()
+    engine = dict(arch=arch, size=size, requests=requests, max_batch=4,
+                  max_len=max_len, prompt_cap=prompt_cap, gen_cap=gen_cap,
+                  seed=0, device=DEVICE, log=lambda s: None, depth=depth)
     reset_counts()
-    report, reqs = serve(arch=arch, size=size, requests=requests,
-                         max_batch=4, max_len=max_len, prompt_cap=prompt_cap,
-                         gen_cap=gen_cap, seed=0, device=DEVICE,
-                         log=lambda s: None, depth=depth)
+    if search:
+        base, best, report, reqs = plan_and_serve(cluster=SEARCH_CLUSTER,
+                                                  **engine)
+    else:
+        report, reqs = serve(**engine)
     launched = counts()
+    if search:
+        say(phase, search_text(base, best))
     seen = decode_instances()
     if len(report.results) != len(reqs):
         fail(f"{phase}: {len(report.results)} of {len(reqs)} finished")
@@ -1512,7 +1550,7 @@ def serve_phase(torch, smi: str, size: str = "full", phase: str = "serve",
         f"{report.throughput:.1f} tok/s | launches rmsnorm {launched[0]} "
         f"decode_attention {launched[1]} ({per_step[0]} and {per_step[1]} "
         f"a step; decode instances by (head dim, group) {seen})")
-    return launched
+    return launched, report, reqs
 
 
 def reduced_phase(torch, smi: str) -> None:
@@ -1578,73 +1616,46 @@ def profile_keys(cfg, ssm_cfg, grid):
 
 
 def arch_tables(cfg) -> list:
-    """``(op, axes)`` of every table the simulator prices ``cfg`` with
-    (an arch the engine serves), by the arithmetic of ``repro/core/ir.py``
-    and ``templates.moe_expert_gemms`` on one device in bf16: per cell of
-    the block its projections (MLA: W_q, W_dkv, W_ukv, W_o; SSM: in and
-    out), prefill and decode attention (MLA's decode over the latent),
-    the SSD scan, the MLP or the MoE router and expert (routed and shared
-    alike) GEMMs; zamba2's shared attention and MLP cells; the LM head.
-    deepseek's dense first layer is not in the IR (``to_ir`` ignores
-    ``first_k_dense``), so neither is its MLP."""
-    d, dt = cfg.d_model, "bf16"
-    keys = []
+    """``(op, axes)`` of every table the port's simulator prices ``cfg``
+    with (an arch the engine serves) on one H100 in bf16, the heuristic
+    plan Fig. 6 prices: the keys its ``ProfileStore`` queries for one
+    iteration that prefills one prompt and decodes one sequence, in the
+    order it first queries them.  deepseek's dense first layer is not in
+    the IR (``to_ir`` ignores ``first_k_dense``), so neither is its MLP."""
+    from repro_torch.core import (AnalyticBackend, ApexSearch, PlanSimulator,
+                                  h100_node, heuristic_scheme, map_scheme)
+    from repro_torch.core.ir import Workload
+    keys = {}
 
-    def gemm(n, k):
-        keys.append(("gemm", (n, k, dt)))
+    class Recording(AnalyticBackend):
+        def measure(self, op, axes, x):
+            keys.setdefault((op, tuple(axes)))
+            return super().measure(op, axes, x)
 
-    def mlp(d_ff):
-        gemm((2 if cfg.ffn_gated else 1) * d_ff, d)
-        gemm(d, d_ff)
-
-    def attention():
-        hd = cfg.head_dim or d // cfg.n_heads
-        q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
-        gemm(q + 2 * kv, d)
-        gemm(d, q)
-        keys.append(("attn_prefill", (cfg.n_heads, hd, dt)))
-        keys.append(("attn_decode", (cfg.n_kv_heads, hd, dt)))
-
-    for spec in cfg.block_pattern:
-        if spec.kind == "ssm":
-            gemm(2 * cfg.d_inner + 2 * cfg.n_ssm_groups * cfg.d_state
-                 + cfg.n_ssd_heads, d)
-            gemm(d, cfg.d_inner)
-            keys.append(("ssd_scan", (cfg.d_inner, cfg.d_state, dt)))
-            continue
-        if cfg.attn_kind == "mla":
-            h, r = cfg.n_heads, cfg.kv_lora_rank
-            qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
-            gemm(h * qk, d)
-            gemm(r + cfg.qk_rope_head_dim, d)
-            gemm(h * (cfg.qk_nope_head_dim + cfg.v_head_dim), r)
-            gemm(d, h * cfg.v_head_dim)
-            keys.append(("attn_prefill", (h, qk, dt)))
-            keys.append(("attn_decode", (h, r, dt)))
-        else:
-            attention()
-        if cfg.ffn_kind == "moe":
-            gemm(cfg.n_routed, d)
-            mlp(cfg.d_ff_expert)
-        elif cfg.ffn_kind == "dense":
-            mlp(cfg.d_ff)
-    if cfg.shared_attn:
-        attention()
-        mlp(cfg.shared_d_ff or cfg.d_ff)
-    gemm(cfg.vocab_size, d)
-    return list(dict.fromkeys(keys))
+    model = cfg.to_ir()
+    cluster = h100_node(1)
+    search = ApexSearch(model, cluster, backend=Recording(cluster))
+    scheme = heuristic_scheme(model, 1, cluster, quant="bf16")
+    sim = PlanSimulator(map_scheme(scheme, cluster), search.store,
+                        search.coll)
+    sim.iteration_cost(Workload.from_batch([(16, 16)], [16], sim.windows,
+                                           batch_sequences=2))
+    return list(keys)
 
 
-def sample_tables(timer, keys) -> None:
+def sample_tables(timer, keys, samples: dict) -> None:
     """Each ``(op, axes, xs)`` table through ``timer`` (a
-    ``MeasuredBackend``): one line a table, each sample's wall and device
-    ms beside the bound of the work the simulator charges it; fails on a
-    time that is not finite or below its bound."""
+    ``MeasuredBackend``), kept in ``samples`` (``(op, axes, x)`` ->
+    ``(wall_s, device_s)``, as ``TorchMeasuredBackend`` keeps them): one
+    line a table, each sample's wall and device ms beside the bound of the
+    work the simulator charges it; fails on a time that is not finite or
+    below its bound."""
     from repro_torch.core.profiles import _op_work
     for op, axes, xs in keys:
         readings = []
         for x in xs:
             wall, dev = timer.measure(op, axes, float(x))
+            samples[(op, tuple(axes), float(x))] = (wall, dev)
             flops, nbytes, dtype = _op_work(op, axes, float(x))
             peak = FP32_FLOPS if dtype == "fp32" else BF16_FLOPS
             bound_s = max(nbytes / HBM_BYTES_PER_S, flops / peak)
@@ -1677,17 +1688,19 @@ def profile_phase(torch, F):
     then the same over the other engine archs' tables (``arch_tables``)
     that those lack, at ``ARCH_PROFILE_X``.  Returns the launches (the
     four kernels', the D 512 instance's, then the four kernels' in the
-    other archs' tables) and the kernels' cases at the largest shapes of
-    both."""
+    other archs' tables), the kernels' cases at the largest shapes of
+    both, and the samples of the first tables (qwen2-0.5b's and the two
+    extra ones)."""
     from repro_torch import configs as C
     from repro_torch.core.profiles import _GRID, MeasuredBackend
     timer = MeasuredBackend(DEVICE, repeats=3)
     grid = [x for x in _GRID if x <= PROFILE_X_MAX]
     keys = profile_keys(C.get_config("qwen2-0.5b"),
                         C.get_config("mamba2-2.7b"), grid)
+    samples = {}
     reset_counts()
     t0 = time.perf_counter()
-    sample_tables(timer, keys)
+    sample_tables(timer, keys, samples)
     secs = time.perf_counter() - t0
     launched = counts()
     wide = decode_instances().get((MLA_DECODE_AXES[1], 1), 0)
@@ -1714,7 +1727,7 @@ def profile_phase(torch, F):
     arch_timer = MeasuredBackend(DEVICE, repeats=3)
     reset_counts()
     t0 = time.perf_counter()
-    sample_tables(arch_timer, arch_keys)
+    sample_tables(arch_timer, arch_keys, {})
     secs = time.perf_counter() - t0
     arch_launched = counts()
     if arch_launched != expected_launches(arch_timer):
@@ -1749,7 +1762,66 @@ def profile_phase(torch, F):
     # fp32, ragged lengths over a batch of 3
     attention_case(torch, F, (3, *PROFILE_MLA_DECODE[1:]),
                    [1, 1000, 4096], "float32", gen, timed=False)
-    return (*launched, wide, *arch_launched), results
+    return (*launched, wide, *arch_launched), results, samples
+
+
+# -- predict ------------------------------------------------------------------
+
+PREDICT_CAP = 4          # the serve phase's slots
+
+
+def predict_phase(report, reqs, samples: dict, smi: str) -> None:
+    """The serve phase's engine run (``report`` of ``reqs``, all at t=0)
+    as the port's ``PlanSimulator`` predicts it on ``h100_node(1)``
+    (``launch.fig6.predictions``: the heuristic plan in bf16, a batch cap
+    of ``PREDICT_CAP``), on the profile phase's ``samples`` read on each
+    clock, and on the analytic tables: total, TTFT and TPOT means beside
+    the engine's.  Printed, not held; fails if a table would be timed
+    again (a key the profile phase did not sample) or a prediction is
+    infeasible or not finite."""
+    from repro_torch import configs as C
+    from repro_torch.core import AnalyticBackend, h100_node
+    from repro_torch.core.profiles import TorchMeasuredBackend
+    from repro_torch.launch.fig6 import predictions
+    t0 = time.perf_counter()
+    wall = TorchMeasuredBackend("wall", device=DEVICE)
+    wall.samples = dict(samples)
+    backends = {"wall": wall, "device": wall.sibling("device"),
+                "analytic": AnalyticBackend(h100_node(1))}
+    model = C.get_config("qwen2-0.5b").to_ir()
+    got = {name: predictions(
+        model, b, reqs, (PREDICT_CAP,),
+        None if name == "analytic" else PROFILE_X_MAX)[PREDICT_CAP]
+        for name, b in backends.items()}
+    secs = time.perf_counter() - t0
+    if sum(wall.timer.calls.values()) or len(wall.samples) != len(samples):
+        fail(f"predict: the prediction timed {wall.timer.calls} calls "
+             f"({len(wall.samples) - len(samples)} samples the profile "
+             f"phase did not take)")
+    for name, rep in got.items():
+        if not (rep.feasible and all(math.isfinite(v) for v in (
+                rep.e2e_latency, rep.ttft_mean, rep.tpot_mean))):
+            fail(f"predict: the {name} prediction is infeasible or not "
+                 f"finite: {rep}")
+
+    def row(name, total, ttft, tpot):
+        return (f"{name} {total:.4f} s / {ttft * 1e3:.2f} ms / "
+                f"{tpot * 1e3:.3f} ms")
+
+    say("predict", f"qwen2-0.5b FULL, {len(reqs)} requests at t=0, cap "
+        f"{PREDICT_CAP}, plan {got['wall'].plan_label} on h100_node(1), "
+        f"engine on {smi}; total / TTFT mean / TPOT mean: "
+        + row("engine", report.total_time, report.ttft_mean,
+              report.tpot_mean) + " | "
+        + " | ".join(
+            row(name, rep.e2e_latency, rep.ttft_mean, rep.tpot_mean)
+            + f" (total {rep.e2e_latency / report.total_time - 1:+.1%})"
+            for name, rep in got.items())
+        + f" | {got['wall'].iterations} simulated iterations, the "
+        f"engine's {report.iterations} and "
+        f"{sum(len(r['prompt']) for r in reqs)} prompt-replay steps; "
+        f"{len(samples)} profiled samples, none timed again; "
+        f"{secs:.2f} s")
 
 
 # -- 6. flash -----------------------------------------------------------------
@@ -2429,8 +2501,9 @@ def mixtral_phase(torch, smi: str):
     torch.cuda.empty_cache()
     model_phase(torch, phase="mixtral", arch="mixtral-8x7b",
                 depths=MIXTRAL_DEPTHS)
-    served = serve_phase(torch, smi, phase="mixtral", arch="mixtral-8x7b",
-                         depth=MIXTRAL_DEPTHS["bfloat16"])
+    served, _, _ = serve_phase(torch, smi, phase="mixtral",
+                               arch="mixtral-8x7b",
+                               depth=MIXTRAL_DEPTHS["bfloat16"])
     ring_phase(torch)
     return served
 
@@ -2646,8 +2719,9 @@ def gemma3_phase(torch, smi: str):
     model_phase(torch, phase="gemma3", arch="gemma3-12b",
                 dtypes=("bfloat16",), hold_logits=False, profile=True)
     ring_phase(torch, "gemma3-12b", GEMMA_RING, "gemma3")
-    served = serve_phase(torch, smi, phase="gemma3", arch="gemma3-12b",
-                         max_len=GEMMA_SERVE_MAX_LEN)
+    served, _, _ = serve_phase(torch, smi, phase="gemma3",
+                               arch="gemma3-12b",
+                               max_len=GEMMA_SERVE_MAX_LEN)
     trained = train_phase(torch, smi, GEMMA_TRAIN, "gemma3")
     train_parity_phase(torch, GEMMA_PARITY, depth=GEMMA_TRAIN["depth"],
                        phase="gemma3")
@@ -2792,8 +2866,9 @@ def deepseek_phase(torch, F, smi: str):
         f"layers) bf16 B {DEEPSEEK_FORWARD['batch']} x S "
         f"{DEEPSEEK_FORWARD['seq']}: {r['readings']}, launches rmsnorm "
         f"{r['launches'][0]} flash_attention {r['launches'][2]}")
-    served = serve_phase(torch, smi, phase="deepseek", arch=DEEPSEEK,
-                         instances=DEEPSEEK_INSTANCE, **DEEPSEEK_SERVE)
+    served, _, _ = serve_phase(torch, smi, phase="deepseek", arch=DEEPSEEK,
+                               instances=DEEPSEEK_INSTANCE,
+                               **DEEPSEEK_SERVE)
     return served, results
 
 
@@ -4245,10 +4320,11 @@ def main() -> int:
     results = kernels_phase(torch, F)
     results.update(fp8_kernel_cases(torch, F))
     model_phase(torch)
-    served = serve_phase(torch, smi)
+    served, serve_report, serve_reqs = serve_phase(torch, smi, search=True)
     reduced_phase(torch, smi)
-    profiled, profile_results = profile_phase(torch, F)
+    profiled, profile_results, samples = profile_phase(torch, F)
     results.update(profile_results)
+    predict_phase(serve_report, serve_reqs, samples, smi)
     results.update(flash_phase(torch, F))
     trained = train_phase(torch, smi)
     train_parity_phase(torch)

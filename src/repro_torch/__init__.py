@@ -1,10 +1,11 @@
-"""PyTorch/CUDA port of the real-execution half of the APEX reproduction.
+"""PyTorch/CUDA port of the APEX reproduction.
 
 The layout mirrors ``repro/`` (the JAX reference) so each module has an
 obvious counterpart: ``layers/``, ``models/``, ``kernels/``,
-``serving/engine.py``, ``launch/serve.py``.  This package imports only
-``torch``, ``numpy`` and the standard library; it keeps its own copies of
-the configuration schema and trace synthesis.
+``serving/engine.py``, ``launch/serve.py``, and APEX's planner and
+simulator in ``core/`` and ``serving/router.py``.  This package imports
+only ``torch``, ``numpy`` and the standard library; it keeps its own
+copies of the configuration schema, trace synthesis and the simulator.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.  On a
 CUDA tensor every ported kernel launches its hand-written CUDA C++ kernel

@@ -1,8 +1,16 @@
-"""Offline op profiler on one card: the port of ``MeasuredBackend`` in
-``repro/core/profiles.py`` (paper §3.5).
+"""Operation-level profiling results, and the offline op profiler on one
+card (paper §3.5): the port's ``repro/core/profiles.py``.
 
-The simulator prices every serving iteration from tables of ``(x, time)``
-samples, one table per ``(op, axes)`` key, sampled over ``_GRID``.
+The simulator prices every serving iteration from tables of ``(x, time,
+energy)`` samples, one table per ``(op, axes)`` key, sampled over
+``_GRID`` and interpolated linearly between them (``ProfileStore``).  A
+``ProfileBackend`` produces the samples: ``AnalyticBackend``, the
+roofline model of the target device, or ``TorchMeasuredBackend``, the
+samples ``MeasuredBackend`` times on the card.  ``_interp``,
+``ProfileBackend``, ``AnalyticBackend``, ``_op_work``, ``ProfileStore``
+and ``CollectiveModel`` are copies of the reference's and give its
+results bit for bit.
+
 ``MeasuredBackend.measure(op, axes, x)`` runs one sample of one op on the
 device and reads two clocks on it:
 
@@ -43,9 +51,10 @@ any other dtype raises, since the port has no int8 or fp8 kernels):
 
 Departures from the reference, which times jitted einsums on a CPU:
 
-  * it returns ``(wall_s, device_s)``, not ``(time_s, energy_j)``; energy
-    belongs to the simulator's ``PowerModel``, which the port does not
-    copy;
+  * it returns ``(wall_s, device_s)``, not ``(time_s, energy_j)``;
+    ``TorchMeasuredBackend`` reads one of the two clocks and charges
+    energy through the simulator's ``PowerModel`` at utilization 0.7,
+    as the reference's ``MeasuredBackend`` does;
   * a GEMM runs in its axes' dtype (the reference: fp32 whatever the
     dtype);
   * ``attn_decode`` keeps the reference's interface, which loses the GQA
@@ -71,15 +80,24 @@ kv_lora_rank)`` = (16, 512) for deepseek-v2-lite-16b: that sample runs
 the decode kernel's head-dim-512 instance, which takes group 1, all a
 sample's ``Hq = Hkv`` needs.
 
-``_op_work`` is a copy of the reference's work model: the FLOPs and bytes
-the simulator's analytic backend and roofline bound charge a sample.
+``_op_work`` is the work model: the FLOPs and bytes the analytic backend
+and the profiler's roofline bound charge a sample.
+
+``TorchMeasuredBackend`` is the ``ProfileBackend`` over the profiler:
+one clock of its two, ``"wall"`` or ``"device"``, with energy for
+``h100_node(1)``'s device.  One ``measure`` call of the profiler gives
+both clocks; the backends of a ``sibling`` pair share its samples, so one
+profiling pass fills the wall and the device tables.
 """
 
 from __future__ import annotations
 
+import bisect
+import copy
+import dataclasses
 import math
 import time
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,8 +107,12 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ssd_scan as _ssd
 
-# The profiler's grid of x points (a copy of the reference's): powers of
-# two from 1 to 2^40.
+from . import collectives as _coll
+from .cluster import Cluster, h100_node
+from .energy import PowerModel
+
+# Grid of interpolation x-points the profiler samples. Log-spaced powers
+# of two from 1 to 2^40 — covers token counts, qk products and byte sizes.
 _GRID = [2 ** i for i in range(0, 41)]
 
 DTYPES = {"bf16": torch.bfloat16, "fp16": torch.bfloat16,
@@ -105,9 +127,85 @@ FLUSH_BYTES = 128 << 20
 SLEEP_HZ = 2.0e9
 
 
+def _interp(points: List[Tuple[float, float, float]], x: float
+            ) -> Tuple[float, float]:
+    """Piecewise-linear interpolation over sorted (x, t, e) points."""
+    if x <= points[0][0]:
+        # Linear through origin below the grid (cost ~ 0 at x = 0).
+        x0, t0, e0 = points[0]
+        return t0 * x / x0, e0 * x / x0
+    if x >= points[-1][0]:
+        # Linear extrapolation using the last segment's slope.
+        (x0, t0, e0), (x1, t1, e1) = points[-2], points[-1]
+        dt = (t1 - t0) / (x1 - x0)
+        de = (e1 - e0) / (x1 - x0)
+        return t1 + dt * (x - x1), e1 + de * (x - x1)
+    xs = [p[0] for p in points]
+    i = bisect.bisect_right(xs, x)
+    (x0, t0, e0), (x1, t1, e1) = points[i - 1], points[i]
+    w = (x - x0) / (x1 - x0)
+    return t0 + w * (t1 - t0), e0 + w * (e1 - e0)
+
+
+class ProfileBackend:
+    """Produces one (time_s, energy_j) sample — the 'profiler' interface."""
+
+    def measure(self, op: str, axes: tuple, x: float) -> Tuple[float, float]:
+        raise NotImplementedError
+
+
+@dataclasses.dataclass
+class AnalyticBackend(ProfileBackend):
+    """Roofline-style analytic device model.
+
+    Time = max(flops / (peak * eff_c(x)), bytes / (hbm_bw * eff_m)) + launch
+    overhead.  The compute-efficiency curve ``eff_c`` saturates with
+    arithmetic intensity/batch (small GEMMs underutilize the MXU/tensor
+    cores) — this is what makes decode memory-bound and prefill
+    compute-bound in the simulation, matching §2.1.
+
+    ``freq_ghz`` scales compute and bandwidth linearly from the device's
+    base frequency (paper Table 4's 0.8 GHz rows); energy uses the
+    frequency-aware power model in core/energy.py.
+    """
+
+    cluster: Cluster
+    freq_ghz: Optional[float] = None
+    gemm_eff_max: float = 0.85
+    mem_eff: float = 0.80
+    launch_overhead_s: float = 4e-6
+
+    def __post_init__(self):
+        self.power = PowerModel(self.cluster.device,
+                                freq_ghz=self.freq_ghz)
+
+    def _rates(self, dtype: str) -> Tuple[float, float]:
+        dev = self.cluster.device
+        scale = 1.0
+        if self.freq_ghz is not None:
+            scale = self.freq_ghz / dev.base_freq_ghz
+        return dev.flops(dtype) * scale, dev.hbm_bw * self.mem_eff * scale
+
+    def measure(self, op: str, axes: tuple, x: float) -> Tuple[float, float]:
+        flops, nbytes, dtype = _op_work(op, axes, x)
+        peak, bw = self._rates(dtype)
+        # MXU efficiency saturates with the x variable (token count / size).
+        half = 256.0 if op == "gemm" else 4096.0
+        eff = self.gemm_eff_max * (x / (x + half))
+        t_compute = flops / (peak * max(eff, 1e-3))
+        t_mem = nbytes / bw
+        t = max(t_compute, t_mem) + self.launch_overhead_s
+        util = min(1.0, (flops / peak) / t) if t > 0 else 0.0
+        energy = self.power.energy(t, util)
+        return t, energy
+
+
 def _op_work(op: str, axes: tuple, x: float) -> Tuple[float, float, str]:
-    """(flops, bytes, dtype) the simulator charges one sample: a copy of
-    ``_op_work`` in ``repro/core/profiles.py``."""
+    """Recover (flops, bytes, dtype) for a profile sample point.
+
+    Mirrors the OpCall construction in core/ir.py so that analytic samples
+    land on the same work model the simulator reports MFU/MBU against.
+    """
     if op == "gemm":
         n, k, dtype = axes
         m = x
@@ -134,7 +232,10 @@ def _op_work(op: str, axes: tuple, x: float) -> Tuple[float, float, str]:
         flops = 6.0 * t * d_inner * d_state
         nbytes = 2.0 * t * d_inner * 2.0
         return flops, nbytes, dtype
-    raise KeyError(f"unknown profile op {op!r}; known: {OPS}")
+    if op in _coll.COLLECTIVE_FNS or op == "p2p":
+        # handled by CollectiveModel, not the device backend
+        raise ValueError(f"collective op {op} must go through CollectiveModel")
+    raise KeyError(f"unknown profile op {op!r}")
 
 
 def sample_dtype(name: str) -> torch.dtype:
@@ -273,3 +374,116 @@ class MeasuredBackend:
                     self.run(op, a)
                     device = min(device, time.perf_counter() - t0)
         return wall, device
+
+
+class ProfileStore:
+    """Grid-sampled profiling tables with linear interpolation.
+
+    Tables are built lazily: the first query for an (op, axes) key samples
+    the backend over the x-grid (bounded to a window around the query) and
+    caches the curve; subsequent queries interpolate.  ``grid_stride``
+    subsamples the grid (a stride of 2 keeps every 2nd power of two) to
+    emulate a sparser profiling run — used by tests to bound interpolation
+    error.  ``x_max`` caps the grid (measured backends can't run 2^40-token
+    GEMMs); queries beyond it extrapolate linearly.
+    """
+
+    def __init__(self, backend: ProfileBackend, grid_stride: int = 1,
+                 x_max: Optional[float] = None):
+        self.backend = backend
+        self.grid_stride = max(1, grid_stride)
+        self.x_max = x_max
+        self._tables: Dict[tuple, List[Tuple[float, float, float]]] = {}
+        self.lookups = 0
+        self.misses = 0
+
+    def _table(self, op: str, axes: tuple) -> List[Tuple[float, float, float]]:
+        key = (op, axes)
+        tbl = self._tables.get(key)
+        if tbl is None:
+            self.misses += 1
+            grid = [g for g in _GRID[:: self.grid_stride]
+                    if self.x_max is None or g <= self.x_max]
+            tbl = []
+            for gx in grid:
+                t, e = self.backend.measure(op, axes, float(gx))
+                tbl.append((float(gx), t, e))
+            self._tables[key] = tbl
+        return tbl
+
+    def query(self, op: str, axes: tuple, x: float) -> Tuple[float, float]:
+        """(time_s, energy_j) for one operation instance."""
+        self.lookups += 1
+        if x <= 0:
+            return 0.0, 0.0
+        return _interp(self._table(op, axes), x)
+
+    def time(self, op: str, axes: tuple, x: float) -> float:
+        return self.query(op, axes, x)[0]
+
+
+class CollectiveModel:
+    """Collective-communication lookup (paper profiles these separately).
+
+    Thin adapter over core/collectives.py cost functions + the energy model;
+    grouped here so search.py passes one object around.
+    """
+
+    def __init__(self, cluster: Cluster, freq_ghz: Optional[float] = None):
+        self.cluster = cluster
+        self.power = PowerModel(cluster.device, freq_ghz=freq_ghz)
+
+    def query(self, kind: str, nbytes: float, group_size: int
+              ) -> Tuple[float, float]:
+        if kind == "p2p":
+            t = _coll.p2p_time(nbytes, group_size, self.cluster)
+        else:
+            t = _coll.collective_time(kind, nbytes, group_size, self.cluster)
+        # Communication keeps devices at low compute utilization.
+        e = self.power.energy(t, utilization=0.15) * group_size
+        return t, e
+
+    def time(self, kind: str, nbytes: float, group_size: int) -> float:
+        return self.query(kind, nbytes, group_size)[0]
+
+
+CLOCKS = ("wall", "device")
+UTILIZATION = 0.7
+
+
+def _checked(clock: str) -> str:
+    if clock not in CLOCKS:
+        raise ValueError(f"clock must be one of {CLOCKS}, got {clock!r}")
+    return clock
+
+
+class TorchMeasuredBackend(ProfileBackend):
+    """Profile samples timed on ``device`` (CUDA unless the caller passes
+    ``device="cpu"``), read on ``clock``; energy for ``h100_node(1)``'s
+    device."""
+
+    def __init__(self, clock: str = "wall", device=None, repeats: int = 3):
+        self.clock = _checked(clock)
+        self.power = PowerModel(h100_node(1).device)
+        self.timer = MeasuredBackend(device, repeats)
+        # (op, axes, x) -> (wall_s, device_s)
+        self.samples: Dict[tuple, Tuple[float, float]] = {}
+
+    def sibling(self, clock: str) -> "TorchMeasuredBackend":
+        """A backend on ``clock`` that shares this one's profiler and
+        samples."""
+        other = copy.copy(self)
+        other.clock = _checked(clock)
+        return other
+
+    def sample(self, op: str, axes: tuple, x: float) -> Tuple[float, float]:
+        """``(wall_s, device_s)`` of one sample, timed on first use."""
+        key = (op, tuple(axes), float(x))
+        if key not in self.samples:
+            self.samples[key] = self.timer.measure(op, tuple(axes), x)
+        return self.samples[key]
+
+    def measure(self, op: str, axes: tuple, x: float) -> Tuple[float, float]:
+        wall, device = self.sample(op, axes, x)
+        t = wall if self.clock == "wall" else device
+        return t, self.power.energy(t, UTILIZATION)

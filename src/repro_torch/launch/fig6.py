@@ -21,7 +21,7 @@ total time is the actual, and three backends predict it:
 ``depth`` keeps the first ``depth`` blocks of the model at full width
 (``configs.at_depth``): mixtral-8x7b FULL is 93.4 GB in bf16 and one
 80 GB card holds 16 of its 32 layers.  The engine serves that cut and the
-simulator prices the same cut (``model_ir`` of the cut config): the
+simulator prices the same cut (``to_ir`` of the cut config): the
 simulator is scored on the model that ran, not scaled to the whole one.
 
 Each FULL arch has its own case (``FULL_CASES``: requests, prompt cap,
@@ -65,10 +65,10 @@ engine runs come from one process on one card (host clocks differ
 between hosts).  Before the timed runs an untimed engine run builds the
 kernels and warms the card.
 
-    PYTHONPATH=src python -m apex_bridge.fig6 --arch mixtral-8x7b --size full
-    PYTHONPATH=src python -m apex_bridge.fig6 --arch gemma3-12b --size full \\
+    PYTHONPATH=src python -m repro_torch.launch.fig6 --arch mixtral-8x7b --size full
+    PYTHONPATH=src python -m repro_torch.launch.fig6 --arch gemma3-12b --size full \\
         --depth 4
-    PYTHONPATH=src python -m apex_bridge.fig6 --size reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.fig6 --size reduced --device cpu
 """
 
 from __future__ import annotations
@@ -86,18 +86,17 @@ from unittest import mock
 
 import torch
 
-from repro.core import (AnalyticBackend, ApexSearch, BatchingPolicy,
-                        Request, h100_node)
-from repro.core.ir import Workload
-from repro.core.mapper import map_scheme
-from repro.core.planner import ParallelScheme, heuristic_scheme
-from repro.core.profiles import _op_work
-from repro.core.quant import get_format
-from repro.core.simulator import PlanSimulator
-from repro.core.templates import expected_activated
-
 from repro_torch import configs as C
-from repro_torch.core.profiles import SSD_HEAD_DIM
+from repro_torch.core import (AnalyticBackend, ApexSearch, BatchingPolicy,
+                              Request, h100_node)
+from repro_torch.core.ir import Workload
+from repro_torch.core.mapper import map_scheme
+from repro_torch.core.planner import ParallelScheme, heuristic_scheme
+from repro_torch.core.profiles import (SSD_HEAD_DIM, TorchMeasuredBackend,
+                                       _op_work)
+from repro_torch.core.quant import get_format
+from repro_torch.core.simulator import PlanSimulator
+from repro_torch.core.templates import expected_activated
 from repro_torch.data.requests import make_serving_requests
 from repro_torch.device import resolve_device
 from repro_torch.kernels import decode_attention as _decode
@@ -105,9 +104,6 @@ from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.launch.serve import stub_frontend
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ServingEngine
-
-from .ir import model_ir
-from .profiles import TorchMeasuredBackend
 
 ARCH = "qwen2-0.5b"
 # size -> (requests, prompt tokens at most, tokens generated, caps,
@@ -570,7 +566,7 @@ def run(size: str = "reduced", device=None,
             f"the reference skips its engine demo for it too")
     dev = resolve_device(device)
     cfg = C.at_depth(base, depth)
-    model = model_ir(cfg)
+    model = cfg.to_ir()
     card = card_text(dev)
     reqs = make_requests(cfg.vocab_size, case["requests"], case["ctx"],
                          case["gen"], seed)

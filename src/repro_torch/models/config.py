@@ -1,9 +1,10 @@
 """Model configuration schema (a copy of ``repro/models/config.py``).
 
 One ``ModelConfig`` describes every assigned architecture.  The port keeps
-its own copy so that it imports nothing of the JAX package; the converter
-to the simulator's Transformer IR (``to_ir``) belongs to the simulator and
-is left out.
+its own copy so that it imports nothing of the JAX package.  ``to_ir``
+converts it to the port's copy of the simulator's Transformer IR
+(``repro_torch.core.ir``), as the reference's does, for the families the
+port has configs for; another family raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,23 @@ class EncoderConfig:
     n_heads: int
     d_ff: int
     gated: bool = False                # Seamless uses plain FFN
+
+
+def _check_family(cfg: "ModelConfig") -> None:
+    """Raise for a config outside the GQA or MLA (dense or MoE FFN), SSM
+    (with or without a shared attention block) and encoder-decoder
+    families."""
+    unsupported = []
+    if cfg.attn_kind not in ("gqa", "mla"):
+        unsupported.append(f"attn_kind={cfg.attn_kind!r}")
+    if cfg.ffn_kind not in ("dense", "moe", "none"):
+        unsupported.append(f"ffn_kind={cfg.ffn_kind!r}")
+    if unsupported:
+        raise NotImplementedError(
+            f"{cfg.name}: no IR for {', '.join(unsupported)}; the port has "
+            f"configs for dense GQA decoders, MoE GQA and MLA decoders, "
+            f"Mamba2 (with zamba2's shared block) and encoder-decoders "
+            f"only")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,3 +131,73 @@ class ModelConfig:
             if self.d_inner % self.n_ssd_heads:
                 raise ValueError("d_inner must divide n_ssd_heads")
         del hd
+
+    # -- Transformer IR conversion (core/ir.py) ------------------------------
+
+    def to_ir(self):
+        """Convert to the APEX Transformer IR (the paper's §3.2.1).
+        The dense first layers of ``first_k_dense`` are not modelled: the
+        block repeats ``block_repeat`` times, as in the reference."""
+        from repro_torch.core import ir as IR
+        _check_family(self)
+        cells = []
+        for i, spec in enumerate(self.block_pattern):
+            if spec.kind == "ssm":
+                cells.append(IR.SSMCell(
+                    name=f"ssm{i}", d_model=self.d_model,
+                    d_inner=self.d_inner, d_state=self.d_state,
+                    n_ssd_heads=self.n_ssd_heads, d_conv=self.d_conv,
+                    n_groups=self.n_ssm_groups))
+                continue
+            if self.attn_kind == "mla":
+                cells.append(IR.MLACell(
+                    name=f"mla{i}", d_model=self.d_model,
+                    n_heads=self.n_heads, kv_lora_rank=self.kv_lora_rank,
+                    qk_nope_head_dim=self.qk_nope_head_dim,
+                    qk_rope_head_dim=self.qk_rope_head_dim,
+                    v_head_dim=self.v_head_dim))
+            else:
+                cells.append(IR.AttentionCell(
+                    name=f"attn{i}", d_model=self.d_model,
+                    n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+                    head_dim=self.resolved_head_dim,
+                    qkv_bias=self.qkv_bias, window=spec.window,
+                    rope=self.rope))
+            if self.cross_attn:
+                cells.append(IR.CrossAttentionCell(
+                    name=f"xattn{i}", d_model=self.d_model,
+                    n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+                    head_dim=self.resolved_head_dim,
+                    source_len=self.cross_source_len))
+            if self.ffn_kind == "moe":
+                cells.append(IR.MoECell(
+                    name=f"moe{i}", d_model=self.d_model,
+                    d_ff_expert=self.d_ff_expert, n_routed=self.n_routed,
+                    top_k=self.top_k, n_shared=self.n_shared,
+                    gated=self.ffn_gated))
+            elif self.ffn_kind == "dense":
+                cells.append(IR.MLPCell(
+                    name=f"mlp{i}", d_model=self.d_model, d_ff=self.d_ff,
+                    gated=self.ffn_gated))
+        if self.shared_attn:
+            cells.append(IR.AttentionCell(
+                name="shared_attn", d_model=self.d_model,
+                n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
+                head_dim=self.resolved_head_dim))
+            cells.append(IR.MLPCell(
+                name="shared_mlp", d_model=self.d_model,
+                d_ff=self.shared_d_ff or self.d_ff, gated=self.ffn_gated))
+        block = IR.Block(cells=tuple(cells), repeat=self.block_repeat)
+        enc = None
+        if self.encoder is not None:
+            e = self.encoder
+            enc = IR.Block(cells=(
+                IR.AttentionCell(name="enc_attn", d_model=e.d_model,
+                                 n_heads=e.n_heads, n_kv_heads=e.n_heads,
+                                 head_dim=e.d_model // e.n_heads),
+                IR.MLPCell(name="enc_mlp", d_model=e.d_model, d_ff=e.d_ff,
+                           gated=e.gated),
+            ), repeat=e.n_layers)
+        return IR.ModelIR(name=self.name, d_model=self.d_model,
+                          vocab_size=self.vocab_size, block=block,
+                          tie_embeddings=self.tie_embeddings, encoder=enc)

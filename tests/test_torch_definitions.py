@@ -1,7 +1,9 @@
 """The port against the JAX package definition by definition, on the CPU:
 ``param_count``, ``layer_norm`` and ``all_configs`` against the
-reference's, and every public function or class of a JAX-importing module
-of ``src/repro/`` against its counterpart in ``src/repro_torch/``."""
+reference's, every public function or class of a JAX-importing module of
+``src/repro/`` against its counterpart in ``src/repro_torch/``, and every
+public definition of the simulator's modules the port has copied against
+its copy, name for name."""
 
 import ast
 import dataclasses
@@ -61,10 +63,18 @@ COUNTERPARTS = {
     ("layers/ssm.py", "ssd_chunked"):
         ("kernels/ssd_scan.py", "ssd_scan_plain"),
 }
-# the simulator's classes beside ``MeasuredBackend`` in core/profiles.py:
-# the port does not carry the simulator (``apex_bridge`` joins the two)
-SIMULATOR = {"ProfileBackend", "AnalyticBackend", "ProfileStore",
-             "CollectiveModel"}
+# the simulator's modules (plain Python) the port copies, each under the
+# same path
+SIMULATOR = ("core/quant.py", "core/cluster.py", "core/collectives.py",
+             "core/energy.py", "core/ir.py", "core/templates.py",
+             "core/planner.py", "core/mapper.py", "core/trace.py",
+             "core/metrics.py", "core/faults.py", "core/batching.py",
+             "core/engine.py", "core/profiles.py", "core/simulator.py",
+             "core/search.py", "serving/router.py")
+# the simulator's modules of the next slice, not copied yet
+NEXT_SLICE = {"core/fluid.py", "core/multifid.py", "core/dynamic.py",
+              "disagg/__init__.py", "disagg/kv_transfer.py",
+              "disagg/pools.py", "disagg/simulate.py"}
 
 
 def _defined(path: Path) -> set:
@@ -95,8 +105,6 @@ def test_every_public_definition_of_the_jax_modules_has_a_counterpart():
                   if isinstance(n, (ast.FunctionDef, ast.ClassDef))
                   and not n.name.startswith("_")]
         for name in public:
-            if rel == "core/profiles.py" and name in SIMULATOR:
-                continue
             seen += 1
             where, want = COUNTERPARTS.get((rel, name), (rel, name))
             target = SRC / "repro_torch" / where
@@ -104,6 +112,57 @@ def test_every_public_definition_of_the_jax_modules_has_a_counterpart():
                 missing.append(f"{rel}:{name} -> {where}:{want}")
     assert seen > 80
     assert not missing, missing
+
+
+def _public(path: Path) -> list:
+    return [n.name for n in ast.parse(path.read_text()).body
+            if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+            and not n.name.startswith("_")]
+
+
+def test_every_public_definition_of_the_simulator_has_its_copy():
+    assert len(SIMULATOR) == 17 and len(NEXT_SLICE) == 7
+    missing, seen = [], 0
+    for rel in SIMULATOR:
+        target = SRC / "repro_torch" / rel
+        defined = _defined(target) if target.exists() else set()
+        for name in _public(SRC / "repro" / rel):
+            seen += 1
+            if name not in defined:
+                missing.append(f"{rel}:{name}")
+    assert seen > 120
+    assert not missing, missing
+
+
+def test_each_simulator_module_is_copied_or_in_the_next_slice():
+    """Every module of the reference's simulator (``core/``, ``disagg/``
+    and the router) is copied, or named for the next slice and absent."""
+    ref = {p.relative_to(SRC / "repro").as_posix()
+           for d in ("core", "disagg")
+           for p in (SRC / "repro" / d).glob("*.py")
+           if p.name != "__init__.py" or d == "disagg"}
+    ref.add("serving/router.py")
+    assert ref == set(SIMULATOR) | NEXT_SLICE
+    for rel in NEXT_SLICE:
+        assert not (SRC / "repro_torch" / rel).exists(), rel
+
+
+def test_core_exports_the_references_names_but_the_next_slices():
+    """``repro_torch.core`` exports what ``repro.core`` does, but the names
+    of the next slice's modules, plus ``TorchMeasuredBackend``."""
+    import repro.core as RCORE
+    import repro_torch.core as TCORE
+    deferred = set()
+    for node in ast.parse((SRC / "repro" / "core" / "__init__.py")
+                          .read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.module in (
+                "fluid", "multifid", "dynamic"):
+            deferred |= {a.asname or a.name for a in node.names}
+    assert deferred and deferred <= set(RCORE.__all__)
+    assert set(TCORE.__all__) == (set(RCORE.__all__) - deferred) | {
+        "TorchMeasuredBackend"}
+    for name in TCORE.__all__:
+        assert hasattr(TCORE, name), name
 
 
 def _reference_params(cfg, seed=0):

@@ -1,26 +1,27 @@
-"""Fig. 6 for every arch the port's engine serves (``apex_bridge.fig6
---arch/--depth``), on the CPU: the simulator prices the cut the engine
-serves, as the JAX package's IR of that cut; every engine arch runs end to
-end with its departure lines and the step breakdown; the smoke's profile
-tables are the simulator's."""
+"""Fig. 6 for every arch the port's engine serves (``repro_torch.launch.fig6
+--arch/--depth``), on the CPU: the port's simulator prices the cut the
+engine serves as the JAX package's simulator prices its IR of that cut;
+every engine arch runs end to end with its departure lines and the step
+breakdown; the smoke's profile tables are the port's simulator's."""
 
 import dataclasses
 import importlib.util
 import math
 from pathlib import Path
+from unittest import mock
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro import configs as RC  # noqa: E402
-from repro.core import AnalyticBackend, h100_node  # noqa: E402
-from repro.core.profiles import ProfileBackend  # noqa: E402
+from repro import core as R  # noqa: E402
 
-from apex_bridge import fig6  # noqa: E402
-from apex_bridge.ir import model_ir  # noqa: E402
-from apex_bridge.profiles import TorchMeasuredBackend  # noqa: E402
 from repro_torch import configs as C  # noqa: E402
+from repro_torch.core import AnalyticBackend, h100_node  # noqa: E402
+from repro_torch.core.profiles import ProfileBackend  # noqa: E402
+from repro_torch.core.profiles import TorchMeasuredBackend  # noqa: E402
+from repro_torch.launch import fig6  # noqa: E402
 
 ENGINE_ARCHS = ["internlm2-1.8b", "qwen1.5-32b", "mixtral-8x7b",
                 "gemma3-12b", "deepseek-v2-lite-16b", "mamba2-2.7b",
@@ -56,6 +57,17 @@ def _smoke():
     return mod
 
 
+def reference_predictions(model, reqs, caps):
+    """``fig6.predictions`` run on the JAX package's simulator (its search,
+    plan, request and policy classes and its analytic backend)."""
+    with mock.patch.multiple(fig6, ApexSearch=R.ApexSearch,
+                             BatchingPolicy=R.BatchingPolicy,
+                             Request=R.Request, h100_node=R.h100_node,
+                             heuristic_scheme=R.heuristic_scheme):
+        return fig6.predictions(model, R.AnalyticBackend(R.h100_node(1)),
+                                reqs, caps, None)
+
+
 class Recording(ProfileBackend):
     """The analytic backend, keeping the ``(op, axes)`` of each sample."""
 
@@ -76,12 +88,12 @@ def test_analytic_predictions_equal_the_jax_packages_ir_of_the_cut(arch,
     depth = base.block_repeat - 1 if cut else base.block_repeat
     cfg = C.at_depth(base, depth)
     reqs = fig6.make_requests(cfg.vocab_size, 6, 12, 8, seed=0)
-    args = (AnalyticBackend(h100_node(1)), reqs, (1, 4), None)
-    port = fig6.predictions(model_ir(cfg), *args)
+    port = fig6.predictions(cfg.to_ir(), AnalyticBackend(h100_node(1)),
+                            reqs, (1, 4), None)
     ref_ir = dataclasses.replace(RC.get_reduced(arch),
                                  block_repeat=depth).to_ir()
-    ref = fig6.predictions(ref_ir, *args)
-    assert model_ir(cfg).block.repeat == depth
+    ref = reference_predictions(ref_ir, reqs, (1, 4))
+    assert cfg.to_ir().block.repeat == depth
     for cap in (1, 4):
         assert port[cap].e2e_latency == ref[cap].e2e_latency
         assert port[cap].ttft_mean == ref[cap].ttft_mean
@@ -169,12 +181,11 @@ def test_check_samples_holds_each_sample_to_its_bound():
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", *ENGINE_ARCHS])
 def test_smoke_arch_tables_are_the_simulators_for_each_full_arch(arch):
-    """The smoke computes its tables without ``repro``; the simulator's
-    store fills the same keys for the FULL arch's Fig. 6 run and its step
-    breakdown."""
+    """The smoke's tables are those the port's simulator queries for the
+    FULL arch's Fig. 6 run and its step breakdown."""
     smoke = _smoke()
     cfg = C.at_depth(C.get_config(arch), fig6.case_of(arch, "full")["depth"])
-    model = model_ir(cfg)
+    model = cfg.to_ir()
     rec = Recording()
     reqs = fig6.make_requests(cfg.vocab_size, 4, 64, 16, seed=0)
     fig6.predictions(model, rec, reqs, (1, 4), None)

@@ -46,7 +46,17 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.launch.mesh",
                  "repro_torch.launch.shapes",
                  "repro_torch.launch.op_counts",
-                 "repro_torch.launch.dryrun"):
+                 "repro_torch.launch.dryrun",
+                 "repro_torch.launch.fig6",
+                 "repro_torch.core.quant", "repro_torch.core.cluster",
+                 "repro_torch.core.collectives", "repro_torch.core.energy",
+                 "repro_torch.core.ir", "repro_torch.core.templates",
+                 "repro_torch.core.planner", "repro_torch.core.mapper",
+                 "repro_torch.core.trace", "repro_torch.core.metrics",
+                 "repro_torch.core.faults", "repro_torch.core.batching",
+                 "repro_torch.core.engine", "repro_torch.core.profiles",
+                 "repro_torch.core.simulator", "repro_torch.core.search",
+                 "repro_torch.serving.router"):
         assert name in mods
     code = (
         "import importlib, sys\n"

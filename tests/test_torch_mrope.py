@@ -251,19 +251,18 @@ def test_train_step_on_the_embeds_batch_matches_reference(dtype):
 
 
 def test_serving_skips_the_stub_frontend_arch(monkeypatch):
-    """The port's serve entry point refuses qwen2-vl (the reference skips
-    its engine demo); the bridge runs the plan search, then skips the
-    engine."""
+    """The port's engine entry point refuses qwen2-vl (the reference skips
+    its engine demo); the search-then-serve entry point runs the plan
+    search, then skips the engine."""
     with pytest.raises(ValueError, match="stub-frontend"):
         port_serve.serve(ARCH, size="reduced", device="cpu")
-    from apex_bridge import serve as bridge_serve
 
     def no_engine(*args, **kwargs):
         raise AssertionError("the engine ran")
 
-    monkeypatch.setattr(bridge_serve.port_serve, "serve", no_engine)
+    monkeypatch.setattr(port_serve, "serve", no_engine)
     lines = []
-    base, best, report = bridge_serve.serve(arch=ARCH, size="reduced",
-                                            device="cpu", log=lines.append)
-    assert report is None and best.num_schemes > 0
+    base, best, report, reqs = port_serve.plan_and_serve(
+        arch=ARCH, size="reduced", device="cpu", log=lines.append)
+    assert report is None and reqs == [] and best.num_schemes > 0
     assert lines[-1] == "(reduced engine demo skipped: stub-frontend arch)"
