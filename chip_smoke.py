@@ -87,6 +87,28 @@ Phases, one line each (the kernels phases print one line per case):
                tables (wall and device clock, nothing timed again) and on
                the analytic tables: total, TTFT and TPOT means beside the
                engine's.  Printed, not held.
+  plan-modes -- the simulator's search modes on the H100's own op tables:
+               qwen2-0.5b FULL on ``h100_node(2)``, priced by a
+               ``TorchMeasuredBackend`` on the device clock seeded with the
+               profile phase's samples (x up to 4096), over
+               ``launch.serve``'s search trace (chat, 0.5 req/s, 64
+               requests), in this process (``jobs=1``): the joint
+               colocated + disaggregated search (plans of each family,
+               the best plan, the best disaggregated plan and its
+               objective), ``MultiFidelitySearch`` on the same trace (its
+               rungs, frontier and winner, and whether the winner is the
+               exact search's) and ``search(dynamic=...)`` over two
+               switching timetables on chat at 30 then 60 req/s (each
+               timetable's goodput, and whether one won).  At TP 2 the
+               ops take keys the profile phase did not sample (decode
+               attention (1, 64), prefill (7, 64), the sharded GEMMs):
+               one line per table of those samples, timed here, each held
+               to its bound; the decode and flash kernels must launch once
+               per profiled call.  Fails on a best plan that is
+               infeasible or not finite, or a search that raises.  Then
+               both kernels against their plain versions at the new
+               tables' largest shapes (decode (1, 1, 1, 64, 4096), flash
+               causal S 90 x 7 heads x D 64) and the phase's seconds.
   6. flash   -- the flash-attention kernel's ``out`` and ``lse`` against
                ``flash_attention_plain`` on the card, fp32 and bf16: the
                training shape of qwen2-0.5b, internlm2-1.8b's heads, a
@@ -284,18 +306,19 @@ entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 the log-sum-exp too), ``rmsnorm/fp8-serve``,
 ``decode_attention/fp8-serve`` (the e4m3 instance; its library time is
 none), ``rmsnorm/dryrun-train``,
-``flash_attention/dryrun-train``, each with that path's
+``flash_attention/dryrun-train``, ``decode_attention/plan-modes``,
+``flash_attention/plan-modes``, each with that path's
 launches and the kernel's numbers at that path's bf16 shape), the
 card's name and power limit as nvidia-smi prints them, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
 non-zero before the last line; without a CUDA device, or without the
 repository's ``src/repro_torch`` beside it, the script exits 1 at once.
 
-The serve, profile and predict phases run APEX's loop on the port alone:
-the simulator is the port's copy (``repro_torch.core``), and this script
-imports nothing of ``repro``.  The whole fidelity experiment (Fig. 6 over
-batch-size caps) and the search-then-serve entry point run on the card,
-or on the CPU with ``--device cpu``::
+The serve, profile, predict and plan-modes phases run APEX's loop on the
+port alone: the simulator is the port's copy (``repro_torch.core``), and
+this script imports nothing of ``repro``.  The whole fidelity experiment
+(Fig. 6 over batch-size caps) and the search-then-serve entry point run on
+the card, or on the CPU with ``--device cpu``::
 
     PYTHONPATH=src python3 -m repro_torch.launch.fig6 --arch mixtral-8x7b --size full
     PYTHONPATH=src python3 -m repro_torch.launch.fig6 --size reduced --device cpu
@@ -657,14 +680,19 @@ def in_turn(fn, arg_sets):
 
 
 def attention_case(torch, F, shape, lengths, dtype_name, gen,
-                   timed: bool = True, copies: int = 1, dv=None) -> dict:
+                   timed: bool = True, copies: int = 1, dv=None,
+                   draws: int = 1) -> dict:
     """One decode-attention case; ``copies`` > 1 times the calls over that
     many caches in turn, so a cache that fits the 50 MB L2 is read cold
     as a serving step reads it.  ``dv``: v's head dim where it is not D
     (MLA); the wrapper then pads q, k and v to one width, its time
     includes those copies, and the kernel alone is timed on inputs padded
     beforehand, as it is for a head dim the wrapper pads (zamba2's 112
-    to 128).  The bound counts the unpadded bytes."""
+    to 128).  The bound counts the unpadded bytes.  ``draws`` > 1 holds
+    the comparison over that many draws of the inputs at this shape,
+    every element to TOL and the share not bit-equal over all of them
+    (one head of D 64 has 64 outputs: one rounding flip is 1/64 of a
+    draw, above DIFFER_MAX, so one draw says nothing of the share)."""
     from repro_torch.kernels import decode_attention as da
     B, Hq, Hkv, D, smax = shape
     dv = dv or D
@@ -672,12 +700,21 @@ def attention_case(torch, F, shape, lengths, dtype_name, gen,
     q, k, v, lens = attention_inputs(torch, B, Hq, Hkv, D, smax, lengths,
                                      dt, gen, dv)
     got = da.decode_attention(q, k, v, lens)
+    outs = [(got, da.decode_attention_plain(q, k, v, lens))]
+    for _ in range(draws - 1):
+        more = attention_inputs(torch, B, Hq, Hkv, D, smax, lengths, dt,
+                                gen, dv)
+        outs.append((da.decode_attention(*more),
+                     da.decode_attention_plain(*more)))
+        del more
     torch.cuda.synchronize()
     what = (f"decode_attention {shape}{f' Dv {dv}' if dv != D else ''} "
-            f"lengths {lengths} {dtype_name}")
-    err, differ = compare(torch, got,
-                          da.decode_attention_plain(q, k, v, lens),
+            f"lengths {lengths} {dtype_name}"
+            f"{f' over {draws} draws' if draws > 1 else ''}")
+    err, differ = compare(torch, torch.cat([o.flatten() for o, _ in outs]),
+                          torch.cat([p.flatten() for _, p in outs]),
                           dtype_name, what)
+    del outs
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     grid_text = (f"grid {'x'.join(map(str, da.grid(q, k)))} blocks (span "
                  f"{da.split_plan(smax, B * Hkv, sms)[0]}) on {sms} SMs")
@@ -720,8 +757,8 @@ def attention_case(torch, F, shape, lengths, dtype_name, gen,
     say("kernels", f"decode_attention q {(B, Hq, D)} k/v "
         f"{(B, smax, Hkv, D)}{f' v Dv {dv}' if dv != D else ''} lengths "
         f"{lengths} {dtype_name}: max_abs_err "
-        f"{err:.3e} ({tol_text(dtype_name)}), not bit-equal {differ:.2e} "
-        f"| kernel "
+        f"{err:.3e} ({tol_text(dtype_name)}), not bit-equal {differ:.2e}"
+        f"{f' over {draws} draws' if draws > 1 else ''} | kernel "
         f"{ms:.4f} ms{alone} plain {plain_ms:.4f} ms library(SDPA) "
         f"{library_ms:.4f} ms bound {bound_ms:.5f} ms ({bound_by}, "
         f"{nbytes} B{cold}) | {grid_text}")
@@ -1643,29 +1680,34 @@ def arch_tables(cfg) -> list:
     return list(keys)
 
 
+def sample_text(phase: str, op: str, axes, x: float, wall: float,
+                dev: float) -> str:
+    """One sample's wall and device ms beside the bound of the work the
+    simulator charges it; fails on a time that is not finite or below its
+    bound."""
+    from repro_torch.core.profiles import _op_work
+    flops, nbytes, dtype = _op_work(op, axes, float(x))
+    peak = FP32_FLOPS if dtype == "fp32" else BF16_FLOPS
+    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / peak)
+    text = (f"x {x:g}: wall {wall * 1e3:.4f} device {dev * 1e3:.4f} "
+            f"bound {bound_s * 1e3:.3g} ms")
+    if not (math.isfinite(wall) and math.isfinite(dev)) \
+            or min(wall, dev) < bound_s:
+        fail(f"{phase} {op} {axes} {text}: not finite or below the bound")
+    return text
+
+
 def sample_tables(timer, keys, samples: dict) -> None:
     """Each ``(op, axes, xs)`` table through ``timer`` (a
     ``MeasuredBackend``), kept in ``samples`` (``(op, axes, x)`` ->
     ``(wall_s, device_s)``, as ``TorchMeasuredBackend`` keeps them): one
-    line a table, each sample's wall and device ms beside the bound of the
-    work the simulator charges it; fails on a time that is not finite or
-    below its bound."""
-    from repro_torch.core.profiles import _op_work
+    line a table, each sample checked by ``sample_text``."""
     for op, axes, xs in keys:
         readings = []
         for x in xs:
             wall, dev = timer.measure(op, axes, float(x))
             samples[(op, tuple(axes), float(x))] = (wall, dev)
-            flops, nbytes, dtype = _op_work(op, axes, float(x))
-            peak = FP32_FLOPS if dtype == "fp32" else BF16_FLOPS
-            bound_s = max(nbytes / HBM_BYTES_PER_S, flops / peak)
-            text = (f"x {x}: wall {wall * 1e3:.4f} device {dev * 1e3:.4f} "
-                    f"bound {bound_s * 1e3:.3g} ms")
-            if not (math.isfinite(wall) and math.isfinite(dev)) \
-                    or min(wall, dev) < bound_s:
-                fail(f"profile {op} {axes} {text}: not finite or below "
-                     f"the bound")
-            readings.append(text)
+            readings.append(sample_text("profile", op, axes, x, wall, dev))
         say("profile", f"op table {op} {axes}: " + "; ".join(readings))
 
 
@@ -1822,6 +1864,172 @@ def predict_phase(report, reqs, samples: dict, smi: str) -> None:
         f"{sum(len(r['prompt']) for r in reqs)} prompt-replay steps; "
         f"{len(samples)} profiled samples, none timed again; "
         f"{secs:.2f} s")
+
+
+# -- plan-modes ---------------------------------------------------------------
+
+# qwen2-0.5b FULL on h100_node(PLAN_DEVICES): at TP 2 its ops take keys
+# the profile phase did not sample (decode attention over 1 KV head,
+# prefill over 7 heads, the sharded GEMMs), timed here on first use
+PLAN_DEVICES = 2
+# the dynamic search's trace: chat at two levels of load, as
+# tests/test_dynamic.py builds its non-stationary trace
+PLAN_DYNAMIC = dict(num_requests=60, seed=3, starts=(0.0, 1.0),
+                    rates=(30.0, 60.0))
+PLAN_DYNAMIC_SLO = dict(slo_ttft_s=0.5, slo_tpot_s=0.2)
+# the kernels' cases at the new tables' largest x: decode (B, Hq, Hkv, D,
+# Smax) over 4096 KV tokens of one KV head; flash causal at S 90 (area
+# 4095) over 7 heads
+PLAN_DECODE = (1, 1, 1, 64, 4096)
+# its 64 outputs a draw: the share not bit-equal is held over 32 draws
+PLAN_DECODE_DRAWS = 32
+PLAN_FLASH = (1, 90, 90, 7, 7, 64, None, 0)
+
+
+def finite_report(what: str, rep) -> str:
+    """``rep``'s e2e, TTFT p95 and TPOT p95; fails unless it is feasible
+    and all three are finite."""
+    vals = (rep.e2e_latency, rep.ttft_p95, rep.tpot_p95)
+    if not (rep.feasible and all(math.isfinite(v) for v in vals)):
+        fail(f"plan-modes: {what} {rep.plan_label} is infeasible or not "
+             f"finite: e2e {vals[0]} TTFT p95 {vals[1]} TPOT p95 {vals[2]}")
+    return (f"{rep.plan_label} e2e {vals[0]:.6f} s TTFT p95 "
+            f"{vals[1] * 1e3:.4f} ms TPOT p95 {vals[2] * 1e3:.4f} ms")
+
+
+def plan_modes_phase(torch, F, samples: dict, smi: str):
+    """The simulator's search modes on the H100's own op tables:
+    qwen2-0.5b FULL on ``h100_node(PLAN_DEVICES)``, priced by a
+    ``TorchMeasuredBackend`` on the device clock seeded with the profile
+    phase's ``samples`` (the store capped at ``PROFILE_X_MAX``), over
+    ``launch.serve``'s search trace, in this process (``jobs=1``): the
+    joint colocated + disaggregated search, the multi-fidelity search on
+    the same trace, and the dynamic search over two switching timetables
+    on a two-level trace.  Fails if a search raises, a best plan's report
+    is infeasible or not finite, a sample timed here is below its bound,
+    or the decode and flash kernels did not launch once per profiled
+    call.  Then both kernels against their plain versions at the new
+    tables' largest shapes.  Returns the launches and those cases."""
+    from repro_torch import configs as C
+    from repro_torch.core import (ApexSearch, DynamicSpec, EpochSchedule,
+                                  MultiFidelitySearch, PiecewiseRate,
+                                  get_trace, h100_node)
+    from repro_torch.core.profiles import TorchMeasuredBackend
+    from repro_torch.core.search import OBJECTIVES
+    from repro_torch.launch.serve import SEARCH_RATE, SEARCH_REQUESTS
+    t0 = time.perf_counter()
+    backend = TorchMeasuredBackend("device", device=DEVICE)
+    backend.samples = dict(samples)
+    model = C.get_config("qwen2-0.5b").to_ir()
+    search = ApexSearch(model, h100_node(PLAN_DEVICES), backend=backend)
+    search.store.x_max = PROFILE_X_MAX
+    reqs = get_trace("chat", arrival_rate=SEARCH_RATE,
+                     num_requests=SEARCH_REQUESTS)
+    opts = dict(quant="bf16", feasible_only=True, disaggregated=True,
+                jobs=1)
+    where = (f"qwen2-0.5b FULL on h100_node({PLAN_DEVICES}), bf16, "
+             f"tables timed on {smi} (device clock)")
+    reset_counts()
+    exact = search.search(reqs, **opts)
+    mf = MultiFidelitySearch(search).search(reqs, **opts)
+    dyn_reqs = get_trace("chat", num_requests=PLAN_DYNAMIC["num_requests"],
+                         seed=PLAN_DYNAMIC["seed"],
+                         arrival_rate=PiecewiseRate(
+                             starts=PLAN_DYNAMIC["starts"],
+                             rates=PLAN_DYNAMIC["rates"]))
+    flip = PLAN_DYNAMIC["starts"][1]
+    spec = DynamicSpec(top_k=2, mechanism="drain", schedules=(
+        EpochSchedule(epochs=((0.0, 0), (flip, 1))),
+        EpochSchedule(epochs=((0.0, 1), (flip, 0)))))
+    dyn = search.search(dyn_reqs, objective="goodput", dynamic=spec,
+                        **PLAN_DYNAMIC_SLO, **opts)
+    launched = counts()
+    if launched != expected_launches(backend.timer):
+        fail(f"plan-modes: launches {launched}, expected "
+             f"{expected_launches(backend.timer)} from the profiler's "
+             f"calls {backend.timer.calls}")
+    new = {}
+    for (op, axes, x), (wall, dev) in backend.samples.items():
+        if (op, axes, x) not in samples:
+            new.setdefault((op, axes), []).append(
+                sample_text("plan-modes", op, axes, x, wall, dev))
+    for (op, axes), readings in new.items():
+        say("plan-modes", f"op table {op} {axes}: " + "; ".join(readings))
+    say("plan-modes", f"{sum(map(len, new.values()))} samples of "
+        f"{len(new)} tables timed here (beside the profile phase's "
+        f"{len(samples)}) | calls {backend.timer.calls} | "
+        f"launches decode_attention {launched[1]} flash_attention "
+        f"{launched[2]} ssd_scan {launched[3]} rmsnorm {launched[0]}")
+
+    key = OBJECTIVES[exact.objective]
+    disagg = [r for r in exact.all_reports
+              if r.plan_label.startswith("disagg[")]
+    admitted = [r for r in disagg if exact.admissible(r)]
+    if not admitted:
+        fail(f"plan-modes: no feasible disaggregated plan among "
+             f"{len(disagg)} priced")
+    best_disagg = min(admitted, key=key)
+    say("plan-modes", f"search(disaggregated=True, feasible_only=True) "
+        f"{where}, chat {SEARCH_RATE} req/s x {SEARCH_REQUESTS}: "
+        f"{exact.num_schemes - len(disagg)} colocated and {len(disagg)} "
+        f"disaggregated plans priced ({exact.num_feasible} feasible) in "
+        f"{exact.search_seconds:.2f} s | best "
+        + finite_report("the best plan", exact.best)
+        + " | best disaggregated "
+        + finite_report("the best disaggregated plan", best_disagg)
+        + f" ({exact.objective} {key(best_disagg):.9g} against "
+        f"{key(exact.best):.9g}: disaggregated "
+        f"{'wins' if key(best_disagg) < key(exact.best) else 'loses'})")
+
+    frontier = [mf.surrogate_reports[i].plan_label
+                for i in mf.survivor_indices]
+    rungs = "; ".join(f"{r.fraction:.0%} of the trace ({r.n_requests} "
+                      f"requests) {r.evaluated} -> {r.promoted}"
+                      for r in mf.rungs) or "none"
+    say("plan-modes", f"MultiFidelitySearch on the same trace: "
+        f"{mf.num_candidates} candidates screened by the fluid surrogate "
+        f"in {mf.screen_seconds:.3f} s, {mf.screen_survivors} survived "
+        f"screening; rungs: {rungs}; frontier {frontier} confirmed "
+        f"exactly in {mf.confirm_seconds:.3f} s | winner "
+        + finite_report("the multi-fidelity winner", mf.best)
+        + f" | equals the exact search's: "
+        f"{mf.best.plan_label == exact.best.plan_label} "
+        f"({exact.objective} {key(mf.best):.9g} against "
+        f"{key(exact.best):.9g})")
+
+    switching = [r for r in dyn.all_reports if r.reconfig is not None]
+    if len(switching) != len(spec.schedules):
+        fail(f"plan-modes: {len(switching)} switching timetables priced, "
+             f"expected {len(spec.schedules)}")
+    static = max((r for r in dyn.all_reports
+                  if r.reconfig is None and dyn.admissible(r)),
+                 key=lambda r: r.goodput_rps)
+    say("plan-modes", f"search(dynamic=DynamicSpec(top_k=2, drain)) on "
+        f"chat at {PLAN_DYNAMIC['rates'][0]:g} then "
+        f"{PLAN_DYNAMIC['rates'][1]:g} req/s from t={flip:g} s "
+        f"({len(dyn_reqs)} requests), goodput under TTFT p95 <= "
+        f"{PLAN_DYNAMIC_SLO['slo_ttft_s']} s and TPOT p95 <= "
+        f"{PLAN_DYNAMIC_SLO['slo_tpot_s']} s, {dyn.num_schemes} plans "
+        f"and timetables in {dyn.search_seconds:.2f} s: "
+        + "; ".join(f"{r.plan_label} goodput {r.goodput_rps:.4f} req/s "
+                    f"({r.reconfig.num_switches} switch, reshard "
+                    f"{r.reconfig.total_reshard_s * 1e3:.3f} ms)"
+                    for r in switching)
+        + f" | best static {static.plan_label} goodput "
+        f"{static.goodput_rps:.4f} req/s | winner "
+        + finite_report("the dynamic search's winner", dyn.best)
+        + f" goodput {dyn.best.goodput_rps:.4f} req/s; a switching "
+        f"timetable won: {dyn.best.reconfig is not None}")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    results = {
+        ("decode_attention", PLAN_DECODE, "bfloat16"): attention_case(
+            torch, F, PLAN_DECODE, [PLAN_DECODE[-1]], "bfloat16", gen,
+            draws=PLAN_DECODE_DRAWS),
+        (PLAN_FLASH, "bfloat16"): flash_case(torch, F, PLAN_FLASH,
+                                             "bfloat16", gen)}
+    say("plan-modes", f"phase {time.perf_counter() - t0:.1f} s")
+    return launched, results
 
 
 # -- 6. flash -----------------------------------------------------------------
@@ -4325,6 +4533,8 @@ def main() -> int:
     profiled, profile_results, samples = profile_phase(torch, F)
     results.update(profile_results)
     predict_phase(serve_report, serve_reqs, samples, smi)
+    planned, plan_results = plan_modes_phase(torch, F, samples, smi)
+    results.update(plan_results)
     results.update(flash_phase(torch, F))
     trained = train_phase(torch, smi)
     train_parity_phase(torch)
@@ -4499,6 +4709,9 @@ def main() -> int:
          dry_launched[0]),
         ("flash_attention", "dryrun-train", (DRYRUN_FLASH,),
          dry_launched[2]),
+        ("decode_attention", "plan-modes",
+         ("decode_attention", PLAN_DECODE), planned[1]),
+        ("flash_attention", "plan-modes", (PLAN_FLASH,), planned[2]),
     )
     kernels = []
     for name, path, key, n in paths:

@@ -2,17 +2,18 @@
 serving via dynamism-aware simulation (the port's ``repro/core``).
 
 The simulator (IR, clusters, planner, mapper, event engine, simulator,
-plan search) is plain Python, copied from the reference and giving its
-results bit for bit; it imports nothing of ``repro`` and computes nothing
-on a device.  ``profiles`` adds the one device-facing piece:
-``MeasuredBackend``, the op profiler that times on the card the ops the
-simulator's tables price, and ``TorchMeasuredBackend``, its samples as a
-``ProfileBackend``.  ``fluid``, ``multifid``, ``dynamic`` and the
-reference's ``disagg/`` are not copied yet: the search options that need
-them raise ``NotImplementedError``.
+plan search, fluid surrogate, multi-fidelity search, dynamic re-planning)
+is plain Python, copied from the reference and giving its results bit for
+bit; it imports nothing of ``repro`` and computes nothing on a device.
+``profiles`` adds the one device-facing piece: ``MeasuredBackend``, the op
+profiler that times on the card the ops the simulator's tables price, and
+``TorchMeasuredBackend``, its samples as a ``ProfileBackend``.
 """
 
 from .batching import BatchingModule, BatchingPolicy, BatchingResult
+from .dynamic import (DynamicPlanSimulator, DynamicSpec, EpochSchedule,
+                      ReconfigReport, SwitchCost, build_schedules,
+                      fault_schedule, reactive_schedule)
 from .engine import (ContinuousScheduler, Engine, PreemptionPolicy,
                      SacrificePolicy, SchedulerPolicy, SharedCostStore,
                      SharedLink, StaticScheduler, StepCostCache,
@@ -33,6 +34,8 @@ from .planner import (ParallelScheme, divisors, generate_schemes,
                       heuristic_scheme, prefilter_schemes)
 from .profiles import AnalyticBackend, CollectiveModel, MeasuredBackend, \
     ProfileBackend, ProfileStore, TorchMeasuredBackend
+from .fluid import FluidDisaggSimulator, FluidSimulator, TraceSummary
+from .multifid import MultiFidelityResult, MultiFidelitySearch, RungStat
 from .quant import FORMATS, QuantFormat, get_format, register_format
 from .search import (ApexSearch, PlanEvaluationError, SearchResult,
                      compare_three_plans, fork_map)
@@ -50,19 +53,22 @@ from .trace import (DEFAULT_SLO, ArrivalProcess, BurstProcess,
 __all__ = [
     "ApexSearch", "AnalyticBackend", "ArrivalProcess", "AttentionCell",
     "BatchingModule", "BurstProcess", "ConstantRate", "DiurnalRate",
-    "PiecewiseRate", "WindowReport", "as_arrival_process",
-    "windowed_metrics",
+    "DynamicPlanSimulator", "DynamicSpec", "EpochSchedule",
+    "PiecewiseRate", "ReconfigReport", "SwitchCost", "WindowReport",
+    "as_arrival_process", "build_schedules", "fault_schedule",
+    "reactive_schedule", "windowed_metrics",
     "BatchingPolicy", "BatchingResult", "Block", "Cell", "CellScheme",
     "CLUSTER_PRESETS", "ClassReport", "ClassTraffic", "Cluster",
     "CollectiveCall", "CollectiveModel",
     "ContinuousScheduler", "CrossAttentionCell", "DEFAULT_SLO",
     "DeviceSpec", "Engine",
-    "ExecutionPlan", "FORMATS",
+    "ExecutionPlan", "FORMATS", "FluidDisaggSimulator", "FluidSimulator",
     "FaultSchedule", "LinkDegradation",
     "MLACell", "MLPCell", "MeasuredBackend", "ModelIR", "MoECell",
+    "MultiFidelityResult", "MultiFidelitySearch", "RungStat",
     "NetworkLevel", "OpCall", "PlanEvaluationError", "PreemptionPolicy",
     "ReplicaFault", "ResilienceReport", "SLOClass", "Straggler",
-    "cost_fingerprint", "cpu_local", "fault_ensemble",
+    "TraceSummary", "cost_fingerprint", "cpu_local", "fault_ensemble",
     "fork_map", "normalize_faults",
     "ParallelScheme", "PlanSimulator", "ProfileBackend", "ProfileStore",
     "QuantFormat", "Request", "SSMCell", "SacrificePolicy",

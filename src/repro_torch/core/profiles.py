@@ -103,9 +103,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import decode_attention as _decode
-from repro_torch.kernels import flash_attention as _flash
-from repro_torch.kernels import ssd_scan as _ssd
 
 from . import collectives as _coll
 from .cluster import Cluster, h100_node
@@ -315,6 +312,11 @@ class MeasuredBackend:
         self.calls[op] += 1
         if op == "gemm":
             return torch.matmul(a["a"], a["b"])
+        # the wrappers load at first use, so that the simulator (``core``,
+        # ``disagg``) imports none of them
+        from repro_torch.kernels import decode_attention as _decode
+        from repro_torch.kernels import flash_attention as _flash
+        from repro_torch.kernels import ssd_scan as _ssd
         if op == "attn_decode":
             return _decode.decode_attention(a["q"], a["k"], a["v"],
                                             a["lengths"])

@@ -21,11 +21,8 @@ fans the per-plan simulations out across forked worker processes —
 plans are independent and every evaluation is a pure function of
 (plan, requests), so the parallel reports are identical to serial.
 
-The port's copy of ``repro/core/search.py``.  Three options reach
-modules the port has not copied yet and raise ``NotImplementedError``
-naming them, before any plan is simulated: ``disaggregated=True``
-(``disagg/``), ``make_simulator(fluid=True)`` (``core/fluid.py``) and
-``search(dynamic=...)`` (``core/dynamic.py``).
+The port's copy of ``repro/core/search.py``, whose results it gives bit
+for bit; it imports nothing of ``repro``.
 """
 
 from __future__ import annotations
@@ -74,17 +71,6 @@ OBJECTIVES = {
 # pools is None (shared cluster) or a (prefill_cluster, decode_cluster)
 # pair from a heterogeneous pool menu.
 Candidate = Tuple[str, object, Optional[tuple]]
-
-
-# the reference's disaggregated modules, not copied yet
-_DISAGG = "repro_torch.disagg (kv_transfer, pools, simulate)"
-
-
-def _not_ported(option: str, modules: str):
-    """Raise for an option whose modules the port has not copied yet."""
-    raise NotImplementedError(
-        f"{option} needs {modules}, which the port does not have yet; "
-        f"search without it")
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +263,19 @@ class ApexSearch:
         # share_step_costs=False restores fully private per-simulator
         # caches (results are bit-identical either way — tested).
         self.cost_store = SharedCostStore() if share_step_costs else None
+        # per-pool-cluster cost models for heterogeneous disagg candidates
+        self._pool_ctx: dict = {}
+
+    def _pool_cost_models(self, cluster: Cluster):
+        """(store, coll) for one pool cluster of a heterogeneous plan,
+        cached so every candidate pair sharing a pool reuses its tables."""
+        key = id(cluster)
+        if key not in self._pool_ctx:
+            backend = AnalyticBackend(cluster, freq_ghz=self.freq_ghz)
+            self._pool_ctx[key] = (
+                ProfileStore(backend, grid_stride=self.grid_stride),
+                CollectiveModel(cluster, freq_ghz=self.freq_ghz))
+        return self._pool_ctx[key]
 
     # -- single-plan evaluation -------------------------------------------------
 
@@ -345,7 +344,32 @@ class ApexSearch:
                                        for s in schemes]
         kv_model = None
         if disaggregated:
-            _not_ported("disaggregated=True", _DISAGG)
+            from ..disagg import (KVTransferModel, generate_disagg_schemes)
+            dschemes = generate_disagg_schemes(
+                self.model, self.cluster, quant=quant,
+                decode_quant=decode_quant,
+                feasible_only=True, transfer_mode=transfer_mode,
+                max_model_dp=max_model_dp, max_plans=max_disagg_plans)
+            kv_model = KVTransferModel(self.coll, mode=transfer_mode)
+            candidates += [("disagg", s, None) for s in dschemes]
+            if pool_menu:
+                budget = max_total_devices or self.cluster.num_devices
+                pairs = [(a, b) for a in pool_menu for b in pool_menu
+                         if a.num_devices + b.num_devices <= budget]
+                # menu pairs get their own candidate budget, split evenly
+                # so neither the shared-cluster split family nor an early
+                # pair starves the rest of slots
+                per_pair = max(1, max_disagg_plans // max(1, len(pairs)))
+                for pre_c, dec_c in pairs:
+                    hschemes = generate_disagg_schemes(
+                        self.model, quant=quant,
+                        decode_quant=decode_quant,
+                        feasible_only=True,
+                        transfer_mode=transfer_mode,
+                        max_model_dp=max_model_dp, max_plans=per_pair,
+                        prefill_cluster=pre_c, decode_cluster=dec_c)
+                    candidates += [("disagg", s, (pre_c, dec_c))
+                                   for s in hschemes]
         return candidates, kv_model
 
     def make_simulator(self, candidate: Candidate, kv_model=None,
@@ -356,14 +380,34 @@ class ApexSearch:
         from the same cost models the exact simulator would use, so the
         two fidelities disagree only on dynamics, never on step costs.
         """
-        family, scheme, _ = candidate
+        family, scheme, pools = candidate
+        cs = self.cost_store
+        if family == "colocated":
+            plan = map_scheme(scheme, self.cluster)
+            if fluid:
+                from .fluid import FluidSimulator
+                return plan, FluidSimulator(plan, self.store, self.coll,
+                                            cost_store=cs)
+            return plan, PlanSimulator(plan, self.store, self.coll,
+                                       cost_store=cs)
+        from ..disagg import DisaggSimulator, map_disagg_scheme
         if fluid:
-            _not_ported("fluid=True", "repro_torch.core.fluid")
-        if family != "colocated":
-            _not_ported(f"a {family!r} candidate", _DISAGG)
-        plan = map_scheme(scheme, self.cluster)
-        return plan, PlanSimulator(plan, self.store, self.coll,
-                                   cost_store=self.cost_store)
+            from .fluid import FluidDisaggSimulator
+            sim_cls = FluidDisaggSimulator
+        else:
+            sim_cls = DisaggSimulator
+        if pools is None:
+            plan = map_disagg_scheme(scheme, self.cluster)
+            return plan, sim_cls(plan, self.store, self.coll, kv_model,
+                                 cost_store=cs)
+        pre_c, dec_c = pools
+        plan = map_disagg_scheme(scheme, prefill_cluster=pre_c,
+                                 decode_cluster=dec_c)
+        pre_store, pre_coll = self._pool_cost_models(pre_c)
+        dec_store, dec_coll = self._pool_cost_models(dec_c)
+        return plan, sim_cls(plan, pre_store, pre_coll,
+                             decode_store=dec_store, decode_coll=dec_coll,
+                             cost_store=cs)
 
     # -- full search --------------------------------------------------------------
 
@@ -456,8 +500,6 @@ class ApexSearch:
                              f"one of {sorted(OBJECTIVES)}")
         if jobs < 0:
             raise ValueError(f"jobs must be >= 0, got {jobs}")
-        if dynamic is not None:
-            _not_ported("dynamic=...", "repro_torch.core.dynamic")
         from .faults import attach_resilience, normalize_faults
         faults = normalize_faults(faults)
         if objective == "degraded_goodput" and not faults:
@@ -514,7 +556,52 @@ class ApexSearch:
                               objective=objective,
                               slo_ttft_s=slo_ttft_s, slo_tpot_s=slo_tpot_s,
                               cache_hits=hits, cache_misses=misses)
-        return result
+        if dynamic is None or dynamic.is_empty:
+            return result
+        return self._extend_dynamic(result, dynamic, candidates, kv_model,
+                                    requests, obj, policy=policy,
+                                    preemption=preemption, t0=t0)
+
+    def _extend_dynamic(self, result: SearchResult, spec, candidates,
+                        kv_model, requests, obj,
+                        policy=None, preemption=None,
+                        t0: float = 0.0) -> SearchResult:
+        """Rank {static winners} ∪ {epoch schedules over the top-k static
+        plans} under one objective (``search(dynamic=...)``'s second
+        phase).  Schedule plan indices are ranks into the top-k list."""
+        from .dynamic import DynamicPlanSimulator, build_schedules
+        ranked = sorted((r for r in result.all_reports
+                         if result.admissible(r)), key=obj)[:spec.top_k]
+        by_label = {r.plan_label: i for i, r in enumerate(result.all_reports)}
+        top_cands = [candidates[by_label[r.plan_label]] for r in ranked]
+        if spec.mechanism == "migrate":
+            top_cands = [c for c in top_cands if c[0] == "colocated"]
+        if len(top_cands) < 2:
+            return result          # nothing to switch between
+        horizon = max((r.arrival for r in requests), default=0.0)
+        schedules = build_schedules(spec, requests, horizon, len(top_cands))
+        dyn_reports = []
+        for sched in schedules:
+            dyn = DynamicPlanSimulator(self, top_cands, sched,
+                                       kv_model=kv_model,
+                                       mechanism=spec.mechanism)
+            dyn_reports.append(dyn.simulate(
+                requests, policy=policy, preemption=preemption))
+        all_reports = result.all_reports + dyn_reports
+        merged = dataclasses.replace(
+            result, all_reports=all_reports,
+            num_schemes=result.num_schemes + len(dyn_reports),
+            num_feasible=sum(r.feasible for r in all_reports),
+            search_seconds=_time.perf_counter() - t0)
+        winners = [r for r in all_reports if merged.admissible(r)]
+        if winners:
+            best = min(winners, key=obj)
+            if best.plan_label != result.best.plan_label:
+                # a switching timetable won: best_plan stays the epoch-0
+                # static plan (the deployment you boot into); the full
+                # timetable lives in best.reconfig + the plan label
+                merged = dataclasses.replace(merged, best=best)
+        return merged
 
     def _evaluate_ranked(self, eval_one: Callable[[int], tuple], n: int,
                          obj: Objective,

@@ -70,11 +70,12 @@ SIMULATOR = ("core/quant.py", "core/cluster.py", "core/collectives.py",
              "core/planner.py", "core/mapper.py", "core/trace.py",
              "core/metrics.py", "core/faults.py", "core/batching.py",
              "core/engine.py", "core/profiles.py", "core/simulator.py",
-             "core/search.py", "serving/router.py")
-# the simulator's modules of the next slice, not copied yet
-NEXT_SLICE = {"core/fluid.py", "core/multifid.py", "core/dynamic.py",
-              "disagg/__init__.py", "disagg/kv_transfer.py",
-              "disagg/pools.py", "disagg/simulate.py"}
+             "core/search.py", "serving/router.py", "core/fluid.py",
+             "disagg/kv_transfer.py", "disagg/pools.py",
+             "disagg/simulate.py", "disagg/__init__.py",
+             "core/multifid.py", "core/dynamic.py")
+# the simulator's modules of the next slice, not copied yet: none left
+NEXT_SLICE = set()
 
 
 def _defined(path: Path) -> set:
@@ -121,7 +122,7 @@ def _public(path: Path) -> list:
 
 
 def test_every_public_definition_of_the_simulator_has_its_copy():
-    assert len(SIMULATOR) == 17 and len(NEXT_SLICE) == 7
+    assert len(SIMULATOR) == 24 and not NEXT_SLICE
     missing, seen = [], 0
     for rel in SIMULATOR:
         target = SRC / "repro_torch" / rel
@@ -130,7 +131,7 @@ def test_every_public_definition_of_the_simulator_has_its_copy():
             seen += 1
             if name not in defined:
                 missing.append(f"{rel}:{name}")
-    assert seen > 120
+    assert seen > 140
     assert not missing, missing
 
 
@@ -147,19 +148,14 @@ def test_each_simulator_module_is_copied_or_in_the_next_slice():
         assert not (SRC / "repro_torch" / rel).exists(), rel
 
 
-def test_core_exports_the_references_names_but_the_next_slices():
-    """``repro_torch.core`` exports what ``repro.core`` does, but the names
-    of the next slice's modules, plus ``TorchMeasuredBackend``."""
+def test_core_exports_the_references_names_and_torch_measured_backend():
+    """``repro_torch.core`` exports what ``repro.core`` does, plus
+    ``TorchMeasuredBackend``."""
     import repro.core as RCORE
     import repro_torch.core as TCORE
-    deferred = set()
-    for node in ast.parse((SRC / "repro" / "core" / "__init__.py")
-                          .read_text()).body:
-        if isinstance(node, ast.ImportFrom) and node.module in (
-                "fluid", "multifid", "dynamic"):
-            deferred |= {a.asname or a.name for a in node.names}
-    assert deferred and deferred <= set(RCORE.__all__)
-    assert set(TCORE.__all__) == (set(RCORE.__all__) - deferred) | {
+    assert {"FluidSimulator", "MultiFidelitySearch",
+            "DynamicPlanSimulator"} <= set(RCORE.__all__)
+    assert set(TCORE.__all__) == set(RCORE.__all__) | {
         "TorchMeasuredBackend"}
     for name in TCORE.__all__:
         assert hasattr(TCORE, name), name

@@ -56,7 +56,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
                  "repro_torch.core.faults", "repro_torch.core.batching",
                  "repro_torch.core.engine", "repro_torch.core.profiles",
                  "repro_torch.core.simulator", "repro_torch.core.search",
-                 "repro_torch.serving.router"):
+                 "repro_torch.serving.router", "repro_torch.core.fluid",
+                 "repro_torch.core.multifid", "repro_torch.core.dynamic",
+                 "repro_torch.disagg", "repro_torch.disagg.kv_transfer",
+                 "repro_torch.disagg.pools", "repro_torch.disagg.simulate"):
         assert name in mods
     code = (
         "import importlib, sys\n"

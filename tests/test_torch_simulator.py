@@ -6,8 +6,8 @@ device ids, the traces, the simulator's reports under each batching and
 preemption policy, the plan search and the routers' splits.  Each side is
 built from its own package (a port object fails the reference's
 ``isinstance`` checks), and ``plain`` turns both into builtins: floats
-compare with ``==``, a NaN only with a NaN.  The options whose modules the
-port has not copied yet raise ``NotImplementedError`` naming them."""
+compare with ``==``, a NaN only with a NaN.  The fluid, disaggregated,
+multi-fidelity and dynamic modes are ``test_torch_simulator_modes.py``'s."""
 
 import dataclasses
 import math
@@ -35,7 +35,8 @@ CORE = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "core"
 # too, which runs on the card
 COPIED = ("quant", "cluster", "collectives", "energy", "ir", "templates",
           "planner", "mapper", "trace", "metrics", "faults", "batching",
-          "engine", "simulator", "search")
+          "engine", "simulator", "search", "fluid", "multifid", "dynamic")
+DISAGG = ("__init__", "kv_transfer", "pools", "simulate")
 SCHEME_ARCHS = ("qwen2-0.5b", "mixtral-8x7b", "deepseek-v2-lite-16b")
 # device memory a little above each FULL arch's heuristic plan on 8 H100s
 # (weights alone): the 64 requests overflow the KV cache and preempt, so
@@ -93,6 +94,9 @@ def test_copied_modules_import_no_torch_and_nothing_of_repro():
     bad = re.compile(r"^\s*(import|from)\s+(torch|jax|repro)\b(?!_)", re.M)
     for name in COPIED:
         assert not bad.search((CORE / f"{name}.py").read_text()), name
+    for name in DISAGG:
+        path = CORE.parent / "disagg" / f"{name}.py"
+        assert not bad.search(path.read_text()), path.name
     router = CORE.parent / "serving" / "router.py"
     assert not bad.search(router.read_text())
 
@@ -278,37 +282,3 @@ def test_replica_router_runs_two_port_engines_on_the_cpu():
     for rep in reports:
         for res in rep.results:
             assert len(res.tokens) == max(by_rid[res.rid]["gen_len"], 2)
-
-
-def _deferred_search():
-    model = C.get_reduced("qwen2-0.5b").to_ir()
-    search = P.ApexSearch(model, P.h100_node(8))
-    return search, P.get_trace("chat", arrival_rate=0.5, num_requests=8)
-
-
-@pytest.mark.parametrize("option, module", [
-    ("disaggregated", "repro_torch.disagg"),
-    ("fluid", "repro_torch.core.fluid"),
-    ("disagg candidate", "repro_torch.disagg"),
-    ("dynamic", "repro_torch.core.dynamic"),
-])
-def test_deferred_options_raise_naming_their_module(option, module,
-                                                    monkeypatch):
-    """Before any plan is simulated: the search never runs without the
-    option."""
-    def never(*args, **kwargs):
-        raise AssertionError("a plan was simulated")
-
-    monkeypatch.setattr(P.PlanSimulator, "simulate", never)
-    search, reqs = _deferred_search()
-    scheme = P.heuristic_scheme(search.model, 8, cluster=search.cluster)
-    calls = {
-        "disaggregated": lambda: search.search(reqs, disaggregated=True),
-        "fluid": lambda: search.make_simulator(("colocated", scheme, None),
-                                               fluid=True),
-        "disagg candidate": lambda: search.make_simulator(
-            ("disagg", scheme, None)),
-        "dynamic": lambda: search.search(reqs, dynamic=object()),
-    }
-    with pytest.raises(NotImplementedError, match=re.escape(module)):
-        calls[option]()
