@@ -10,6 +10,11 @@
     python3 chip_smoke.py --limits zamba2-7b   # and zamba2
     python3 chip_smoke.py --limits parallel    # the parallel phase's bf16
 
+``--limits`` with gemma3-12b, seamless-m4t-large-v2, qwen2-vl-7b or
+zamba2-7b also prints, for each bf16 run at the whole depth, its fp32
+anchor's readings behind ANCHOR_RATIO (and zamba2-7b's bf16 train
+parity steps theirs, behind ZAMBA_UNHELD).
+
 Phases, one line each (the kernels phases print one line per case):
 
   1. probe   -- nvidia-smi name and power limit, torch, CUDA and nvcc
@@ -157,12 +162,13 @@ Phases, one line each (the kernels phases print one line per case):
                MoE routes, held to LOGIT_TOL and ARGMAX_FLOOR, with the
                share of routes the kernel run would have picked alike; a
                profiled bf16 step (device ms by family beside the 14 ms
-               it takes to read the weights once); 8 chat requests served
-               at depth 16 as in phase 5; and a ring check at depth 2,
+               it takes to read the weights once); 4 chat requests
+               (prompts cut to 32, outputs to 16) served at depth 16 as
+               in phase 5; and a ring check at depth 2,
                ``max_len`` 4608 (rings of 4112 slots), lengths 100 / 4111
                / 4112 / 9000, one step kernels vs plain in fp32 and bf16.
  11. ssm-serve -- ``ServingEngine`` serves mamba2-2.7b FULL (64 layers):
-               4 chat requests, prompts cut to 64, outputs to 16, 4 slots,
+               4 chat requests, prompts cut to 32, outputs to 8, 4 slots,
                the last request admitted into a reused slot; in bf16
                every request finishes with its token count and every step
                launches its RMSNorms; in fp32 each prefilled slot's SSM
@@ -174,13 +180,15 @@ Phases, one line each (the kernels phases print one line per case):
                seeded random weights: ``decode_step`` logits kernels vs
                plain in fp32 at 2 blocks and bf16 at 4 (24 layers), held
                to LOGIT_TOL and ARGMAX_FLOOR, and in bf16 at all 48
-               layers, held to ARGMAX_FLOOR (LOGIT_TOL does not hold
-               there: PERF.md); a profiled bf16 step beside
+               layers, held to ARGMAX_FLOOR and, against its fp32 anchor,
+               to ANCHOR_RATIO (LOGIT_TOL does not hold there: PERF.md);
+               a profiled bf16 step beside
                the 7.02 ms it takes to read the 23.5 GB of weights once;
                a ring check at one block (rings of 1040 slots beside a
                global cache of 4096, lengths 100 / 1039 / 1040 / 3000);
-               8 chat requests served at all 48 layers (rings of 1040,
-               global caches of 2048) with 97 RMSNorms and 48 decode
+               4 chat requests (prompts cut to 32, outputs to 16) served
+               at all 48 layers (rings of 1040, global caches of 2048)
+               with 97 RMSNorms and 48 decode
                attentions a step; one block trained for 5 steps (8 x
                2048 tokens, 2 microbatches, remat nested per layer) with
                exactly the flash and RMSNorm launches that implies, and
@@ -197,14 +205,15 @@ Phases, one line each (the kernels phases print one line per case):
                profiled bf16 step (device ms by family, the MoE FFNs'
                products and the padding copies apart, beside the weights'
                read-once bound); ``forward`` in bf16 at 2 layers, B 2 x S
-               256, kernels vs plain; 4 chat requests (prompts cut to 32,
+               256, kernels vs plain; 4 chat requests (prompts cut to 16,
                outputs to 8) served at all 27 layers in 4 slots of 512,
                with 55 RMSNorms and 27 decode attentions a step, all on
                the D 256, group 1 instance.
   14. qwen2-vl -- qwen2-vl-7b (M-RoPE, fed patch embeddings) at full
                width: logits kernels vs plain through an embeddings
                prefill and decode steps, fp32 at 4 layers and bf16 at all
-               28, with 57 RMSNorms and 28 decode attentions a step on
+               28 (also against its fp32 anchor, held to ANCHOR_RATIO),
+               with 57 RMSNorms and 28 decode attentions a step on
                the D 128, group 7 instance; ``forward`` at (t, h, w) ids
                through the flash kernel at 2 layers; 4 layers trained 5
                steps and one step kernels vs plain.
@@ -213,13 +222,15 @@ Phases, one line each (the kernels phases print one line per case):
                flash kernel without the causal mask (24 launches, 49
                RMSNorms), then 16 greedy decode steps with self- and
                cross-attention through the decode kernel (48 a step, 73
-               RMSNorms), logits kernels vs plain in fp32 and bf16; 5
+               RMSNorms), logits kernels vs plain in fp32 and bf16 (bf16
+               also against its fp32 anchor, held to ANCHOR_RATIO); 5
                train steps on the frames batch and one step kernels vs
                plain.
  16. zamba2  -- zamba2-7b (78 Mamba2 layers with SSD head dim 112, and
                one shared attention + MLP block applied after every six,
                head dim 112) at full width: logits kernels vs plain, fp32
-               at 2 repeats and bf16 at all 13 (183 RMSNorms and 13
+               at 2 repeats and bf16 at all 13 (also against its fp32
+               anchor, held to ANCHOR_RATIO; 183 RMSNorms and 13
                decode attentions a step on the (128, 1) instance), a
                profiled bf16 step; ``forward`` at 2 repeats through the
                SSD kernel at P 112 (two panels of 64) and the flash
@@ -281,7 +292,14 @@ Phases, one line each (the kernels phases print one line per case):
                against the bf16 peak, and the step's launches equal to the
                wrapper calls of the trace.
 
-Then, each on a line of its own: the ``{"kernels": [...]}`` record (one
+The bf16 full-depth logits checks of gemma3-12b (48 layers),
+qwen2-vl-7b (28), seamless-m4t-large-v2 (24 + 24) and zamba2-7b (13
+repeats) also run once more through the plain versions in fp32 on the
+same weights and cache upcast (the fp32 anchor), and hold the kernel
+run's distance from it to ANCHOR_RATIO times the plain bf16 run's.
+
+Then, each on a line of its own: the seconds by phase, the
+``{"kernels": [...]}`` record (one
 entry per kernel and path: ``rmsnorm/serve``, ``decode_attention/serve``,
 ``rmsnorm/train``, ``flash_attention/train``, ``rmsnorm/mamba2_train``,
 ``ssd_scan/mamba2_train``, ``decode_attention/profile``,
@@ -1004,16 +1022,120 @@ def cache_leaves(cache: dict) -> list:
     return [t for lc in layers for t in lc.values()]
 
 
-def clone_cache(cache: dict) -> dict:
+def clone_cache(cache: dict, leaf=None) -> dict:
+    """A copy of a ``decode_step`` cache, each tensor through ``leaf``
+    (default: a clone)."""
+    leaf = leaf or (lambda t: t.clone())
+
     def block(b):
-        return {s: {n: t.clone() for n, t in lc.items()}
+        return {s: {n: leaf(t) for n, t in lc.items()}
                 for s, lc in b.items()}
-    out = {"blocks": block(cache["blocks"]), "len": cache["len"].clone()}
+    out = {"blocks": block(cache["blocks"]), "len": leaf(cache["len"])}
     if "prefix" in cache:
         out["prefix"] = [block(pc) for pc in cache["prefix"]]
     if "shared" in cache:
-        out["shared"] = {n: t.clone() for n, t in cache["shared"].items()}
+        out["shared"] = {n: leaf(t) for n, t in cache["shared"].items()}
     return out
+
+
+# -- the fp32 anchor of a bf16 check ---------------------------------------------
+#
+# A bf16 kernel run and a bf16 plain run each carry bf16 rounding noise
+# that grows with depth, so a limit on their difference read at one depth
+# does not transfer to another, and a systematic fault hides inside twice
+# one run's noise.  The anchor is a third run of the same inputs through
+# the plain versions in fp32, on the bf16 run's own weights and cache
+# upcast exactly; each bf16 run is read by its distance from it,
+# d = |run - anchor|_2 / |anchor|_2 over all rows, and a sound kernel run
+# is about as far from it as the plain bf16 run, at any depth.
+#
+# The largest d_kern / d_plain a sound kernel run may read, held in the
+# bf16 full-depth logits checks of ANCHORED.  Read on an H100 (``--limits
+# <arch>``; PERF.md section 6) over seeds 0-5 with sound kernels:
+# gemma3-12b at 48 layers 0.9835 to 1.0113 (d_plain 4.6e-2 to 4.8e-2),
+# seamless-m4t-large-v2 at 24 + 24 0.9886 to 0.9994 (1.2e-2),
+# qwen2-vl-7b at 28 0.9873 to 1.0080 (2.2e-2), zamba2-7b at 13 repeats
+# 0.9943 to 1.0003 (5.1e-2 to 5.6e-2); one kernel alone 0.9882 to 1.0089.
+# A decode kernel that swaps output pairs read 13.4 to 112; one that
+# drops the last tile of long rows 20.6 (gemma3), 12.2 (qwen2-vl) and
+# 2.33 (zamba2), but 1.0207 on seamless (only its cross-attention rows,
+# 1024 frames, lose a tile: not caught); one that rounds toward zero
+# 0.9877 to 1.0115, inside the sound range on every arch (not caught;
+# the fp32 checks and the kernels phase catch it).  One value for all
+# four: 1.2 lies 19% above the worst sound reading and below the least
+# control it catches by 1.9x
+ANCHOR_RATIO = 1.2
+# The card holds the bf16 weights while both bf16 runs are made, then the
+# fp32 ones (``fp32_anchor`` upcasts leaf by leaf, so one bf16 leaf at a
+# time beside them): gemma3-12b at 48 layers 23.5 GB, then 47.0 GB;
+# qwen2-vl-7b at 28 layers 15.2, then 30.5 GB; zamba2-7b at 13 repeats
+# 12.8, then 25.7 GB; seamless-m4t-large-v2 3.3, then 6.5 GB.  The
+# anchor's cache (batch 4 x 512 slots) is the bf16 one's upcast copy,
+# taken before the first step: 1.6 GB for gemma3-12b's 48 layers
+ANCHORED = ("gemma3-12b", "seamless-m4t-large-v2", "qwen2-vl-7b",
+            "zamba2-7b")
+
+
+def upcast_cache(torch, cache: dict) -> dict:
+    """The anchor's cache: a copy of ``cache`` with each floating tensor
+    in fp32 (exact from bf16), taken before a run writes into it."""
+    return clone_cache(cache, lambda t: t.to(torch.float32, copy=True)
+                       if t.is_floating_point() else t.clone())
+
+
+def fp32_anchor(torch, params, cfg, run):
+    """``run(cfg32)`` through the plain versions, ``cfg32`` being
+    ``cfg`` in fp32, after ``params`` is upcast in place (each floating
+    leaf ``.float()``, one leaf at a time: ``nn.Module.float``).  Fails
+    if a kernel launched.  Returns what ``run`` returns."""
+    import dataclasses
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params.float()
+    reset_counts()
+    with plain_kernels():
+        out = run(cfg32)
+    sync(torch)
+    if any(counts()):
+        fail(f"anchor {cfg.name}: the fp32 anchor launched {counts()}")
+    return out
+
+
+def anchor_readings(torch, plain: list, kern: list, anchor: list) -> dict:
+    """Each bf16 run's (``plain``, ``kern``: logits in order) distance
+    from the fp32 ``anchor`` over all rows, ``|run - anchor|_2 /
+    |anchor|_2``, its max abs distance and its argmax agreement with the
+    anchor, and ``ratio`` = d_kern / d_plain.  Fails if d_plain is 0 or
+    not finite: the anchor would not be independent of the bf16 run."""
+    sq = {"plain": 0.0, "kern": 0.0}
+    worst = {"plain": 0.0, "kern": 0.0}
+    agree = {"plain": 0, "kern": 0}
+    ref = 0.0
+    rows = 0
+    for p, k, a in zip(plain, kern, anchor, strict=True):
+        top = a.argmax(-1)
+        a = a.double()
+        ref += float(a.square().sum())
+        rows += top.numel()
+        for name, x in (("plain", p), ("kern", k)):
+            d = x.double() - a
+            sq[name] += float(d.square().sum())
+            worst[name] = max(worst[name], float(d.abs().max()))
+            agree[name] += int((x.argmax(-1) == top).sum())
+    d_plain, d_kern = (math.sqrt(sq[n] / ref) for n in ("plain", "kern"))
+    if not (d_plain > 0 and math.isfinite(d_plain)):
+        fail(f"anchor: d_plain {d_plain}, the anchor is not independent of "
+             f"the bf16 plain run")
+    return dict(d_plain=d_plain, d_kern=d_kern, ratio=d_kern / d_plain,
+                worst=worst, agree=agree, rows=rows)
+
+
+def anchor_text(a: dict) -> str:
+    return (f"fp32 anchor: d_plain {a['d_plain']:.4e} d_kern "
+            f"{a['d_kern']:.4e} ratio {a['ratio']:.4f} (limit "
+            f"{ANCHOR_RATIO}), max abs from it plain {a['worst']['plain']:.3e}"
+            f" kernels {a['worst']['kern']:.3e}, argmax agree with it plain "
+            f"{a['agree']['plain']}/{a['rows']} kernels "
+            f"{a['agree']['kern']}/{a['rows']}")
 
 
 def decode_launches_per_step(cfg):
@@ -1044,7 +1166,8 @@ def model_check(torch, dtype_name: str, seed: int = 0,
                 profile: bool = False, reduced: bool = False,
                 arch: str = "qwen2-0.5b", depth=None, max_len: int = 512,
                 start_lens=(0, 37, 200, 500), steps: int = 6,
-                profiled_steps: int = 5, instance=None) -> dict:
+                profiled_steps: int = 5, instance=None,
+                anchor: bool = False) -> dict:
     """``arch`` FULL (or REDUCED; at ``depth`` blocks if given):
     ``steps`` ``decode_step`` calls through the plain versions and
     through the kernels on the same weights, cache of ``max_len`` slots
@@ -1059,7 +1182,12 @@ def model_check(torch, dtype_name: str, seed: int = 0,
     decode attention took that kernel instance; returns the logits' max
     abs difference, max |logit|, argmax agreement, the routes the kernel
     run would have picked alike, the kernel runs' launches and wall ms
-    per step (the comparison limits are the caller's)."""
+    per step (the comparison limits are the caller's).  With ``anchor``
+    (a bf16 check), after both runs (and the profile) the same prefill
+    and steps run once more through the plain versions in fp32
+    (``fp32_anchor``), from the weights and the seeded cache upcast, the
+    MoE layers sent to the plain run's routes, and ``anchor`` holds each
+    run's distance from it (``anchor_readings``)."""
     import dataclasses
 
     from repro_torch import configs as C
@@ -1077,6 +1205,7 @@ def model_check(torch, dtype_name: str, seed: int = 0,
         t.normal_(generator=gen)
     cache["len"] = torch.tensor(start_lens, dtype=torch.int32, device=DEVICE)
     plain_cache = clone_cache(cache)
+    anchor_cache = upcast_cache(torch, cache) if anchor else None
     toks = torch.randint(0, cfg.vocab_size, (steps, B, 1), generator=gen,
                          device=DEVICE, dtype=torch.int32)
     worst, scale, agree = 0.0, 0.0, 0
@@ -1085,6 +1214,10 @@ def model_check(torch, dtype_name: str, seed: int = 0,
     embeds = [None] * steps
     rows = B * steps
     launched = (0, 0, 0, 0)
+    # both runs' logits in order, and the plain run's routes step by
+    # step, for the anchor
+    kept = {"plain": [], "kern": [], "routes": []}
+    prefill = None
     if cfg.embeds_input:
         embeds = torch.randn(steps, B, 1, cfg.d_model, generator=gen,
                              device=DEVICE)
@@ -1092,6 +1225,9 @@ def model_check(torch, dtype_name: str, seed: int = 0,
         worst, scale, agree = r["worst"], r["scale"], r["agree"]
         rows += B
         launched = counts()
+        prefill = r["inputs"]
+        kept["plain"].append(r["plain"])
+        kept["kern"].append(r["logits"])
     for s in range(steps):
         reset_counts()
         step_routes = []
@@ -1125,18 +1261,40 @@ def model_check(torch, dtype_name: str, seed: int = 0,
         worst = max(worst, float((logits.float() - plain.float()).abs().max()))
         scale = max(scale, float(plain.float().abs().max()))
         agree += int((logits.argmax(-1) == plain.argmax(-1)).sum())
+        kept["plain"].append(plain)
+        kept["kern"].append(logits)
+        kept["routes"].append(step_routes)
     lc = dict(cache["blocks"]["l0"], **cache.get("shared", {}))
     smax = next((lc[n].shape[2] for n in ("k", "c_kv") if n in lc), None)
     if profile:
         profile_steps(torch, T, params, cfg, cache, toks[:profiled_steps])
-    del params, cache, plain_cache
+    del cache, plain_cache
+    anchored = None
+    if anchor:
+        def run(cfg32):
+            out = [] if prefill is None else [
+                T.prefill(params, cfg32, embeds=prefill["embeds"],
+                          lengths=prefill["lengths"],
+                          tokens=prefill["tokens"],
+                          max_len=max_len)[0]]
+            c = anchor_cache
+            for s, log in enumerate(kept["routes"]):
+                with replayed_routes(log, [0, 0]):
+                    logits, c = T.decode_step(params, cfg32, toks[s], c,
+                                              embeds[s])
+                out.append(logits)
+            return out
+
+        anchored = anchor_readings(torch, kept["plain"], kept["kern"],
+                                   fp32_anchor(torch, params, cfg, run))
+    del params, anchor_cache, kept
     torch.cuda.empty_cache()
     return dict(cfg=cfg, batch=B, start_lens=start_lens, steps=steps,
                 max_len=max_len, smax=smax,
                 per_step=per_step, worst=worst, scale=scale, agree=agree,
                 rows=rows, ms_kernels=t_kern / (steps - 1) * 1e3,
                 ms_plain=t_plain / (steps - 1) * 1e3, routes=tuple(routes),
-                launched=launched)
+                launched=launched, anchor=anchored)
 
 
 # qwen2-vl's prefill in model_check: prompts of patch embeddings, ragged
@@ -1149,8 +1307,9 @@ def vl_prefill_check(torch, T, params, cfg, batch: int, max_len: int,
     """``prefill(..., embeds=)`` of ``batch`` prompts of seeded patch
     embeddings (lengths VL_PREFILL_LENS) through the plain versions and
     through the kernels: each replay step launches what a decode step
-    does.  Returns the last logits' max abs difference, max |logit| and
-    argmax agreement."""
+    does.  Returns the last logits of both runs, their max abs
+    difference, max |logit| and argmax agreement, and the prefill's
+    inputs (``prefill``'s keyword arguments but ``max_len``)."""
     emb = torch.randn(batch, VL_PREFILL, cfg.d_model, generator=gen,
                       device=DEVICE)
     toks = torch.zeros(batch, VL_PREFILL, dtype=torch.int32, device=DEVICE)
@@ -1177,7 +1336,9 @@ def vl_prefill_check(torch, T, params, cfg, batch: int, max_len: int,
     del kc
     return dict(worst=float((logits.float() - plain.float()).abs().max()),
                 scale=float(plain.float().abs().max()),
-                agree=int((logits.argmax(-1) == plain.argmax(-1)).sum()))
+                agree=int((logits.argmax(-1) == plain.argmax(-1)).sum()),
+                plain=plain, logits=logits,
+                inputs=dict(tokens=toks, embeds=emb, lengths=lens))
 
 
 def head_text(cfg) -> str:
@@ -1196,6 +1357,8 @@ def model_readings(r: dict, dtype_name: str) -> str:
     if n:
         text += (f", MoE routes replayed from the plain run (the kernel "
                  f"run's own agree {same}/{n}, {same / n:.2%})")
+    if r.get("anchor"):
+        text += ", " + anchor_text(r["anchor"])
     return text
 
 
@@ -1203,14 +1366,16 @@ def model_phase(torch, reduced: bool = False, phase: str = "model",
                 arch: str = "qwen2-0.5b", depths=None,
                 dtypes=("float32", "bfloat16"), hold_logits: bool = True,
                 profile=None, profiled_steps: int = 5, instance=None,
-                **shape) -> dict:
+                anchor: bool = False, **shape) -> dict:
     """``model_check`` in each of ``dtypes`` (at ``depths[dtype]`` blocks
     where given), held to LOGIT_TOL and ARGMAX_FLOOR, or to ARGMAX_FLOOR
     alone with ``hold_logits=False`` (the logits difference is then
-    printed, not held); the bf16 FULL run also profiles its decode steps
-    unless ``shape`` (``model_check``'s ``max_len``, ``start_lens``,
-    ``steps``) is given, or as ``profile`` says, over ``profiled_steps``
-    decode steps.  Returns ``model_check``'s readings by dtype."""
+    printed, not held); with ``anchor``, the bf16 run also against its
+    fp32 anchor, held to ANCHOR_RATIO.  The bf16 FULL run also profiles
+    its decode steps unless ``shape`` (``model_check``'s ``max_len``,
+    ``start_lens``, ``steps``) is given, or as ``profile`` says, over
+    ``profiled_steps`` decode steps.  Returns ``model_check``'s readings
+    by dtype."""
     out = {}
     for dtype_name in dtypes:
         r = model_check(torch, dtype_name, reduced=reduced, arch=arch,
@@ -1218,14 +1383,18 @@ def model_phase(torch, reduced: bool = False, phase: str = "model",
                         profile=(dtype_name == "bfloat16" and not reduced
                                  and not shape) if profile is None
                         else profile, profiled_steps=profiled_steps,
-                        instance=instance, **shape)
+                        instance=instance,
+                        anchor=anchor and dtype_name == "bfloat16", **shape)
         out[dtype_name] = r
         readings = model_readings(r, dtype_name)
         if (hold_logits and r["worst"] > LOGIT_TOL[dtype_name]) or \
-                r["agree"] < ARGMAX_FLOOR[dtype_name] * r["rows"]:
+                r["agree"] < ARGMAX_FLOOR[dtype_name] * r["rows"] or \
+                (r["anchor"] and r["anchor"]["ratio"] > ANCHOR_RATIO):
             fail(f"{phase} {dtype_name}: {readings}")
         if not hold_logits:
-            readings += " (the logits difference not held at this depth)"
+            readings += (" (the abs difference not held at this depth"
+                         + ("; the anchored ratio is)" if r["anchor"]
+                            else ")"))
         cfg = r["cfg"]
         say(phase, f"{arch} {'REDUCED' if reduced else 'FULL width'} "
             f"({cfg.n_layers} layers, d {cfg.d_model}, {head_text(cfg)}, "
@@ -1309,8 +1478,9 @@ def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
     seamless-m4t-large-v2's bf16 depth is the whole model; zamba2-7b at
     2, 4 and all 13 repeats in both dtypes).  seamless is
     read through ``seamless_check`` (encode, prefill and decode steps;
-    its flash kernel also alone).  Prints them and checks nothing
-    (``python3 chip_smoke.py --limits [arch]``)."""
+    its flash kernel also alone).  The bf16 runs of ANCHORED at the
+    whole depth also read their fp32 anchor (ANCHOR_RATIO).  Prints them
+    and checks nothing (``python3 chip_smoke.py --limits [arch]``)."""
     if depths is None:
         ats = {"mixtral-8x7b": (MIXTRAL_DEPTHS,),
                "gemma3-12b": (GEMMA_DEPTHS, {"bfloat16": None}),
@@ -1328,6 +1498,8 @@ def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
             + [(0, k) for k in alone])
     for at in ats:
         for dtype_name, depth in at.items():
+            anchor = (arch in ANCHORED and dtype_name == "bfloat16"
+                      and depth is None)
             for seed, kind in runs:
                 if kind in CONTROLS:
                     patch = broken_decode(torch, kind)
@@ -1340,7 +1512,7 @@ def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
                 # takes no kernel instance
                 with patch:
                     r = check(torch, dtype_name, seed=seed, arch=arch,
-                              depth=depth, instance=None)
+                              depth=depth, instance=None, anchor=anchor)
                 say("limits", f"{arch} {dtype_name} {r['cfg'].n_layers} "
                     f"layers {what}: " + model_readings(r, dtype_name))
 
@@ -2321,7 +2493,8 @@ def train_phase(torch, smi: str, spec: dict = TRAIN, phase: str = "train"):
 
 def train_parity(torch, dtype_name: str, seed: int = 0,
                  profile: bool = False, spec: dict = TRAIN,
-                 depth=None, reduced: bool = False) -> dict:
+                 depth=None, reduced: bool = False,
+                 anchor: bool = False) -> dict:
     """One train step of ``spec``'s arch at FULL width (and ``depth``
     blocks, if given) from the same weights and batch through the plain
     versions and then through the kernels, the kernel run taking the
@@ -2332,7 +2505,11 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
     of the plain run's update (both over every leaf).  The starting
     weights and the plain run's masters wait in host memory, so the card
     holds one run's weights and optimizer state at a time (gemma3-12b's
-    block: 2.35 B parameters)."""
+    block: 2.35 B parameters).  With ``anchor`` (bf16), one more step
+    through the plain versions in fp32 from the starting weights upcast,
+    on the same batch and routes (``fp32_anchor``), and ``anchor`` holds
+    the distances of both bf16 runs' updated masters and gradient trees
+    from its (``tree_distance``; both runs' trees wait in host memory)."""
     import dataclasses
 
     from repro_torch import configs as C
@@ -2359,6 +2536,7 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
                            remat=True)
     runs = []
     log, routes = [], [0, 0]
+    kept = {}
     for plain in (True, False):
         with torch.no_grad():
             for n, p in params.named_parameters():
@@ -2366,25 +2544,31 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
         opt = None
         opt = adamw_init(params)
         reset_counts()
+        grads = {}
         with (contextlib.ExitStack() if not plain else plain_kernels()), \
                 (recorded_routes(log) if plain
-                 else replayed_routes(log, routes)):
+                 else replayed_routes(log, routes)), \
+                (recorded_grads(grads) if anchor
+                 else contextlib.nullcontext()):
             _, opt, metrics = step(params, opt, batch)
         sync(torch)
         if plain and counts() != (0, 0, 0, 0):
             fail("train parity: the plain run launched a kernel")
         if not plain:
             launched = counts()
+        master = opt.master if not (plain or anchor) else {
+            n: t.cpu() for n, t in opt.master.items()}
         runs.append((float(metrics["loss"]), float(metrics["grad_norm"]),
-                     opt.master if not plain else
-                     {n: t.cpu() for n, t in opt.master.items()}))
-        del metrics
+                     master))
+        if anchor:
+            kept["plain" if plain else "kern"] = (
+                master, {n: t.cpu() for n, t in grads.items()})
+        del metrics, grads, master
     (loss_p, gnorm_p, master_p), (loss_k, gnorm_k, master_k) = runs
-    del log
     diff_sq = upd_sq = 0.0
     for n in master_k:
         mp = master_p[n].to(DEVICE)
-        diff_sq += float((master_k[n] - mp).square().sum())
+        diff_sq += float((master_k[n].to(DEVICE) - mp).square().sum())
         upd_sq += float((mp - start[n].to(DEVICE).float()).square().sum())
     del opt, runs, master_k, master_p
     torch.cuda.empty_cache()
@@ -2394,7 +2578,35 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
                            f"layers, bf16 train step ({spec['batch']}x"
                            f"{spec['seq']} tokens, {spec['microbatches']} "
                            f"microbatches, remat)")
-    del params, start
+    anchored = None
+    if anchor:
+        def run(cfg32):
+            with torch.no_grad():
+                for n, p in params.named_parameters():
+                    p.copy_(start[n])
+            step32 = make_train_step(cfg32, microbatches=spec["microbatches"],
+                                     remat=True)
+            grads = {}
+            with replayed_routes(log, [0, 0]), recorded_grads(grads):
+                _, opt, _ = step32(params, adamw_init(params), batch)
+            return opt.master, grads
+
+        master_a, grads_a = fp32_anchor(torch, params, cfg, run)
+        # each distance over the anchor's update, or its gradient's norm
+        scales = (tree_distance(torch, start, master_a),
+                  tree_distance(torch, {n: g.new_zeros(()) for n, g in
+                                        grads_a.items()}, grads_a))
+        anchored = {}
+        for i, (what, ref) in enumerate((("master", master_a),
+                                         ("grad", grads_a))):
+            d_plain, d_kern = (tree_distance(torch, kept[n][i], ref)
+                               / scales[i] for n in ("plain", "kern"))
+            if not (d_plain > 0 and math.isfinite(d_plain)):
+                fail(f"train anchor: {what} d_plain {d_plain}")
+            anchored[what] = dict(d_plain=d_plain, d_kern=d_kern,
+                                  ratio=d_kern / d_plain)
+        del master_a, grads_a, kept
+    del params, start, log
     torch.cuda.empty_cache()
     master = math.sqrt(diff_sq / upd_sq)
     for v in (loss_k, loss_p, gnorm_k, gnorm_p, master):
@@ -2403,17 +2615,47 @@ def train_parity(torch, dtype_name: str, seed: int = 0,
     return dict(loss=abs(loss_k - loss_p), loss_k=loss_k, loss_p=loss_p,
                 gnorm=abs(gnorm_k - gnorm_p) / gnorm_p, gnorm_k=gnorm_k,
                 gnorm_p=gnorm_p, master=master, update=math.sqrt(upd_sq),
-                launched=launched, routes=tuple(routes))
+                launched=launched, routes=tuple(routes), anchor=anchored)
+
+
+@contextlib.contextmanager
+def recorded_grads(store: dict):
+    """Put the gradient tree a train step hands AdamW
+    (``launch.steps.adamw_update``) into ``store``, by parameter name."""
+    from repro_torch.launch import steps
+    update = steps.adamw_update
+
+    def recording(params, grads, *args, **kwargs):
+        store.update(grads)
+        return update(params, grads, *args, **kwargs)
+
+    with mock.patch.object(steps, "adamw_update", recording):
+        yield store
+
+
+def tree_distance(torch, a: dict, b: dict) -> float:
+    """The L2 norm of ``a - b`` over two trees of tensors by name (on
+    the host or the card), leaf by leaf on the card in fp64."""
+    return math.sqrt(sum(
+        float((a[n].to(DEVICE, torch.float64)
+               - b[n].to(DEVICE, torch.float64)).square().sum())
+        for n in b))
 
 
 def parity_readings(r: dict, tol: dict) -> str:
-    return (f"loss {r['loss_k']:.6f} kernels vs {r['loss_p']:.6f} "
+    text = (f"loss {r['loss_k']:.6f} kernels vs {r['loss_p']:.6f} "
             f"plain (|diff| {r['loss']:.3e}, tol {tol['loss']}), "
             f"grad norm {r['gnorm_k']:.6f} vs {r['gnorm_p']:.6f} "
             f"(rel diff {r['gnorm']:.3e}, tol {tol['gnorm']}), "
             f"updated fp32 masters |diff| / |update| "
             f"{r['master']:.3e} (tol {tol['master']}; |update| "
             f"{r['update']:.3e})")
+    if r.get("anchor"):
+        text += ("; fp32 anchor, |run - anchor| plain / kernels (over the "
+                 "anchor's update, its gradient's norm): " + ", ".join(
+                     f"{what} {a['d_plain']:.4e} / {a['d_kern']:.4e} ratio "
+                     f"{a['ratio']:.4f}" for what, a in r["anchor"].items()))
+    return text
 
 
 def train_parity_phase(torch, spec: dict = TRAIN, limits=None,
@@ -2677,6 +2919,9 @@ MIXTRAL_DEPTHS = {"bfloat16": 16, "float32": 4}
 # one more each on the second step)
 RING = dict(depth=2, max_len=4608, smax=4112,
             lengths=[100, 4111, 4112, 9000])
+# 4 requests, prompts cut to 32 and outputs to 16 (8 requests of up to
+# 128 and 64 before the fp32 anchors needed the time: 28 s)
+MIXTRAL_SERVE = dict(requests=4, prompt_cap=32, gen_cap=16)
 
 
 def ring_phase(torch, arch: str = "mixtral-8x7b", ring=None,
@@ -2704,21 +2949,24 @@ def ring_phase(torch, arch: str = "mixtral-8x7b", ring=None,
 def mixtral_phase(torch, smi: str):
     """mixtral-8x7b at full width: (a) bf16 ``decode_step`` logits at
     depth 16 and (b) fp32 at depth 4, kernels vs plain, with (d) a
-    profiled bf16 step; (c) 8 chat requests served at depth 16; (e) the
+    profiled bf16 step; (c) 4 chat requests served at depth 16; (e) the
     ring check.  Returns the serve run's launches."""
     torch.cuda.empty_cache()
     model_phase(torch, phase="mixtral", arch="mixtral-8x7b",
                 depths=MIXTRAL_DEPTHS)
     served, _, _ = serve_phase(torch, smi, phase="mixtral",
                                arch="mixtral-8x7b",
-                               depth=MIXTRAL_DEPTHS["bfloat16"])
+                               depth=MIXTRAL_DEPTHS["bfloat16"],
+                               **MIXTRAL_SERVE)
     ring_phase(torch)
     return served
 
 
 # -- 11. ssm-serve --------------------------------------------------------------
 
-SSM_SERVE = dict(requests=4, prompt_cap=64, gen_cap=16, max_batch=4,
+# prompts cut to 32 and outputs to 8 (64 and 16 before the fp32 anchors
+# needed the time: 198 host-bound steps a dtype, now 117)
+SSM_SERVE = dict(requests=4, prompt_cap=32, gen_cap=8, max_batch=4,
                  max_len=512)
 # its RMSNorms per decode step: norm1 of 64 layers and the final norm at
 # d 2560, the gated norm of 64 layers at d_inner 5120
@@ -2758,7 +3006,7 @@ def ssm_serve_phase(torch, smi: str, arch: str = "mamba2-2.7b",
                     phase: str = "ssm-serve", instance=None):
     """``arch`` FULL (mamba2-2.7b: 64 layers; zamba2-7b: 78 and the
     shared block 13 times) served by ``ServingEngine``: ``spec``'s chat
-    requests (4; prompts cut to 64 tokens, outputs to 16; zamba2's to
+    requests (4; prompts cut to 32 tokens, outputs to 8; zamba2's to
     16 and 8), 4 slots, the last request admitted into a reused slot.  In
     bf16: every request finishes with its token count and every step
     launches its kernels (``norms``: the RMSNorm shapes of a step, with
@@ -2908,16 +3156,21 @@ GEMMA_RING = dict(depth=1, max_len=4096, smax=1040,
 GEMMA_TRAIN = dict(arch="gemma3-12b", steps=5, batch=8, seq=2048,
                    microbatches=2, depth=1)
 GEMMA_PARITY = dict(GEMMA_TRAIN, batch=4)
+# 4 requests, prompts cut to 32 and outputs to 16, at all 48 layers (8
+# requests of up to 128 and 64 before the fp32 anchors needed the time:
+# 41 s)
+GEMMA_SERVE = dict(requests=4, prompt_cap=32, gen_cap=16,
+                   max_len=GEMMA_SERVE_MAX_LEN)
 
 
 def gemma3_phase(torch, smi: str):
     """gemma3-12b (blocks of five sliding-window layers and one global
     layer, head dim 256) at full width: (a) ``decode_step`` logits,
     kernels vs plain, at GEMMA_DEPTHS held to LOGIT_TOL and ARGMAX_FLOOR,
-    and in bf16 at all 48 layers held to ARGMAX_FLOOR, with a profiled
-    bf16 step (device ms by family beside the 7.02 ms it takes to read
-    the weights once); (b)
-    the ring check at depth one block; (c) 8 chat requests served at all
+    and in bf16 at all 48 layers held to ARGMAX_FLOOR and, against its
+    fp32 anchor, to ANCHOR_RATIO, with a profiled bf16 step (device ms by
+    family beside the 7.02 ms it takes to read the weights once); (b)
+    the ring check at depth one block; (c) 4 chat requests served at all
     48 layers with caches of GEMMA_SERVE_MAX_LEN slots; (d) one block
     trained for 5 steps through ``launch.train.train`` and one step
     kernels vs plain.  Returns the serve and train runs' launches."""
@@ -2925,11 +3178,11 @@ def gemma3_phase(torch, smi: str):
     model_phase(torch, phase="gemma3", arch="gemma3-12b",
                 depths=GEMMA_DEPTHS, profile=False)
     model_phase(torch, phase="gemma3", arch="gemma3-12b",
-                dtypes=("bfloat16",), hold_logits=False, profile=True)
+                dtypes=("bfloat16",), hold_logits=False, profile=True,
+                anchor=True)
     ring_phase(torch, "gemma3-12b", GEMMA_RING, "gemma3")
     served, _, _ = serve_phase(torch, smi, phase="gemma3",
-                               arch="gemma3-12b",
-                               max_len=GEMMA_SERVE_MAX_LEN)
+                               arch="gemma3-12b", **GEMMA_SERVE)
     trained = train_phase(torch, smi, GEMMA_TRAIN, "gemma3")
     train_parity_phase(torch, GEMMA_PARITY, depth=GEMMA_TRAIN["depth"],
                        phase="gemma3")
@@ -2946,11 +3199,11 @@ DEEPSEEK_DEPTHS = {"float32": 4, "bfloat16": None}
 # forward (the flash kernel with q/k 192 wide, v 128) at the prefix and one
 # MoE layer, bf16
 DEEPSEEK_FORWARD = dict(depth=2, batch=2, seq=256)
-# prompts cut to 32 and outputs to 8 (64 and 16 before the fp8 and
-# dry-run phases needed the time: the host-bound steps of this run took
-# ~260 ms of wall each on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md
-# section 5)
-DEEPSEEK_SERVE = dict(requests=4, prompt_cap=32, gen_cap=8, max_len=512)
+# prompts cut to 16 and outputs to 8 (64 and 16 before the fp8 and
+# dry-run phases needed the time, 32 and 8 before the fp32 anchors did:
+# the host-bound steps of this run took ~260-350 ms of wall each on an
+# NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5)
+DEEPSEEK_SERVE = dict(requests=4, prompt_cap=16, gen_cap=8, max_len=512)
 # decode attention at the serve run's shape: q (4, 16, 192) against the
 # expanded keys (4, 512, 16, 192) and values (4, 512, 16, 128), Hkv = H
 # (group 1); the wrapper pads all three to 256.  RMSNorm at d 2048
@@ -3106,7 +3359,8 @@ def qwen2vl_phase(torch, smi: str):
     128) at full width on seeded random weights: (a) logits kernels vs
     plain through ``prefill(..., embeds=)`` and ``decode_step(embeds=)``,
     fp32 at 4 layers and bf16 at all 28, held to LOGIT_TOL and
-    ARGMAX_FLOOR, with 57 RMSNorms and 28 decode attentions a step, all
+    ARGMAX_FLOOR (bf16 also to ANCHOR_RATIO against its fp32 anchor),
+    with 57 RMSNorms and 28 decode attentions a step, all
     on the D 128, group 7 instance, and a profiled bf16 step; (b)
     ``forward`` in bf16 at 2 layers, B 2 x S 256, at the (t, h, w) ids of
     a patch grid, through the flash kernel; (c) 4 layers trained for 5
@@ -3115,7 +3369,8 @@ def qwen2vl_phase(torch, smi: str):
     run's and the train run's launches."""
     torch.cuda.empty_cache()
     runs = model_phase(torch, phase="qwen2-vl", arch=QWEN_VL,
-                       depths=QWEN_VL_DEPTHS, instance=QWEN_VL_INSTANCE)
+                       depths=QWEN_VL_DEPTHS, instance=QWEN_VL_INSTANCE,
+                       anchor=True)
     r = forward_check(torch, QWEN_VL, **QWEN_VL_FORWARD)
     say("qwen2-vl", f"forward {QWEN_VL} FULL width ({r['cfg'].n_layers} "
         f"layers) bf16 B {QWEN_VL_FORWARD['batch']} x S "
@@ -3155,7 +3410,8 @@ SEAMLESS_DECODE_LENS = ([1, 6, 11, 17], [1024] * 4)
 
 def seamless_check(torch, dtype_name: str, seed: int = 0,
                    arch: str = SEAMLESS, depth=None,
-                   instance=SEAMLESS_INSTANCE, profile: bool = False) -> dict:
+                   instance=SEAMLESS_INSTANCE, profile: bool = False,
+                   anchor: bool = False) -> dict:
     """seamless serving at full width (``depth`` layers of encoder and
     decoder if given) on seeded random weights: SEAMLESS_SERVE's requests
     of seeded frames through ``encdec_prefill`` and greedy
@@ -3165,9 +3421,12 @@ def seamless_check(torch, dtype_name: str, seed: int = 0,
     step, every step ``decode_launches_per_step`` (self and cross
     attention on the kernel ``instance``, (head dim, group), unless None),
     and the logits' shape and finiteness; with ``profile``, profiles two
-    more decode steps (``profile_steps``).  Returns the readings
-    ``model_check`` returns, the serve run's launches and encode, prefill
-    and step times."""
+    more decode steps (``profile_steps``); with ``anchor`` (bf16), the
+    prefill and the steps once more through the plain versions in fp32
+    from the weights upcast, fed the same frames and the plain run's
+    tokens (``fp32_anchor``).  Returns the readings ``model_check``
+    returns, the serve run's launches and encode, prefill and step
+    times."""
     import dataclasses
 
     from repro_torch import configs as C
@@ -3249,13 +3508,27 @@ def seamless_check(torch, dtype_name: str, seed: int = 0,
         worst = max(worst, float((k.float() - p.float()).abs().max()))
         scale = max(scale, float(p.float().abs().max()))
         agree += int((k.argmax(-1) == p.argmax(-1)).sum())
-    del params, cache, kern, plain
+    del cache
+    anchored = None
+    if anchor:
+        def run(cfg32):
+            logits, c, _ = ED.encdec_prefill(params, cfg32, frames, bos,
+                                             spec["max_len"])
+            out = [logits]
+            for tok in toks:
+                logits, c = ED.encdec_decode_step(params, cfg32, tok, c)
+                out.append(logits)
+            return out
+
+        anchored = anchor_readings(torch, plain, kern,
+                                   fp32_anchor(torch, params, cfg, run))
+    del params, kern, plain
     torch.cuda.empty_cache()
     return dict(cfg=cfg, worst=worst, scale=scale, agree=agree,
                 rows=B * (steps + 1), routes=(0, 0), per_step=per_step,
                 launched=launched, encode_ms=encode_ms,
                 prefill_ms=prefill_ms, step_wall_ms=step_wall * 1e3,
-                step_device_ms=dev_ms)
+                step_device_ms=dev_ms, anchor=anchored)
 
 
 def seamless_phase(torch, smi: str):
@@ -3266,7 +3539,8 @@ def seamless_phase(torch, smi: str):
     causal mask) and 16 greedy ``encdec_decode_step``s (self and cross
     attention through the decode kernel), logits kernels vs plain in fp32
     and bf16 at 24 + 24 layers, held to LOGIT_TOL and
-    ARGMAX_FLOOR, 24 flash launches and 49 RMSNorms an encode, 73
+    ARGMAX_FLOOR (bf16 also to ANCHOR_RATIO against its fp32 anchor),
+    24 flash launches and 49 RMSNorms an encode, 73
     RMSNorms and 48 decode attentions a step; (b) 5 train steps at full
     depth on the frames batch (8 x 1024 frames and tokens, 2
     microbatches, remat) and one step kernels vs plain held to
@@ -3276,10 +3550,12 @@ def seamless_phase(torch, smi: str):
     served = None
     for dtype_name, depth in SEAMLESS_DEPTHS.items():
         r = seamless_check(torch, dtype_name, depth=depth,
-                           profile=dtype_name == "bfloat16")
+                           profile=dtype_name == "bfloat16",
+                           anchor=dtype_name == "bfloat16")
         readings = model_readings(r, dtype_name)
         if r["worst"] > LOGIT_TOL[dtype_name] or \
-                r["agree"] < ARGMAX_FLOOR[dtype_name] * r["rows"]:
+                r["agree"] < ARGMAX_FLOOR[dtype_name] * r["rows"] or \
+                (r["anchor"] and r["anchor"]["ratio"] > ANCHOR_RATIO):
             fail(f"seamless {dtype_name}: {readings}")
         cfg = r["cfg"]
         say("seamless", f"{SEAMLESS} FULL width ({cfg.encoder.n_layers} "
@@ -3347,7 +3623,16 @@ ZAMBA_TRAIN = dict(arch=ZAMBA, steps=5, batch=8, seq=1024, microbatches=2,
 # flips the sign of the first Adam update of the gradients nearest zero.
 # The bf16 loss and grad norm and every fp32 reading stay held; fp32
 # catches each of TRAIN_CONTROLS (masters 1.5e-2 to 2.7e-2), bf16 none
-# (PERF.md; ``--limits zamba2-7b`` prints the readings)
+# (PERF.md; ``--limits zamba2-7b`` prints the readings).  Against an fp32
+# anchor step (``train_parity(anchor=True)``) neither the masters nor the
+# gradient tree separate them either: |kernel run - anchor| over |plain
+# run - anchor| read masters 0.9999 to 1.0002 and gradients 0.9964 to
+# 1.0000 with sound kernels (seeds 0-2, each kernel alone), and under
+# TRAIN_CONTROLS masters 1.0003 to 1.0011 (a gap to the sound runs no
+# wider than their own spread) and gradients 0.9945 to 1.0029: at 2
+# repeats x 1024 tokens each control moves one step's gradient by less
+# than bf16 moves it from fp32 (3.3% of its norm), so the bf16 masters
+# stay unheld (PERF.md section 6)
 ZAMBA_UNHELD = (("bfloat16", "master"),)
 
 
@@ -3355,7 +3640,8 @@ def zamba2_phase(torch, smi: str):
     """zamba2-7b (78 Mamba2 layers, SSD head dim 112; a shared attention
     + MLP block after every six, head dim 112) at full width on seeded
     random weights: (a) ``decode_step`` logits kernels vs plain at
-    ZAMBA_DEPTHS, held to LOGIT_TOL and ARGMAX_FLOOR, 183 RMSNorms and 13
+    ZAMBA_DEPTHS, held to LOGIT_TOL and ARGMAX_FLOOR (bf16 also to
+    ANCHOR_RATIO against its fp32 anchor), 183 RMSNorms and 13
     decode attentions a step at 13 repeats, all on the (128, 1) instance,
     with a profiled bf16 step at all 13 repeats (device ms by family and
     the padding copies beside the weights' read-once bound); (b)
@@ -3364,12 +3650,12 @@ def zamba2_phase(torch, smi: str):
     requests served at all 13 repeats, the last into a reused slot, the
     fp32 run's state after each prefill against a batch-1 prefill; (d)
     two repeats trained for 5 steps (every SSD launch on the tensor-core
-    kernel) and one step kernels vs plain held to TRAIN_TOL.  Returns
-    the serve and train runs' launches."""
+    kernel) and one step kernels vs plain held to TRAIN_TOL but for
+    ZAMBA_UNHELD.  Returns the serve and train runs' launches."""
     from repro_torch.kernels import ssd_scan
     torch.cuda.empty_cache()
     model_phase(torch, phase="zamba2", arch=ZAMBA, depths=ZAMBA_DEPTHS,
-                instance=ZAMBA_INSTANCE)
+                instance=ZAMBA_INSTANCE, anchor=True)
     r = forward_check(torch, ZAMBA, **ZAMBA_FORWARD)
     if ssd_scan.variant_launches["wgmma"] != r["launches"][3]:
         fail(f"zamba2 forward: SSD launches {ssd_scan.variant_launches}, "
@@ -3426,11 +3712,12 @@ def broken_train(torch, kind: str):
 
 
 def train_limits(torch, spec: dict = None, seeds=range(3)) -> None:
-    """The readings behind ZAMBA_UNHELD: zamba2's train parity (2
-    repeats, batch 8 x 1024) over ``seeds`` in both dtypes, in bf16 with
-    one kernel at a time (``one_kernel``) and with no kernel at all
-    (plain against plain), and under each of TRAIN_CONTROLS in both
-    dtypes; printed against TRAIN_TOL, nothing held."""
+    """The readings behind ZAMBA_UNHELD: zamba2's
+    train parity (2 repeats, batch 8 x 1024) over ``seeds`` in both
+    dtypes, in bf16 with one kernel at a time (``one_kernel``) and with
+    no kernel at all (plain against plain), and under each of
+    TRAIN_CONTROLS in both dtypes, every bf16 step also against its fp32
+    anchor; printed against TRAIN_TOL, nothing held."""
     spec = spec or ZAMBA_TRAIN
     alone = ("rmsnorm", "flash_attention", "ssd_scan", None)
     runs = [(d, seed, None) for d in ("float32", "bfloat16") for seed in seeds]
@@ -3448,7 +3735,8 @@ def train_limits(torch, spec: dict = None, seeds=range(3)) -> None:
             patch, what = broken_train(torch, kind), f"control {kind}"
         with patch:
             r = train_parity(torch, dtype_name, seed=seed, spec=spec,
-                             depth=spec.get("depth"))
+                             depth=spec.get("depth"),
+                             anchor=dtype_name == "bfloat16")
         say("limits", f"{spec['arch']} train parity {dtype_name} depth "
             f"{spec.get('depth')} {what}: "
             + parity_readings(r, TRAIN_TOL[dtype_name]))
@@ -4493,7 +4781,20 @@ def dryrun_phase(torch, F, smi: str) -> tuple:
     return launched, timed
 
 
+def phase_seconds(marks: list) -> str:
+    """``marks`` ([(phase, perf_counter at its end)], the script's start
+    first): each phase's seconds and the whole."""
+    return ", ".join(f"{name} {t1 - t0:.1f}" for (_, t0), (name, t1) in
+                     zip(marks, marks[1:])) + \
+        f" | total {marks[-1][1] - marks[0][1]:.1f} s"
+
+
 def main() -> int:
+    marks = [("start", time.perf_counter())]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     try:
         import torch
     except ImportError:
@@ -4515,7 +4816,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi = probe(torch)
+    mark("probe")
     build_phase()
+    mark("build")
     if sys.argv[1:3] == ["--limits", "parallel"]:
         parallel_phase(torch, F, smi, limits_run=True)
         return 0
@@ -4527,18 +4830,28 @@ def main() -> int:
         return 0
     results = kernels_phase(torch, F)
     results.update(fp8_kernel_cases(torch, F))
+    mark("kernels")
     model_phase(torch)
+    mark("model")
     served, serve_report, serve_reqs = serve_phase(torch, smi, search=True)
+    mark("serve")
     reduced_phase(torch, smi)
+    mark("reduced")
     profiled, profile_results, samples = profile_phase(torch, F)
     results.update(profile_results)
+    mark("profile")
     predict_phase(serve_report, serve_reqs, samples, smi)
+    mark("predict")
     planned, plan_results = plan_modes_phase(torch, F, samples, smi)
     results.update(plan_results)
+    mark("plan-modes")
     results.update(flash_phase(torch, F))
+    mark("flash")
     trained = train_phase(torch, smi)
     train_parity_phase(torch)
+    mark("train")
     results.update(ssd_phase(torch))
+    mark("ssd")
     from repro_torch.kernels import ssd_scan
     mamba = train_phase(torch, smi, MAMBA_TRAIN, "mamba2")
     if ssd_scan.variant_launches["wgmma"] != mamba[3]:
@@ -4546,22 +4859,34 @@ def main() -> int:
              f"launches were not on the tensor-core kernel")
     train_parity_phase(torch, MAMBA_TRAIN, MAMBA_TRAIN_TOL,
                        MAMBA_PARITY_DEPTH, "mamba2")
+    mark("mamba2")
     mixtral = mixtral_phase(torch, smi)
+    mark("mixtral")
     ssm_served = ssm_serve_phase(torch, smi)
+    mark("ssm-serve")
     gemma_served, gemma_trained = gemma3_phase(torch, smi)
+    mark("gemma3")
     deepseek_served, deepseek_results = deepseek_phase(torch, F, smi)
     results.update(deepseek_results)
+    mark("deepseek")
     vl_decoded, vl_trained = qwen2vl_phase(torch, smi)
+    mark("qwen2-vl")
     seamless_served, seamless_trained = seamless_phase(torch, smi)
+    mark("seamless")
     zamba_served, zamba_trained = zamba2_phase(torch, smi)
+    mark("zamba2")
     deepseek_trained = deepseek_train_phase(torch, smi)
+    mark("deepseek-train")
     parallel_results, piped, padded, sp_launched = parallel_phase(
         torch, F, smi)
     results.update(parallel_results)
+    mark("parallel")
     fp8_results, fp8_served = fp8_serve_phase(torch, F, smi)
     results.update(fp8_results)
+    mark("fp8-serve")
     dry_launched, dry_results = dryrun_phase(torch, F, smi)
     results.update(dry_results)
+    mark("dryrun")
 
     # one entry per kernel and path: the path's launches, read right after
     # its run, beside the kernel's numbers at that path's bf16 shape
@@ -4729,6 +5054,8 @@ def main() -> int:
         if not all(math.isfinite(k[f]) for f in ("ms", "plain_ms",
                                                  "bound_ms", "max_abs_err")):
             fail(f"kernels: non-finite number in {k}")
+    mark("record")
+    say("phases", "seconds by phase: " + phase_seconds(marks))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
