@@ -1517,27 +1517,28 @@ def limits_phase(torch, arch: str = "mixtral-8x7b", depths=None,
                     f"layers {what}: " + model_readings(r, dtype_name))
 
 
-# profiler ranges around the MoE FFNs and the attention wrappers' padding
+# profiler ranges around the MoE FFNs (the program's own ``moe_forward``
+# span) and the attention wrappers' padding
 RANGES = ("moe_forward", "attend_padded")
 
 
 @contextlib.contextmanager
 def named_ranges():
-    """Run each MoE FFN (``moe_forward``) and each attention wrapper's
-    padding (``attend_padded``, the kernel launch inside it) in a
-    ``torch.profiler.record_function`` range of that name, so that a
-    profile can tell their kernels from the rest."""
+    """Run each attention wrapper's padding (``attend_padded``, the kernel
+    launch inside it) in a ``torch.profiler.record_function`` range of
+    that name, so that a profile can tell its kernels from the rest; each
+    MoE FFN is a ``moe_forward`` range of the program's own
+    (``repro_torch.tracing``)."""
     from torch.profiler import record_function
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.models import transformer as T
     with contextlib.ExitStack() as stack:
-        for mod, name in ((T, RANGES[0]), (da, RANGES[1]), (fa, RANGES[1])):
-            def ranged(*args, _fn=getattr(mod, name), _name=name, **kw):
-                with record_function(_name):
+        for mod in (da, fa):
+            def ranged(*args, _fn=mod.attend_padded, **kw):
+                with record_function(RANGES[1]):
                     return _fn(*args, **kw)
-            stack.enter_context(mock.patch.object(mod, name, ranged))
+            stack.enter_context(mock.patch.object(mod, RANGES[1], ranged))
         yield
 
 

@@ -55,6 +55,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
+
 from . import build
 from .build import PLAIN_DEVICES
 
@@ -289,11 +291,13 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             span, splits)
     if k.dtype == FP8:
         name, key = "apex_decode_attention_fp8", (D, group, "e4m3")
-        err = build.kernel(name, _FP8_ARGTYPES)(*ptrs, scale, stream)
+        fn, args = build.kernel(name, _FP8_ARGTYPES), (*ptrs, scale, stream)
     else:
         name, key = "apex_decode_attention", (D, group)
-        err = build.kernel(name, _ARGTYPES)(*ptrs, _DTYPE_CODES[q.dtype],
-                                            scale, stream)
+        fn = build.kernel(name, _ARGTYPES)
+        args = (*ptrs, _DTYPE_CODES[q.dtype], scale, stream)
+    with tracing.span("kernel.decode_attention"):
+        err = fn(*args)
     build.check(err, name)
     launches += 1
     variant_launches[key] = variant_launches.get(key, 0) + 1

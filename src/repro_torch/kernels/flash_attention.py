@@ -40,6 +40,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
+
 from . import build
 from .build import PLAIN_DEVICES
 
@@ -225,10 +227,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     lse = torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
     fn = build.kernel("apex_flash_attention", _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), B, Sq, Skv, Hq, Hkv, D, q_offset, int(causal),
-             0 if window is None else window, _DTYPE_CODES[q.dtype], scale,
-             torch.cuda.current_stream(q.device).cuda_stream)
+    with tracing.span("kernel.flash_attention"):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 lse.data_ptr(), B, Sq, Skv, Hq, Hkv, D, q_offset,
+                 int(causal), 0 if window is None else window,
+                 _DTYPE_CODES[q.dtype], scale,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "apex_flash_attention")
     launches += 1
     return out, lse

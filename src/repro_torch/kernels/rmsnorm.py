@@ -21,6 +21,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch import tracing
+
 from . import build
 from .build import PLAIN_DEVICES
 
@@ -142,10 +144,11 @@ def _launch(x: torch.Tensor, weight: torch.Tensor,
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, weight, out))
     warps, vecs = variant(x.shape[-1], x.element_size(), aligned)
     fn = build.kernel("apex_rmsnorm", _ARGTYPES)
-    err = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows,
-             x.shape[-1], eps, _DTYPE_CODES[x.dtype],
-             _DTYPE_CODES[weight.dtype], warps, vecs,
-             torch.cuda.current_stream(x.device).cuda_stream)
+    with tracing.span("kernel.rmsnorm"):
+        err = fn(x.data_ptr(), weight.data_ptr(), out.data_ptr(), rows,
+                 x.shape[-1], eps, _DTYPE_CODES[x.dtype],
+                 _DTYPE_CODES[weight.dtype], warps, vecs,
+                 torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "apex_rmsnorm")
     launches += 1
     return out

@@ -53,6 +53,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
+
 from . import build
 from .build import PLAIN_DEVICES
 
@@ -296,17 +298,18 @@ def _launch(x, dt, a_log, b, c, chunk: int,
     B, S, H, Pk = x.shape
     y = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    ptrs = (x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), y.data_ptr(), B, S, H, Pk, N)
     if kernel == "wgmma":
         name = "apex_ssd_scan_wgmma"
-        err = build.kernel(name, _WGMMA_ARGTYPES)(
-            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), B, S, H, Pk, N, stream)
+        fn, args = build.kernel(name, _WGMMA_ARGTYPES), (*ptrs, stream)
     else:
         name = "apex_ssd_scan"
-        err = build.kernel(name, _ARGTYPES)(
-            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-            c.data_ptr(), y.data_ptr(), B, S, H, Pk, N, min(chunk, S),
-            _DTYPE_CODES[x.dtype], _DTYPE_CODES[b.dtype], stream)
+        fn = build.kernel(name, _ARGTYPES)
+        args = (*ptrs, min(chunk, S), _DTYPE_CODES[x.dtype],
+                _DTYPE_CODES[b.dtype], stream)
+    with tracing.span("kernel.ssd_scan"):
+        err = fn(*args)
     build.check(err, name)
     launches += 1
     variant_launches[kernel] += 1

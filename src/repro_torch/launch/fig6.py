@@ -82,7 +82,6 @@ import statistics
 import subprocess
 import time
 from typing import Dict, List, Optional, Sequence
-from unittest import mock
 
 import torch
 
@@ -186,17 +185,6 @@ def make_requests(vocab_size: int, requests: int, ctx: int, gen: int,
     return reqs
 
 
-class CountingEngine(ServingEngine):
-    """The engine, counting its decode steps (iterations and prompt-replay
-    steps alike)."""
-
-    steps = 0
-
-    def _decode(self, toks):
-        self.steps += 1
-        return super()._decode(toks)
-
-
 def launches() -> Dict[str, int]:
     """The RMSNorm and decode-attention kernels' launches so far in this
     process (their wrappers count a launch on CUDA tensors only)."""
@@ -211,17 +199,10 @@ def has_attention(cfg) -> bool:
 
 @contextlib.contextmanager
 def expert_range():
-    """Run each MoE FFN in a ``torch.profiler.record_function`` range, so
-    that a profile can tell the expert products from the rest."""
-    from torch.profiler import record_function
-    fn = T.moe_forward
-
-    def ranged(*args, **kwargs):
-        with record_function(EXPERT_RANGE):
-            return fn(*args, **kwargs)
-
-    with mock.patch.object(T, "moe_forward", ranged):
-        yield
+    """Kept for callers that enter it: each MoE FFN is already a
+    ``moe_forward`` range of its own (``repro_torch.tracing``) while a
+    profile records, so this adds nothing."""
+    yield
 
 
 def device_families(prof, steps: int) -> dict:
@@ -302,8 +283,8 @@ def engine_step(cfg, params, cap: int, ctx: int, max_len: int,
                device=None)
     if cuda:
         from torch.profiler import ProfilerActivity, profile
-        with expert_range(), profile(activities=[
-                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 T.decode_step(params, cfg, toks, cache)
             sync()
@@ -327,10 +308,11 @@ def engine_runs(cfg, reqs: List[dict], caps: Sequence[int], max_len: int,
     before = launches()
     reports, steps = {}, {}
     for cap in caps:
-        engine = CountingEngine(cfg, params, max_batch=cap, max_len=max_len,
-                                device=dev)
-        reports[cap] = engine.run([dict(r) for r in reqs], time_scale=0.0)
-        steps[cap] = engine.steps
+        engine = ServingEngine(cfg, params, max_batch=cap, max_len=max_len,
+                               device=dev)
+        rep = engine.run([dict(r) for r in reqs], time_scale=0.0)
+        reports[cap] = rep
+        steps[cap] = rep.replay_steps + rep.iterations
     launched = {k: v - before[k] for k, v in launches().items()}
     if dev.type == "cuda":
         want = {"rmsnorm": True, "decode_attention": has_attention(cfg)}

@@ -36,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.tracing import span
+
 from .hints import mesh_axis_size, on_shards
 from .mlp import init_mlp, mlp_forward, normal_param
 
@@ -169,7 +171,15 @@ def _chunk_major(params: nn.ParameterDict, x: torch.Tensor,
 def moe_forward(params: MoEParams, x: torch.Tensor, top_k: int,
                 router_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x: (B, S, d_model) -> (B, S, d_model).  Routing weights are
-    renormalised over the top-k (the Mixtral convention)."""
+    renormalised over the top-k (the Mixtral convention).  While a
+    ``torch.profiler`` profile records, the call is a ``moe_forward``
+    span (``repro_torch.tracing``)."""
+    with span("moe_forward"):
+        return _moe_forward(params, x, top_k, router_noise)
+
+
+def _moe_forward(params: MoEParams, x: torch.Tensor, top_k: int,
+                 router_noise: Optional[torch.Tensor]) -> torch.Tensor:
     gates, experts = route(params, x, top_k, router_noise)
     n_routed = params["router"].shape[1]
     combine = torch.zeros(*x.shape[:-1], n_routed, dtype=torch.float32,

@@ -80,6 +80,7 @@ from repro_torch.layers import (blockwise_attention, gqa_attention,
 from repro_torch.layers.hints import (data_axis_names, mesh_axis_size,
                                      shard_hint, split_last, table_rows)
 from repro_torch.layers.mlp import normal_param
+from repro_torch.tracing import span
 from .config import LayerSpec, ModelConfig
 
 
@@ -509,29 +510,32 @@ def _layer_decode(cfg: ModelConfig, spec: LayerSpec, p: nn.Module,
     cross cache's length Se in every row, where it has one."""
     h = rms_norm(x, p.norm1)
     if spec.kind == "ssm":
-        y, state, conv = mamba2_decode_step(
-            p.mixer, h, lc["ssm"][r],
-            {"x": lc["conv_x"][r], "bc": lc["conv_bc"][r]},
-            d_inner=cfg.d_inner, d_state=cfg.d_state,
-            n_heads=cfg.n_ssd_heads, n_groups=cfg.n_ssm_groups)
-        lc["ssm"][r].copy_(state)
-        lc["conv_x"][r].copy_(to_cache_dtype(conv["x"], lc["conv_x"].dtype))
-        lc["conv_bc"][r].copy_(to_cache_dtype(conv["bc"],
-                                              lc["conv_bc"].dtype))
+        with span("model.attention"):
+            y, state, conv = mamba2_decode_step(
+                p.mixer, h, lc["ssm"][r],
+                {"x": lc["conv_x"][r], "bc": lc["conv_bc"][r]},
+                d_inner=cfg.d_inner, d_state=cfg.d_state,
+                n_heads=cfg.n_ssd_heads, n_groups=cfg.n_ssm_groups)
+            lc["ssm"][r].copy_(state)
+            lc["conv_x"][r].copy_(to_cache_dtype(conv["x"],
+                                                 lc["conv_x"].dtype))
+            lc["conv_bc"][r].copy_(to_cache_dtype(conv["bc"],
+                                                  lc["conv_bc"].dtype))
         return x + y
-    if cfg.attn_kind == "mla":
-        y, _, _ = mla_decode_step(
-            p.attn, h, lc["c_kv"][r], lc["k_pe"][r], cache_len,
-            n_heads=cfg.n_heads, kv_lora_rank=cfg.kv_lora_rank,
-            qk_nope_head_dim=cfg.qk_nope_head_dim,
-            qk_rope_head_dim=cfg.qk_rope_head_dim,
-            v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta)
-    else:
-        y, _, _ = gqa_decode_step(
-            p.attn, h, lc["k"][r], lc["v"][r], cache_len,
-            n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim, window=spec.window,
-            rope=cfg.rope, rope_theta=cfg.rope_theta)
+    with span("model.attention"):
+        if cfg.attn_kind == "mla":
+            y, _, _ = mla_decode_step(
+                p.attn, h, lc["c_kv"][r], lc["k_pe"][r], cache_len,
+                n_heads=cfg.n_heads, kv_lora_rank=cfg.kv_lora_rank,
+                qk_nope_head_dim=cfg.qk_nope_head_dim,
+                qk_rope_head_dim=cfg.qk_rope_head_dim,
+                v_head_dim=cfg.v_head_dim, rope_theta=cfg.rope_theta)
+        else:
+            y, _, _ = gqa_decode_step(
+                p.attn, h, lc["k"][r], lc["v"][r], cache_len,
+                n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+                head_dim=cfg.resolved_head_dim, window=spec.window,
+                rope=cfg.rope, rope_theta=cfg.rope_theta)
     x = x + y
     if cross_len is not None:
         x = x + _cross_decode(cfg, p.xattn, rms_norm(x, p.norm_x),
@@ -583,8 +587,18 @@ def decode_step(params: Transformer, cfg: ModelConfig,
     ``shared`` cache of that application.  A cross-attention model attends to the cache's ``xk``/``xv`` (filled
     by ``models.encdec.encdec_prefill``); over a cross cache of no
     source tokens it adds nothing, as the reference's empty softmax
-    does.
+    does.  While a ``torch.profiler`` profile records, the step is a
+    ``model.decode_step`` span (``repro_torch.tracing``) around a
+    ``model.attention`` span for each layer's mixer and ``model.head``.
     """
+    with span("model.decode_step"):
+        return _decode_step(params, cfg, tokens, cache, embeds)
+
+
+def _decode_step(params: Transformer, cfg: ModelConfig,
+                 tokens: torch.Tensor, cache: dict,
+                 embeds: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, dict]:
     check_supported(cfg)
     x = _embed(params, cfg, tokens, embeds)
     cache_len = cache["len"]
@@ -614,10 +628,11 @@ def decode_step(params: Transformer, cfg: ModelConfig,
         if shared is not None:
             x = _shared_decode(cfg, shared, x, cache["shared"], r,
                                cache_len)
-    x = rms_norm(x, params.final_norm)
-    head = params.embed.T if cfg.tie_embeddings else params.head
-    new_cache = dict(cache, len=cache_len + 1)
-    return (x @ head)[:, 0, :], new_cache
+    with span("model.head"):
+        x = rms_norm(x, params.final_norm)
+        head = params.embed.T if cfg.tie_embeddings else params.head
+        logits = (x @ head)[:, 0, :]
+    return logits, dict(cache, len=cache_len + 1)
 
 
 @torch.no_grad()

@@ -48,6 +48,15 @@ so bookkeeping costs no device-to-host copy; the one copy per step is the
 sampled tokens.  ``snapshot()``/``restore()`` capture queued and in-flight
 requests so a restarted replica replays its work.
 
+A run counts the decode steps spent replaying prompts
+(``EngineReport.replay_steps``) and stamps, on the engine's clock, each
+request's first leaving the queue (``RequestResult.queue_wait``, from its
+arrival) and each of its tokens (``RequestResult.token_times``: the first
+token's stamp, then the end of the iteration that produced each later
+one, so that TPOT is the mean of their gaps).  While a ``torch.profiler``
+profile records, its iterations, admissions, replay steps, uploads,
+readbacks and retirements are ``repro_torch.tracing`` spans.
+
 An encoder-decoder config raises ``ValueError`` before anything is
 allocated, with the reference's ``prefill`` error: its requests prefill
 through ``models.encdec.encdec_prefill``, which the engine does not run,
@@ -66,6 +75,7 @@ import torch
 from repro_torch.device import resolve_device, torch_dtype
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
+from repro_torch.tracing import span
 
 # the cache entries of an SSM layer that carry a request's recurrent state
 SSM_STATE = ("ssm", "conv_x", "conv_bc")
@@ -79,8 +89,11 @@ class _Slot:
     generated: int = 0
     order: int = -1
     arrival: float = 0.0
+    # engine-clock stamp of the request's first admission
+    admitted: float = 0.0
     first_token_t: Optional[float] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
+    token_times: List[float] = dataclasses.field(default_factory=list)
 
     @property
     def active(self) -> bool:
@@ -102,6 +115,11 @@ class RequestResult:
     e2e: float
     tokens: List[int]
     preemptions: int = 0
+    # first admission minus arrival, on the engine's clock
+    queue_wait: float = 0.0
+    # engine-clock stamp of each token: the first token's, then the end
+    # of the iteration that produced each later one
+    token_times: List[float] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -110,6 +128,9 @@ class EngineReport:
     total_time: float
     iterations: int
     preemptions: int
+    # decode steps spent replaying prompts (re-admissions included);
+    # ``iterations`` counts the main loop's steps
+    replay_steps: int = 0
 
     @property
     def ttft_mean(self) -> float:
@@ -160,6 +181,7 @@ class ServingEngine:
         self.queue: List[dict] = []
         self._order = 0
         self.preemptions = 0
+        self.replay_steps = 0
 
     def _new_cache(self) -> dict:
         return T.init_cache(self.cfg, self.max_batch, self.max_len,
@@ -178,11 +200,13 @@ class ServingEngine:
     def _decode(self, toks: np.ndarray) -> torch.Tensor:
         """One decode step over all slots at the host lengths; returns the
         greedy (first-max) next token of every slot, still on device."""
-        self.cache["len"] = torch.from_numpy(self.lens).to(self.device)
-        logits, self.cache = T.decode_step(
-            self.params, self.cfg, torch.from_numpy(toks).to(self.device),
-            self.cache)
-        return torch.argmax(logits, dim=-1)
+        with span("engine.upload"):
+            self.cache["len"] = torch.from_numpy(self.lens).to(self.device)
+            toks = torch.from_numpy(toks).to(self.device)
+        logits, self.cache = T.decode_step(self.params, self.cfg, toks,
+                                           self.cache)
+        with span("engine.readback"):
+            return torch.argmax(logits, dim=-1)
 
     # -- fault tolerance -------------------------------------------------------
 
@@ -206,7 +230,10 @@ class ServingEngine:
     def _kv_used(self) -> int:
         return sum(s.kv_tokens for s in self.slots)
 
-    def _admit(self, now: float) -> None:
+    def _admit(self, now: float, t0: Optional[float] = None) -> None:
+        """Admit queued requests that have arrived by ``now`` while slots
+        and budget allow; ``t0``, the host clock at the start of the
+        iteration at ``now``, dates their leaving the queue."""
         while self.queue and self.queue[0]["arrival"] <= now:
             req = self.queue[0]
             free = [i for i, s in enumerate(self.slots) if not s.active]
@@ -215,15 +242,19 @@ class ServingEngine:
             if self._kv_used() + len(req["prompt"]) > self.kv_budget:
                 break
             self.queue.pop(0)
-            i = free[0]
-            self.slots[i] = _Slot(rid=req["rid"],
-                                  prompt=np.asarray(req["prompt"]),
-                                  gen_len=req["gen_len"], order=self._order,
-                                  arrival=req["arrival"])
-            self._order += 1
-            for t in self._state():
-                t[:, i].zero_()
-            self._prefill_slot(i)
+            left = now if t0 is None else now + (time.perf_counter() - t0)
+            with span("engine.admit", rid=req["rid"]):
+                i = free[0]
+                self.slots[i] = _Slot(rid=req["rid"],
+                                      prompt=np.asarray(req["prompt"]),
+                                      gen_len=req["gen_len"],
+                                      order=self._order,
+                                      arrival=req["arrival"],
+                                      admitted=req.get("admitted", left))
+                self._order += 1
+                for t in self._state():
+                    t[:, i].zero_()
+                self._prefill_slot(i)
 
     def _prefill_slot(self, i: int) -> None:
         """Replay the prompt through the decode step (the whole batch's
@@ -235,10 +266,12 @@ class ServingEngine:
         state = self._state() if others else []
         kept = [t[:, others] for t in state]
         for t in range(len(s.prompt)):
-            toks = np.zeros((self.max_batch, 1), np.int32)
-            toks[i, 0] = s.prompt[t]
-            nxt = self._decode(toks)
-            self.lens[i] += 1
+            with span("engine.replay_step", rid=s.rid):
+                toks = np.zeros((self.max_batch, 1), np.int32)
+                toks[i, 0] = s.prompt[t]
+                nxt = self._decode(toks)
+                self.lens[i] += 1
+                self.replay_steps += 1
         for t, rows in zip(state, kept):
             t[:, others] = rows
         s.generated = 1
@@ -252,7 +285,8 @@ class ServingEngine:
         idx = self.slots.index(victim)
         self.queue.insert(0, dict(rid=victim.rid, prompt=victim.prompt,
                                   gen_len=victim.gen_len,
-                                  arrival=victim.arrival))
+                                  arrival=victim.arrival,
+                                  admitted=victim.admitted))
         self.preemptions += 1
         self.slots[idx] = _Slot()
 
@@ -271,49 +305,67 @@ class ServingEngine:
         records: Dict[int, RequestResult] = {}
         now = 0.0
         iters = 0
+        self.replay_steps = 0
         while self.queue or any(s.active for s in self.slots):
             t0 = time.perf_counter()
-            self._admit(now)
-            active = [i for i, s in enumerate(self.slots) if s.active]
-            if not active:
-                if self.queue:
-                    now = max(now, self.queue[0]["arrival"])
-                    continue
-                break
-            # requests prefilled in this iteration have their first token now
-            fresh = [i for i in active if self.slots[i].first_token_t is None]
-            if fresh:
+            with span("engine.iteration", step=iters):
+                self._admit(now, t0)
+                active = [i for i, s in enumerate(self.slots) if s.active]
+                if not active:
+                    if self.queue:
+                        now = max(now, self.queue[0]["arrival"])
+                        continue
+                    break
+                # requests prefilled in this iteration have their first
+                # token now
+                fresh = [i for i in active
+                         if self.slots[i].first_token_t is None]
+                if fresh:
+                    self._sync()
+                    t_first = now + (time.perf_counter() - t0)
+                    for i in fresh:
+                        self.slots[i].first_token_t = t_first
+                        self.slots[i].token_times.append(t_first)
+
+                toks = np.zeros((self.max_batch, 1), np.int32)
+                for i in active:
+                    toks[i, 0] = self.slots[i].tokens[-1]
+                nxt = self._decode(toks)
+                with span("engine.readback"):
+                    nxt = nxt.cpu().numpy()
+                # inactive slots must not advance their length counters
+                self.lens[active] += 1
                 self._sync()
-                t_first = now + (time.perf_counter() - t0)
-                for i in fresh:
-                    self.slots[i].first_token_t = t_first
+                step_t = time.perf_counter() - t0
+                now += step_t
+                iters += 1
 
-            toks = np.zeros((self.max_batch, 1), np.int32)
-            for i in active:
-                toks[i, 0] = self.slots[i].tokens[-1]
-            nxt = self._decode(toks).cpu().numpy()
-            # inactive slots must not advance their length counters
-            self.lens[active] += 1
-            self._sync()
-            step_t = time.perf_counter() - t0
-            now += step_t
-            iters += 1
-
-            for i in active:
-                s = self.slots[i]
-                s.tokens.append(int(nxt[i]))
-                s.generated += 1
-                if s.generated >= s.gen_len or s.kv_tokens >= self.max_len - 1:
-                    denom = max(s.generated - 1, 1)
-                    records[s.rid] = RequestResult(
-                        rid=s.rid, arrival=s.arrival,
-                        ttft=s.first_token_t - s.arrival,
-                        tpot=(now - s.first_token_t) / denom,
-                        e2e=now - s.arrival, tokens=list(s.tokens))
-                    self.slots[i] = _Slot()
-            # KV budget enforcement (greedy batching can overshoot)
-            while self._kv_used() > self.kv_budget:
-                self._evict_most_recent()
+                with span("engine.retire"):
+                    self._retire(active, nxt, now, records)
 
         return EngineReport(results=list(records.values()), total_time=now,
-                            iterations=iters, preemptions=self.preemptions)
+                            iterations=iters, preemptions=self.preemptions,
+                            replay_steps=self.replay_steps)
+
+    def _retire(self, active: List[int], nxt: np.ndarray, now: float,
+                records: Dict[int, RequestResult]) -> None:
+        """Append each active slot's token, record and free the finished
+        ones, and evict while the KV budget is overflowed."""
+        for i in active:
+            s = self.slots[i]
+            s.tokens.append(int(nxt[i]))
+            s.token_times.append(now)
+            s.generated += 1
+            if s.generated >= s.gen_len or s.kv_tokens >= self.max_len - 1:
+                denom = max(s.generated - 1, 1)
+                records[s.rid] = RequestResult(
+                    rid=s.rid, arrival=s.arrival,
+                    ttft=s.first_token_t - s.arrival,
+                    tpot=(now - s.first_token_t) / denom,
+                    e2e=now - s.arrival, tokens=list(s.tokens),
+                    queue_wait=s.admitted - s.arrival,
+                    token_times=list(s.token_times))
+                self.slots[i] = _Slot()
+        # KV budget enforcement (greedy batching can overshoot)
+        while self._kv_used() > self.kv_budget:
+            self._evict_most_recent()
