@@ -50,7 +50,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -84,6 +84,9 @@ BLOCKS_PER_SM = 4   # the split grid aims at this many blocks per SM
 # per (device, stream): int32 tickets of the in-kernel combine, zeroed
 # once; every launch leaves them zero
 _tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+# buffers a larger one replaced: a CUDA graph captured on their stream
+# still launches with their address
+_retired: List[torch.Tensor] = []
 
 
 def split_plan(smax: int, rows: int, sm_count: int) -> Tuple[int, int]:
@@ -120,6 +123,8 @@ def _ticket_buffer(device: torch.device, stream: int,
     key = (device.index, stream)
     buf = _tickets.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(n, dtype=torch.int32, device=device)
         _tickets[key] = buf
     return buf

@@ -48,6 +48,10 @@ new SSM state and windows into it in place.
 Sliding-window layers keep ring caches of ``min(max_len,
 ring_size(window))`` slots (``init_cache``, ``gqa_decode_step``).
 
+``CapturedStep`` is one ``decode_step`` over fixed shapes captured as a
+CUDA graph, bound to one cache; ``decode_step(..., graph=...)`` replays
+it (the serving engine's steps on a card).
+
 Ported: GQA and MLA decoders with a dense or MoE FFN (mixtral;
 deepseek, with its first-k-dense prefix), blocks of several attention
 layers with their own windows (gemma3: five sliding-window layers and
@@ -70,6 +74,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import to_cache_dtype, torch_dtype
+from repro_torch.kernels import decode_attention as _decode_kernel
+from repro_torch.kernels import flash_attention as _flash_kernel
+from repro_torch.kernels import rmsnorm as _rmsnorm_kernel
+from repro_torch.kernels import ssd_scan as _ssd_kernel
 from repro_torch.layers.attention import attend_decode
 from repro_torch.layers import (blockwise_attention, gqa_attention,
                                 gqa_decode_step, init_attention,
@@ -574,7 +582,8 @@ def _shared_decode(cfg: ModelConfig, shared: SharedBlock, x: torch.Tensor,
 @torch.no_grad()
 def decode_step(params: Transformer, cfg: ModelConfig,
                 tokens: torch.Tensor, cache: dict,
-                embeds: Optional[torch.Tensor] = None
+                embeds: Optional[torch.Tensor] = None,
+                graph: Optional["CapturedStep"] = None
                 ) -> Tuple[torch.Tensor, dict]:
     """One serving step: (B, 1) token ids (or ``embeds`` (B, 1, d_model))
     + cache -> logits (B, vocab) and the cache with ``len`` advanced by
@@ -590,15 +599,119 @@ def decode_step(params: Transformer, cfg: ModelConfig,
     does.  While a ``torch.profiler`` profile records, the step is a
     ``model.decode_step`` span (``repro_torch.tracing``) around a
     ``model.attention`` span for each layer's mixer and ``model.head``.
+
+    With ``graph`` (a ``CapturedStep`` of these params and this cache),
+    the step is that graph's replay: the same kernels, launched by one
+    graph launch, and the returned logits are the graph's static output,
+    which its next replay overwrites.  No span opens inside a replay.
     """
     with span("model.decode_step"):
-        return _decode_step(params, cfg, tokens, cache, embeds)
+        if graph is None:
+            logits = _decode_step(params, cfg, tokens, cache, embeds)
+        elif embeds is not None:
+            raise ValueError("decode_step: a captured step takes token ids, "
+                             "not embeds")
+        else:
+            logits = graph.replay(params, tokens, cache)
+        return logits, dict(cache, len=cache["len"] + 1)
+
+
+# the kernel wrappers whose launch counters a replayed step advances
+_COUNTED = (_rmsnorm_kernel, _decode_kernel, _flash_kernel, _ssd_kernel)
+
+
+def _launch_counts() -> list:
+    """(launches, variant_launches) of each wrapper of ``_COUNTED``."""
+    return [(m.launches, dict(getattr(m, "variant_launches", {})))
+            for m in _COUNTED]
+
+
+def _set_launch_counts(counts: list) -> None:
+    for m, (n, variants) in zip(_COUNTED, counts):
+        m.launches = n
+        if hasattr(m, "variant_launches"):
+            m.variant_launches.clear()
+            m.variant_launches.update(variants)
+
+
+def _cache_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for t in tree.values() if isinstance(tree, dict) else tree:
+            yield from _cache_leaves(t)
+
+
+class CapturedStep:
+    """One ``decode_step`` over fixed shapes, captured as a CUDA graph,
+    that ``decode_step(..., graph=...)`` replays.
+
+    It is bound to one parameter tree and one cache (the addresses of
+    their tensors) and to the shape of ``tokens`` (B, 1): it holds static
+    ``tokens`` and ``len`` (B,), into which a replay copies its inputs,
+    and the static ``logits`` (B, vocab) that a replay writes.
+
+    Capturing first runs one eager step on the capture stream: it loads
+    the kernel library and sets up what each kernel needs on that stream
+    (cuBLAS's handle and workspace, the decode wrapper's ticket buffer),
+    so that the graph holds the step's kernels alone.  That step writes
+    the cache's rows at ``cache["len"]`` and advances SSM state, which a
+    second step would not undo: the cache must hold no request, and is
+    zeroed in place afterwards.  The kernel wrappers' counters
+    (``launches``, ``variant_launches``) are left as they were before
+    that step; each replay adds the launches the captured step counted,
+    as an eager step's Python would.
+    """
+
+    def __init__(self, params: Transformer, cfg: ModelConfig, cache: dict,
+                 tokens: torch.Tensor):
+        self.params = params
+        self._bound = {k: v for k, v in cache.items() if k != "len"}
+        self.tokens = tokens.clone()
+        self.len = cache["len"].clone()
+        static = dict(self._bound, len=self.len)
+        device = tokens.device
+        before = _launch_counts()
+        stream = torch.cuda.Stream(device=device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.no_grad(), torch.cuda.stream(stream):
+            _decode_step(params, cfg, self.tokens, static, None)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        warm = _launch_counts()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(self.graph, stream=stream):
+            self.logits = _decode_step(params, cfg, self.tokens, static, None)
+        after = _launch_counts()
+        self._launched = [
+            (n1 - n0, {k: c - v0.get(k, 0) for k, c in v1.items()
+                       if c != v0.get(k, 0)})
+            for (n0, v0), (n1, v1) in zip(warm, after)]
+        _set_launch_counts(before)
+        for t in _cache_leaves(self._bound):
+            t.zero_()
+
+    def replay(self, params: Transformer, tokens: torch.Tensor,
+               cache: dict) -> torch.Tensor:
+        """Copy ``tokens`` and ``cache["len"]`` into the static inputs,
+        replay the graph and return the static logits."""
+        if params is not self.params or tokens.shape != self.tokens.shape \
+                or any(cache.get(k) is not v for k, v in self._bound.items()):
+            raise ValueError("decode_step: the captured step is bound to "
+                             "other params, another cache or token shape "
+                             f"{tuple(self.tokens.shape)}")
+        self.tokens.copy_(tokens)
+        self.len.copy_(cache["len"])
+        self.graph.replay()
+        for m, (n, variants) in zip(_COUNTED, self._launched):
+            m.launches += n
+            for k, c in variants.items():
+                m.variant_launches[k] = m.variant_launches.get(k, 0) + c
+        return self.logits
 
 
 def _decode_step(params: Transformer, cfg: ModelConfig,
                  tokens: torch.Tensor, cache: dict,
-                 embeds: Optional[torch.Tensor]
-                 ) -> Tuple[torch.Tensor, dict]:
+                 embeds: Optional[torch.Tensor]) -> torch.Tensor:
     check_supported(cfg)
     x = _embed(params, cfg, tokens, embeds)
     cache_len = cache["len"]
@@ -631,8 +744,7 @@ def _decode_step(params: Transformer, cfg: ModelConfig,
     with span("model.head"):
         x = rms_norm(x, params.final_norm)
         head = params.embed.T if cfg.tie_embeddings else params.head
-        logits = (x @ head)[:, 0, :]
-    return logits, dict(cache, len=cache_len + 1)
+        return (x @ head)[:, 0, :]
 
 
 @torch.no_grad()

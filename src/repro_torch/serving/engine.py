@@ -48,6 +48,17 @@ so bookkeeping costs no device-to-host copy; the one copy per step is the
 sampled tokens.  ``snapshot()``/``restore()`` capture queued and in-flight
 requests so a restarted replica replays its work.
 
+On a CUDA device every decode step, prompt replay steps included, is
+the replay of one CUDA graph (``models.transformer.CapturedStep``): the
+step over the engine's fixed shapes, (max_batch, 1) tokens on its own
+cache, captured at the engine's first step, while the cache holds no
+request, and again at the first step after ``restore()``, which
+allocates a new cache.  A replay runs the eager step's kernels with one
+host launch where the eager step makes one per op.  Each step is still
+one call of ``models.transformer.decode_step``, looked up on the module
+at call time; ``EngineReport.graph_steps`` counts the replayed steps.
+On a CPU nothing is captured.
+
 A run counts the decode steps spent replaying prompts
 (``EngineReport.replay_steps``) and stamps, on the engine's clock, each
 request's first leaving the queue (``RequestResult.queue_wait``, from its
@@ -79,6 +90,8 @@ from repro_torch.tracing import span
 
 # the cache entries of an SSM layer that carry a request's recurrent state
 SSM_STATE = ("ssm", "conv_x", "conv_bc")
+# device types on which the engine replays its decode step as a CUDA graph
+GRAPH_DEVICES = ("cuda",)
 
 
 @dataclasses.dataclass
@@ -131,6 +144,8 @@ class EngineReport:
     # decode steps spent replaying prompts (re-admissions included);
     # ``iterations`` counts the main loop's steps
     replay_steps: int = 0
+    # decode steps of either kind served by replaying the captured graph
+    graph_steps: int = 0
 
     @property
     def ttft_mean(self) -> float:
@@ -182,6 +197,8 @@ class ServingEngine:
         self._order = 0
         self.preemptions = 0
         self.replay_steps = 0
+        self.graph_steps = 0
+        self._graph: Optional[T.CapturedStep] = None
 
     def _new_cache(self) -> dict:
         return T.init_cache(self.cfg, self.max_batch, self.max_len,
@@ -203,8 +220,12 @@ class ServingEngine:
         with span("engine.upload"):
             self.cache["len"] = torch.from_numpy(self.lens).to(self.device)
             toks = torch.from_numpy(toks).to(self.device)
+        if self._graph is None and self.device.type in GRAPH_DEVICES:
+            self._graph = T.CapturedStep(self.params, self.cfg, self.cache,
+                                         toks)
         logits, self.cache = T.decode_step(self.params, self.cfg, toks,
-                                           self.cache)
+                                           self.cache, graph=self._graph)
+        self.graph_steps += self._graph is not None
         with span("engine.readback"):
             return torch.argmax(logits, dim=-1)
 
@@ -223,6 +244,7 @@ class ServingEngine:
         self.queue.sort(key=lambda r: r["arrival"])
         self.slots = [_Slot() for _ in range(self.max_batch)]
         self.cache = self._new_cache()
+        self._graph = None
         self.lens = np.zeros(self.max_batch, np.int32)
 
     # -- scheduling ------------------------------------------------------------
@@ -306,6 +328,7 @@ class ServingEngine:
         now = 0.0
         iters = 0
         self.replay_steps = 0
+        self.graph_steps = 0
         while self.queue or any(s.active for s in self.slots):
             t0 = time.perf_counter()
             with span("engine.iteration", step=iters):
@@ -345,7 +368,8 @@ class ServingEngine:
 
         return EngineReport(results=list(records.values()), total_time=now,
                             iterations=iters, preemptions=self.preemptions,
-                            replay_steps=self.replay_steps)
+                            replay_steps=self.replay_steps,
+                            graph_steps=self.graph_steps)
 
     def _retire(self, active: List[int], nxt: np.ndarray, now: float,
                 records: Dict[int, RequestResult]) -> None:

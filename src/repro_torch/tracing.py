@@ -35,6 +35,10 @@ The names, by layer (``serving/engine.py``, ``models/transformer.py``,
   * ``moe_forward``;
   * ``kernel.rmsnorm``, ``kernel.decode_attention``,
     ``kernel.flash_attention``, ``kernel.ssd_scan`` (each ctypes launch).
+
+A decode step that replays a captured CUDA graph (the serving engine's,
+on a card) runs no Python inside the step: of the model's spans it
+opens ``model.decode_step`` alone.
 """
 
 from __future__ import annotations

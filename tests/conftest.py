@@ -26,6 +26,10 @@ def run_subprocess(code: str, devices: int = 8, timeout: int = 420):
     return res.stdout
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "chip: needs a CUDA card")
+
+
 @pytest.fixture
 def subproc():
     return run_subprocess
